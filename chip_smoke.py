@@ -24,15 +24,35 @@ each and stopping with a traceback at the first failure:
     both checked against the CPU backend, with each kernel timed and checked
     against its plain version on the card at the sweep's own shapes.
 
+ 6. ``generate``: ``GenerationServer`` on zamba2-1.2b at full width (38
+    layers) serving bs 4, a 512-token prompt and 32 greedy tokens on the
+    card: wall, prefill and per-token decode times, and the attention and
+    SSD kernels' launches per prefill (one per attention site, one per
+    Mamba2 layer). Then a copy cut to 2 layers (still full width) in
+    float32 compute, run on ``"cuda"`` and on ``"cpu"``: logits within
+    1e-3 and 8 greedy tokens equal.
+ 7. ``serve_interleaved``: ``ManagedInterleaveRuntime`` (no trainer) over
+    ``BatchInferenceServer(zamba2-1.2b, seq_len 2048, bs 8)`` and a uniform
+    trace at 80% of the measured minibatch rate for 5 s: p50 / p99 latency
+    and the kernels' launches per minibatch; then one minibatch under
+    ``torch.profiler`` (device busy time, idle share, top kernels).
+
+The kernel phase also holds the attention kernel (K3) and the SSD chunk
+kernel (K4) against their plain versions at the shapes of the
+``serve_interleaved`` forward, K3 again at a windowed and a ragged shape.
+Float32 comparisons run with TF32 off (``torch.backends.cuda.matmul`` and
+``torch.backends.cudnn``).
+
 Every path phase sets the kernels' launch counts to 0 before it runs and
-fails unless each kernel launched. The line before the last lists every
-kernel (``{"kernels": [...]}``); the last line is
+fails unless each kernel of its path launched. The line before the last
+lists every kernel (``{"kernels": [...]}``); the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device it exits non-zero
 before printing any result.
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import math
 import subprocess
@@ -43,9 +63,16 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 
 ENG_TOL = dict(rtol=1e-9, atol=1e-8)      # docs/exactness.md, engine tier
+# tests/test_kernels.py's tolerances of the attention and SSD kernels
+ATTN_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+SSD_TOL = dict(rtol=2e-4, atol=1e-4)
+MODEL_TOL = dict(rtol=1e-3, atol=1e-3)   # cuda vs cpu logits, float32
 HBM_BYTES_PER_S = 3.35e12                 # H100 SXM data sheet
 FP64_OPS_PER_S = 34e12                    # H100 SXM data sheet, float64
 #                                           outside the tensor cores
+OPS_PER_S = {"float64": FP64_OPS_PER_S,
+             "float32": 67e12,            # outside the tensor cores
+             "bfloat16": 989e12}          # dense, tensor cores
 # the kernel phase's shapes: the engine's full lane chunk, a report-builder
 # sort chunk, and one row long enough for the sort's global-memory passes
 MAXPLUS_SHAPE = (8192, 8192)
@@ -54,6 +81,17 @@ SORT_SHAPES = ((512, 8192), (1, 32768))
 # space, then bench_interleave_engine.py's 100k-lane point
 SWEEP_TRACE = (60.0, 120.0, 0)            # rate, duration, seed
 BIG_LANES, BIG_TRACE = 100_000, (32.0, 4.0, 7)
+# the model phases: zamba2-1.2b at full width
+ARCH = "zamba2-1.2b"
+GEN_BS, GEN_PROMPT, GEN_STEPS = 4, 512, 32
+PARITY_LAYERS, PARITY_PROMPT, PARITY_STEPS = 2, 256, 8
+SERVE_SEQ, SERVE_BS, SERVE_DURATION, SERVE_LOAD = 2048, 8, 5.0, 0.8
+# the kernel phase's model shapes: those of the serve_interleaved forward
+# (B, H, S, D) and (b, nc, l, h, p, n), then K3 windowed and ragged
+ATTN_SHAPE = (SERVE_BS, 32, SERVE_SEQ, 64)
+ATTN_CHECKS = ((1, 32, 1024, 64, 512), (2, 32, 300, 64, None),
+               (1, 8, 300, 128, 100))
+SSD_SHAPE = (SERVE_BS, SERVE_SEQ // 256, 256, 64, 64, 64)
 
 KERNEL_ROWS = {
     "maxplus_scan": dict(
@@ -62,7 +100,15 @@ KERNEL_ROWS = {
     "lane_sort": dict(
         route="cuda", source="src/repro_torch/kernels/csrc/lane_sort.cu",
         replaces="src/repro/kernels/fulcrum/lane_sort.py:52"),
+    "flash_attention": dict(
+        route="cuda", source="src/repro_torch/kernels/csrc/flash_attention.cu",
+        replaces="src/repro/kernels/flash_attention/flash_attention.py:70"),
+    "ssd_chunk": dict(
+        route="cuda", source="src/repro_torch/kernels/csrc/ssd_chunk.cu",
+        replaces="src/repro/kernels/ssd_scan/ssd_scan.py:57"),
 }
+ENGINE_KERNELS = ("maxplus_scan", "lane_sort")
+MODEL_KERNELS = ("flash_attention", "ssd_chunk")
 
 
 def emit(obj: dict) -> None:
@@ -88,10 +134,12 @@ def cuda_ms(torch, fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def bound(nbytes: float, ops: float) -> tuple[float, str]:
+def bound(nbytes: float, ops: float,
+          ops_per_s: float = FP64_OPS_PER_S) -> tuple[float, str]:
     """Least time (ms) for the work: the larger of bytes over the memory
-    rate and float64 operations over the float64 rate."""
-    t_b, t_o = nbytes / HBM_BYTES_PER_S, ops / FP64_OPS_PER_S
+    rate and operations over the card's rate for their type (float64 by
+    default)."""
+    t_b, t_o = nbytes / HBM_BYTES_PER_S, ops / ops_per_s
     return (1e3 * max(t_b, t_o), "bytes" if t_b >= t_o else "operations")
 
 
@@ -201,6 +249,104 @@ def time_sort(torch, K2, mat, budgets, reps: int) -> dict:
             "max_abs_err": err}
 
 
+def attention_pairs(S: int, window) -> int:
+    """(query, key) pairs a causal (windowed) attention row set visits."""
+    if window is None or window >= S:
+        return S * (S + 1) // 2
+    return window * (window + 1) // 2 + (S - window) * window
+
+
+def check_attention(torch, K3, shape, dtype, window, gen, dev) -> tuple:
+    q, k, v = (torch.randn(shape, generator=gen, device=dev).to(dtype)
+               for _ in range(3))
+    got = K3.flash_attention(q, k, v, window=window)
+    torch.cuda.synchronize()
+    want = K3.flash_attention_plain(q, k, v, window=window)
+    tol = ATTN_TOL[str(dtype).split(".")[-1]]
+    err = float((got.float() - want.float()).abs().max())
+    if not torch.allclose(got.float(), want.float(), rtol=tol, atol=tol):
+        fail(f"flash_attention {shape} {dtype} window={window}: differs "
+             f"from the plain version by {err} (tolerance {tol})")
+    return (q, k, v), err
+
+
+def time_attention(torch, K3, gen, dev, reps: int) -> dict:
+    """K3 at the serve_interleaved forward's shape in bf16 (timed, with
+    SDPA as the library yardstick), then checked at the windowed and ragged
+    shapes in float32 and bf16."""
+    B, H, S, D = ATTN_SHAPE
+    (q, k, v), err = check_attention(torch, K3, ATTN_SHAPE, torch.bfloat16,
+                                     None, gen, dev)
+    ms = cuda_ms(torch, lambda: K3.flash_attention(q, k, v), reps)
+    plain_ms = cuda_ms(torch, lambda: K3.flash_attention_plain(q, k, v), 2)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    library_ms = cuda_ms(torch, lambda: sdpa(q, k, v, is_causal=True), reps)
+    # q, k, v read once and o written once; 4 D flops (QK^T and PV) per
+    # visible (query, key) pair, at the bf16 tensor rate
+    b_ms, by = bound(4.0 * B * H * S * D * q.element_size(),
+                     4.0 * D * B * H * attention_pairs(S, None),
+                     OPS_PER_S["bfloat16"])
+    del q, k, v
+    checks = []
+    for (b, h, s, d, window) in ATTN_CHECKS:
+        for dtype in (torch.float32, torch.bfloat16):
+            _, e = check_attention(torch, K3, (b, h, s, d), dtype, window,
+                                   gen, dev)
+            checks.append({"shape": [b, h, s, d], "window": window,
+                           "dtype": str(dtype).split(".")[-1],
+                           "max_abs_err": e})
+    torch.cuda.empty_cache()
+    return {"shape": list(ATTN_SHAPE), "dtype": "bfloat16", "kernel_ms": ms,
+            "plain_ms": plain_ms, "library_ms": library_ms,
+            "library": "scaled_dot_product_attention(is_causal=True)",
+            "bound_ms": b_ms, "bound_by": by, "max_abs_err": err,
+            "checks": checks}
+
+
+def ssd_case(torch, shape, gen, dev):
+    """Mamba2-like SSD inputs: dt = softplus(N(0,1) - 2), A in -[1, 16)."""
+    b, nc, l, h, p, n = shape
+    f32 = dict(dtype=torch.float32, device=dev)
+    x = torch.randn((b, nc, l, h, p), generator=gen, **f32)
+    dt = torch.nn.functional.softplus(
+        torch.randn((b, nc, l, h), generator=gen, **f32) - 2.0)
+    A = -(1.0 + 15.0 * torch.rand(h, generator=gen, **f32))
+    B = torch.randn((b, nc, l, n), generator=gen, **f32)
+    C = torch.randn((b, nc, l, n), generator=gen, **f32)
+    return x, (dt * A).contiguous(), dt, B, C
+
+
+def time_ssd(torch, K4, gen, dev, reps: int) -> dict:
+    b, nc, l, h, p, n = SSD_SHAPE
+    args = ssd_case(torch, SSD_SHAPE, gen, dev)
+    y, st = K4.ssd_chunk(*args)
+    torch.cuda.synchronize()
+    yp, stp = K4.ssd_chunk_plain(*args)
+    err = max(float((y - yp).abs().max()), float((st - stp).abs().max()))
+    if not (torch.allclose(y, yp, **SSD_TOL)
+            and torch.allclose(st, stp, **SSD_TOL)):
+        fail(f"ssd_chunk {SSD_SHAPE}: differs from the plain version by "
+             f"{err} (tolerance {SSD_TOL})")
+    del y, st, yp, stp
+    ms = cuda_ms(torch, lambda: K4.ssd_chunk(*args), reps)
+    plain_ms = cuda_ms(torch, lambda: K4.ssd_chunk_plain(*args), 2)
+    # x, dA, dt, B, C read once, y and the states written once; the least
+    # work is C B^T below the diagonal once per (batch, chunk) (it does not
+    # depend on the head), then per head the masked product with x below
+    # the diagonal and the state product, 2 flops per multiply-add
+    tri = l * (l + 1) // 2
+    nbytes = 4.0 * (2 * b * nc * l * h * p + 2 * b * nc * l * h
+                    + 2 * b * nc * l * n + b * nc * h * n * p)
+    ops = 2.0 * b * nc * (tri * n + h * (tri * p + l * n * p))
+    b_ms, by = bound(nbytes, ops, OPS_PER_S["float32"])
+    del args
+    torch.cuda.empty_cache()
+    return {"shape": list(SSD_SHAPE), "dtype": "float32", "kernel_ms": ms,
+            "plain_ms": plain_ms, "library_ms": None,
+            "library": "none: no single PyTorch call computes the SSD chunk",
+            "bound_ms": b_ms, "bound_by": by, "max_abs_err": err}
+
+
 # ---------------------------------------------------------------------------
 # phases
 # ---------------------------------------------------------------------------
@@ -227,7 +373,7 @@ def phase_device(torch, build) -> dict:
     return out
 
 
-def phase_kernels(torch, K1, K2, seed: int) -> dict:
+def phase_kernels(torch, K1, K2, K3, K4, seed: int) -> dict:
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(seed)
     args, valid = maxplus_case(torch, *MAXPLUS_SHAPE, gen, dev)
@@ -237,11 +383,15 @@ def phase_kernels(torch, K1, K2, seed: int) -> dict:
     k2 = time_sort(torch, K2, mat, bud, reps=20)
     mat, bud = sort_case(torch, *SORT_SHAPES[1], gen, dev)
     k2_global = time_sort(torch, K2, mat, bud, reps=20)
+    del mat, bud
     torch.cuda.empty_cache()
+    k3 = time_attention(torch, K3, gen, dev, reps=10)
+    k4 = time_ssd(torch, K4, gen, dev, reps=10)
     out = {"phase": "kernels", "maxplus_scan": k1, "lane_sort": k2,
            "lane_sort_global_pass": k2_global,
            "maxplus_scan_library": "no single PyTorch call computes the "
-                                   "max-plus recurrence with fills"}
+                                   "max-plus recurrence with fills",
+           "flash_attention": k3, "ssd_chunk": k4}
     emit(out)
     return out
 
@@ -249,18 +399,19 @@ def phase_kernels(torch, K1, K2, seed: int) -> dict:
 class Launches:
     """Reads the kernels' launch counts around one path phase."""
 
-    def __init__(self, K1, K2):
-        self.K1, self.K2 = K1, K2
+    def __init__(self, wrappers: dict):
+        self.wrappers = wrappers          # kernel name -> counting wrapper
 
     def reset(self) -> None:
-        self.K1.maxplus_scan.launches = 0
-        self.K2.lane_sort.launches = 0
+        for fn in self.wrappers.values():
+            fn.launches = 0
 
-    def read(self, phase: str) -> dict:
-        got = {"maxplus_scan": self.K1.maxplus_scan.launches,
-               "lane_sort": self.K2.lane_sort.launches}
-        for name, n in got.items():
-            if n < 1:
+    def read(self, phase: str, path=ENGINE_KERNELS) -> dict:
+        """Every kernel's count; fails unless each kernel of the phase's
+        path launched."""
+        got = {name: fn.launches for name, fn in self.wrappers.items()}
+        for name in path:
+            if got[name] < 1:
                 fail(f"{phase}: kernel {name} was not launched on the path")
         return got
 
@@ -436,10 +587,177 @@ def phase_sweep(torch, np, rt, launches: Launches) -> dict:
     return out
 
 
+def check_model_launches(cfg, counts: dict, runs: int, what: str) -> None:
+    """One attention-kernel launch per shared-attention site and one SSD
+    launch per Mamba2 layer, per prefill or forward."""
+    want = {"flash_attention": cfg.n_attn_sites * runs,
+            "ssd_chunk": cfg.num_layers * runs}
+    for name, n in want.items():
+        if counts[name] != n:
+            fail(f"{what}: {name} launched {counts[name]} times, expected "
+                 f"{n} ({runs} run(s))")
+
+
+def phase_generate(torch, np, rt, launches: Launches, seed: int) -> dict:
+    """Full-width greedy generation on the card, then a 2-layer full-width
+    float32 copy on cuda against cpu."""
+    C, SV = rt["C"], rt["SV"]
+    cfg = C.get_config(ARCH)
+    dev = torch.device("cuda")
+    t0 = time.perf_counter()
+    srv = SV.GenerationServer(cfg, max_seq=GEN_PROMPT + GEN_STEPS,
+                              bs=GEN_BS, seed=seed, backend="cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    prompt = C.make_batch(cfg, GEN_PROMPT, GEN_BS, "prefill", gen)
+    srv.generate(prompt, 1, GEN_PROMPT)          # warm-up (library init)
+    torch.cuda.reset_peak_memory_stats()
+    launches.reset()
+    timings = {}
+    t0 = time.perf_counter()
+    tokens = srv.generate(prompt, GEN_STEPS, GEN_PROMPT, timings=timings)
+    wall = time.perf_counter() - t0
+    counts = launches.read("generate", MODEL_KERNELS)
+    peak = torch.cuda.max_memory_allocated()
+    check_model_launches(cfg, counts, 1, "generate")
+    if tokens.shape != (GEN_BS, GEN_STEPS) or tokens.min() < 0 \
+            or tokens.max() >= cfg.padded_vocab:
+        fail(f"generate: tokens of shape {tokens.shape} out of the vocab")
+    logits, _ = srv.prefill(prompt)
+    if tuple(logits.shape) != (GEN_BS, 1, cfg.padded_vocab) \
+            or not bool(torch.isfinite(logits.float()).all()):
+        fail("generate: prefill logits are not finite of the right shape")
+    del srv, logits
+    torch.cuda.empty_cache()
+
+    # parity: the same width cut to PARITY_LAYERS layers, float32 compute,
+    # the same weights on cuda and on cpu
+    small = dataclasses.replace(cfg, num_layers=PARITY_LAYERS,
+                                compute_dtype=torch.float32)
+    gpu = SV.GenerationServer(small, max_seq=PARITY_PROMPT + PARITY_STEPS,
+                              bs=1, seed=seed + 1, backend="cuda")
+    cpu = SV.GenerationServer(small, max_seq=PARITY_PROMPT + PARITY_STEPS,
+                              bs=1, backend="cpu", params=gpu.params)
+    toks = C.make_batch(small, PARITY_PROMPT, 1, "prefill",
+                        torch.Generator().manual_seed(seed))
+    lg, _ = gpu.prefill(toks)
+    lc, _ = cpu.prefill(toks)
+    logit_err = float((lg.cpu() - lc).abs().max())
+    if not torch.allclose(lg.cpu(), lc, **MODEL_TOL):
+        fail(f"generate parity: cuda and cpu prefill logits differ by "
+             f"{logit_err} (tolerance {MODEL_TOL})")
+    tg = gpu.generate(toks, PARITY_STEPS, PARITY_PROMPT)
+    tc = cpu.generate(toks, PARITY_STEPS, PARITY_PROMPT)
+    if not np.array_equal(tg, tc):
+        fail(f"generate parity: greedy tokens differ: cuda {tg.tolist()} "
+             f"cpu {tc.tolist()}")
+    del gpu, cpu
+    torch.cuda.empty_cache()
+    dec = timings["decode_s"]
+    out = {"phase": "generate", "arch": ARCH, "layers": cfg.num_layers,
+           "d_model": cfg.d_model, "bs": GEN_BS, "prompt": GEN_PROMPT,
+           "steps": GEN_STEPS, "params": cfg.param_count(),
+           "init_s": init_s, "wall_s": wall,
+           "prefill_ms": 1e3 * timings["prefill_s"],
+           "decode_ms_per_token": 1e3 * sum(dec) / len(dec),
+           "decode_ms_min": 1e3 * min(dec), "decode_ms_max": 1e3 * max(dec),
+           "tokens_per_s": GEN_BS * GEN_STEPS / wall,
+           "first_tokens": tokens[0][:8].tolist(),
+           "max_memory_allocated_bytes": peak, "launches": counts,
+           "parity": {"layers": PARITY_LAYERS, "prompt": PARITY_PROMPT,
+                      "steps": PARITY_STEPS, "max_abs_logit_err": logit_err,
+                      "max_abs_logit": float(lc.abs().max()),
+                      "tokens": tg[0].tolist()}}
+    emit(out)
+    return out
+
+
+def profile_forward(torch, srv) -> dict:
+    """One minibatch forward under ``torch.profiler``: the device's busy
+    time (the sum of kernel time) against the wall, and the kernels with
+    the most device time."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        srv.infer()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    rows = []
+    for e in prof.key_averages():
+        # device-side entries only: an operator's entry repeats the time of
+        # the kernels it launched
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        # the attribute's name moved between PyTorch releases
+        us = getattr(e, "self_device_time_total",
+                     getattr(e, "self_cuda_time_total", 0.0))
+        if us > 0:
+            rows.append((e.key, us, e.count))
+    rows.sort(key=lambda r: -r[1])
+    busy = sum(us for _, us, _ in rows) / 1e6
+    return {"wall_s": wall, "device_busy_s": busy,
+            "idle_share": (1.0 - busy / wall) if rows else None,
+            "top": [{"name": k[:120], "device_ms": us / 1e3, "count": n}
+                    for k, us, n in rows[:15]]}
+
+
+def phase_serve_interleaved(torch, np, rt, launches: Launches,
+                            seed: int) -> dict:
+    """Fulcrum's real-mode executor serving a uniform trace with the
+    full-width batch-inference server, no trainer."""
+    C, SV, IR, S = rt["C"], rt["SV"], rt["IR"], rt["S"]
+    cfg = C.get_config(ARCH)
+    t0 = time.perf_counter()
+    srv = SV.BatchInferenceServer(cfg, seq_len=SERVE_SEQ, bs=SERVE_BS,
+                                  seed=seed, backend="cuda")
+    init_s = time.perf_counter() - t0
+    t_mb = srv.minibatch_time(iters=3)
+    rate = SERVE_LOAD * SERVE_BS / t_mb
+    trace = S.ArrivalTrace.uniform(rate, SERVE_DURATION)
+    runtime = IR.ManagedInterleaveRuntime(
+        None, srv, IR.InterleaveConfig(rate, SERVE_BS, latency_budget=2 * t_mb,
+                                       duration=SERVE_DURATION), trace=trace)
+    torch.cuda.reset_peak_memory_stats()
+    launches.reset()
+    t0 = time.perf_counter()
+    rep = runtime.run()
+    wall = time.perf_counter() - t0
+    counts = launches.read("serve_interleaved", MODEL_KERNELS)
+    peak = torch.cuda.max_memory_allocated()
+    minibatches = len(rep.latencies) // SERVE_BS
+    if minibatches < 1 or len(rep.latencies) != minibatches * SERVE_BS:
+        fail(f"serve_interleaved: served {len(rep.latencies)} requests of "
+             f"{len(trace)}")
+    check_model_launches(cfg, counts, minibatches, "serve_interleaved")
+    logits = srv.infer()
+    if tuple(logits.shape) != (SERVE_BS, SERVE_SEQ, cfg.padded_vocab) \
+            or not bool(torch.isfinite(logits.float()).all()):
+        fail("serve_interleaved: logits are not finite of the right shape")
+    del logits
+    profile = profile_forward(torch, srv)
+    del srv
+    torch.cuda.empty_cache()
+    out = {"phase": "serve_interleaved", "arch": ARCH, "seq_len": SERVE_SEQ,
+           "bs": SERVE_BS, "init_s": init_s, "minibatch_s": t_mb,
+           "rate": rate, "requests": len(trace),
+           "served": len(rep.latencies), "minibatches": minibatches,
+           "wall_s": wall, "p50_latency_s": rep.latency_quantile(0.5),
+           "p99_latency_s": rep.latency_quantile(0.99),
+           "violation_rate": rep.violation_rate(2 * t_mb),
+           "max_memory_allocated_bytes": peak, "launches": counts,
+           "profile": profile}
+    emit(out)
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0,
-                    help="seed of the kernel-phase inputs")
+                    help="seed of the kernel-phase inputs and the models' "
+                         "random weights")
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -449,8 +767,14 @@ def main() -> int:
     sys.path.insert(0, str(ROOT / "src"))
     import numpy as np
 
+    torch.backends.cuda.matmul.allow_tf32 = False   # float32 comparisons
+    torch.backends.cudnn.allow_tf32 = False
+
+    import repro_torch.kernels.flash_attention.flash_attention as K3
     import repro_torch.kernels.fulcrum.lane_sort as K2
     import repro_torch.kernels.fulcrum.maxplus_scan as K1
+    import repro_torch.kernels.ssd_scan.ssd_scan as K4
+    from repro_torch.configs import base as C
     from repro_torch.core import problem as P
     from repro_torch.core import simulate as S
     from repro_torch.core.device_model import (DeviceModel, INFER_WORKLOADS,
@@ -458,18 +782,26 @@ def main() -> int:
     from repro_torch.core.powermode import PowerModeSpace
     from repro_torch.core.scheduler import Fulcrum
     from repro_torch.kernels import build
+    from repro_torch.runtime import interleave_runtime as IR
+    from repro_torch.runtime import serving as SV
     rt = dict(P=P, S=S, K1=K1, K2=K2, Fulcrum=Fulcrum, DeviceModel=DeviceModel,
               PowerModeSpace=PowerModeSpace, TRAIN=TRAIN_WORKLOADS,
-              INFER=INFER_WORKLOADS)
+              INFER=INFER_WORKLOADS, C=C, SV=SV, IR=IR)
 
     device = phase_device(torch, build)
-    kern = phase_kernels(torch, K1, K2, args.seed)
-    launches = Launches(K1, K2)
+    kern = phase_kernels(torch, K1, K2, K3, K4, args.seed)
+    launches = Launches({"maxplus_scan": K1.maxplus_scan,
+                         "lane_sort": K2.lane_sort,
+                         "flash_attention": K3.flash_attention,
+                         "ssd_chunk": K4.ssd_chunk})
     paths = {"execute": phase_execute(torch, np, rt, launches),
              "serve_dynamic": phase_serve_dynamic(torch, np, rt, launches)}
     sweep = phase_sweep(torch, np, rt, launches)
     paths["sweep"] = sweep["full_space"]
     paths["sweep_100k"] = sweep["lanes_100k"]
+    paths["generate"] = phase_generate(torch, np, rt, launches, args.seed)
+    paths["serve_interleaved"] = phase_serve_interleaved(torch, np, rt,
+                                                         launches, args.seed)
 
     rows = []
     for name, meta in KERNEL_ROWS.items():

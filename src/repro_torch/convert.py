@@ -1,22 +1,26 @@
-"""Carry the plan-and-execute path's state into the port's objects.
+"""Carry the reference's state and weights into the port's objects.
 
-This path has no learned weights. What crosses from a run of the JAX
-package (or from a saved run) is state: workload profiles, power modes,
-arrival-trace times and queue states. Each converter takes that state as
-plain fields and NumPy arrays, never as the reference's objects, so the
-port stays free of the ``repro`` package; ``dataclasses.asdict`` of a
-reference object gives exactly the fields these take. The tests feed both
-packages identical inputs through here.
+What crosses from a run of the JAX package (or from a saved run) is plain
+data: workload profiles, power modes, arrival-trace times and queue states
+for the plan-and-execute path, and model parameters for the model
+substrate. Each converter takes that data as plain fields, NumPy arrays and
+nested dicts, never as the reference's objects, so the port stays free of
+the ``repro`` package; ``dataclasses.asdict`` of a reference object gives
+exactly the fields these take, and ``jax.tree.map(np.asarray, params)`` a
+parameter tree ``model_params`` takes. The tests feed both packages
+identical inputs through here.
 """
 from __future__ import annotations
 
-from typing import Mapping
+from typing import Any, Mapping
 
 import numpy as np
+import torch
 
 from repro_torch.core.device_model import WorkloadProfile
 from repro_torch.core.powermode import PowerMode
 from repro_torch.core.simulate import ArrivalTrace, QueueState
+from repro_torch.models.model import ModelConfig
 
 
 def workload_profile(fields: Mapping) -> WorkloadProfile:
@@ -38,3 +42,30 @@ def arrival_trace(times: np.ndarray, duration: float,
 def queue_state(pending: np.ndarray, clock: float = 0.0) -> QueueState:
     """A window-boundary queue state: pending arrival times and the clock."""
     return QueueState(np.array(pending, np.float64), float(clock))
+
+
+def _tensors(tree: Any, device) -> Any:
+    if isinstance(tree, Mapping):
+        return {k: _tensors(v, device) for k, v in tree.items()}
+    return torch.from_numpy(np.array(tree)).to(device)
+
+
+def model_params(tree: Mapping, cfg: ModelConfig, device=None) -> dict:
+    """The port's parameters from a reference parameter tree given as
+    nested dicts of NumPy arrays (same names and layouts). The reference
+    stacks the per-layer params on a leading axis of length
+    ``cfg.num_layers``; the port keeps them as a list of per-layer dicts."""
+    params = _tensors(tree, device)
+    stacked = params["layers"]
+
+    def layer(i: int, t: Any) -> Any:
+        if isinstance(t, dict):
+            return {k: layer(i, v) for k, v in t.items()}
+        if t.shape[0] != cfg.num_layers:
+            raise ValueError(f"stacked layer param has leading axis "
+                             f"{t.shape[0]}, config has {cfg.num_layers} "
+                             f"layers")
+        return t[i]
+
+    params["layers"] = [layer(i, stacked) for i in range(cfg.num_layers)]
+    return params

@@ -531,6 +531,22 @@ def _lane_events(device: DeviceModel, w_tr: Optional[WorkloadProfile],
     return tps, ttr, lane_times, readies, execs
 
 
+def batch_ready_events(arrivals: Sequence[Sequence[float]],
+                       bss: Sequence[int]) -> list[tuple]:
+    """Per-stream batch-ready events merged into device order: one
+    ``(ready time, stream index, start request index)`` tuple per full
+    minibatch, sorted by ready time with ties broken by stream then
+    position — the managed engines' merge order. The real runtime
+    (``runtime.interleave_runtime``) replays events in this order."""
+    events = []
+    for j, (arr, b) in enumerate(zip(arrivals, bss)):
+        b = int(b)
+        for k in range(len(arr) // b):
+            events.append((arr[k * b + b - 1], j, k * b))
+    events.sort()
+    return events
+
+
 def simulate(device: DeviceModel, w_tr: Optional[WorkloadProfile],
              w_in: WorkloadProfile, pm: PowerMode, bs: int,
              trace: ArrivalTrace, approach: str = "managed", seed: int = 0,

@@ -1,0 +1,130 @@
+"""Mamba2 SSD intra-chunk product: the CUDA kernel's wrapper and its plain
+PyTorch version.
+
+Replaces the Pallas kernel ``repro/kernels/ssd_scan/ssd_scan.py::
+ssd_chunk`` (body ``_ssd_chunk_kernel``). Every Mamba2 layer's prefill and
+full-sequence forward runs it once, through ``kernels.ops.ssd_scan``.
+
+Contract (``repro/kernels/ssd_scan/ref.py::ssd_chunk_ref``), per (batch,
+chunk, head) with ``cs`` the in-chunk cumulative sum of ``dA``:
+
+  y[i]  = sum_{j <= i} (C_i . B_j) exp(cs_i - cs_j) dt_j x_j      (l, p)
+  st    = sum_j B_j^T exp(cs_last - cs_j) dt_j x_j                (n, p)
+
+x (b, nc, l, h, p), dA and dt (b, nc, l, h), B and C (b, nc, l, n) (one SSM
+group shared by every head), all float32. Returns y (b, nc, l, h, p) and
+the chunk states (b, nc, h, n, p), both float32.
+
+ * ``ssd_chunk_plain`` is that product in torch ops; it takes ``exp`` of
+   the segment sums only where ``j <= i`` (above the diagonal they are
+   positive and may overflow). Both versions form ``cs`` in float64 and
+   round it once (``chunk_cumsum``).
+ * ``ssd_chunk`` launches ``csrc/ssd_chunk.cu`` for CUDA tensors and takes
+   the plain version only for CPU tensors. It takes ``l <= 256`` and
+   ``p, n <= 128``. One block per (batch, chunk, head) walks 64-row query
+   tiles and 64-row key tiles below the diagonal through shared memory, in
+   float32 on CUDA cores (TF32 would miss the 1e-4 tolerance). It is bound
+   by operations: the least work is ``C B^T`` once per (batch, chunk)
+   (it does not depend on the head) plus, per head, the masked product
+   with ``x`` and the state product.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import build
+
+MAX_CHUNK = 256
+MAX_DIM = 128
+
+_SIGNATURES = {"ssd_chunk_launch": (
+    [ctypes.c_void_p] * 7 + [ctypes.c_int64] * 5 + [ctypes.c_void_p],
+    ctypes.c_int)}
+
+
+def chunk_cumsum(dA: torch.Tensor) -> torch.Tensor:
+    """In-chunk cumulative sum of ``dA`` (b, nc, l, h) over ``l``, summed in
+    float64 and rounded once to float32, as the kernel forms it. A float32
+    scan rounds at every step, in an order that differs between devices;
+    with |cs| in the hundreds its error reaches 1e-5 absolute, and
+    ``exp(cs_i - cs_j)`` carries it as a relative error."""
+    return torch.cumsum(dA.double(), dim=2).float()
+
+
+def ssd_chunk_plain(x: torch.Tensor, dA: torch.Tensor, dt: torch.Tensor,
+                    B: torch.Tensor, C: torch.Tensor) -> tuple[torch.Tensor,
+                                                               torch.Tensor]:
+    """The intra-chunk product in torch ops, on any device."""
+    l = x.shape[2]
+    cs = chunk_cumsum(dA)                                 # (b, nc, l, h)
+    seg = cs[:, :, :, None, :] - cs[:, :, None, :, :]     # (b, nc, i, j, h)
+    causal = torch.ones(l, l, dtype=torch.bool, device=x.device).tril()
+    causal = causal[None, None, :, :, None]
+    decay = torch.exp(seg.masked_fill(~causal, 0.0)).masked_fill(~causal, 0.0)
+    scores = torch.einsum("bcin,bcjn->bcij", C, B)        # (b, nc, i, j)
+    w = scores[..., None] * decay * dt[:, :, None, :, :]  # (b, nc, i, j, h)
+    y = torch.einsum("bcijh,bcjhp->bcihp", w, x)
+    wb = torch.exp(cs[:, :, -1:, :] - cs) * dt            # (b, nc, l, h)
+    states = torch.einsum("bcjn,bcjh,bcjhp->bchnp", B, wb, x)
+    return y, states
+
+
+def _check(x, dA, dt, B, C) -> None:
+    """Raise on inputs the kernel does not take."""
+    if x.dim() != 5:
+        raise ValueError(f"x must be (b, nc, l, h, p), got {tuple(x.shape)}")
+    b, nc, l, h, p = x.shape
+    for name, t, shape in (("dA", dA, (b, nc, l, h)), ("dt", dt, (b, nc, l, h)),
+                           ("B", B, (b, nc, l, B.shape[-1])),
+                           ("C", C, (b, nc, l, B.shape[-1]))):
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{name} must be {shape}, got {tuple(t.shape)}")
+    for name, t in (("x", x), ("dA", dA), ("dt", dt), ("B", B), ("C", C)):
+        if t.dtype != torch.float32:
+            raise TypeError(f"{name} must be float32, got {t.dtype}")
+        if t.device != x.device:
+            raise ValueError(f"{name} is on {t.device}, x on {x.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+
+
+def ssd_chunk(x: torch.Tensor, dA: torch.Tensor, dt: torch.Tensor,
+              B: torch.Tensor, C: torch.Tensor) -> tuple[torch.Tensor,
+                                                         torch.Tensor]:
+    """Intra-chunk SSD: (y (b, nc, l, h, p), states (b, nc, h, n, p)).
+
+    CUDA tensors launch the hand-written kernel on the current stream (and
+    add one to ``ssd_chunk.launches``); CPU tensors run the plain version.
+    Anything else raises, and so does a chunk longer than 256 or a head or
+    state dim above 128."""
+    _check(x, dA, dt, B, C)
+    if x.device.type == "cpu":
+        return ssd_chunk_plain(x, dA, dt, B, C)
+    if x.device.type != "cuda":
+        raise ValueError(f"ssd_chunk runs on cuda or cpu tensors, "
+                         f"not {x.device}")
+    b, nc, l, h, p = x.shape
+    n = B.shape[-1]
+    if l > MAX_CHUNK or p > MAX_DIM or n > MAX_DIM:
+        raise ValueError(f"the kernel takes chunks up to {MAX_CHUNK} and "
+                         f"head / state dims up to {MAX_DIM}, got l={l}, "
+                         f"p={p}, n={n}")
+    y = torch.empty_like(x)
+    states = torch.empty((b, nc, h, n, p), dtype=torch.float32,
+                         device=x.device)
+    if x.numel() == 0 or n == 0:
+        return y.zero_(), states.zero_()
+    lib = build.load("ssd_chunk", _SIGNATURES)
+    with torch.cuda.device(x.device):
+        err = lib.ssd_chunk_launch(
+            x.data_ptr(), dA.data_ptr(), dt.data_ptr(), B.data_ptr(),
+            C.data_ptr(), y.data_ptr(), states.data_ptr(), b * nc, l, h, p, n,
+            torch.cuda.current_stream().cuda_stream)
+    build.check(lib, err, "ssd_chunk")
+    ssd_chunk.launches += 1
+    return y, states
+
+
+ssd_chunk.launches = 0

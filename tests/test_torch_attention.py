@@ -1,0 +1,165 @@
+"""The port's attention (K3 and the attention layer) against the JAX package.
+
+On the CPU the ``flash_attention`` wrapper runs its plain PyTorch version,
+which is held to the Pallas kernel run in interpret mode and to the
+reference oracle (``ref.py::attention_ref``) in float32 within 1e-4 — the
+tolerance ``tests/test_kernels.py`` sets for the kernel. The attention
+layer (prefill through the kernel, decode through the ring buffer) is held
+to ``repro.models.layers.attention_apply`` in float32 within 1e-4. Inputs
+are made with NumPy from a seed and handed to both packages.
+
+The CUDA kernel itself is held to the plain version on the card by
+``tests/test_torch_cuda.py`` and ``chip_smoke.py``.
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels.flash_attention.flash_attention import \
+    flash_attention as pallas_flash
+from repro.kernels.flash_attention.ref import attention_ref
+from repro.models import layers as JL
+from repro_torch.models import layers as TL
+from repro_torch.kernels.flash_attention import flash_attention as K3
+
+TOL = dict(rtol=1e-4, atol=1e-4)
+
+
+def _qkv(seed, shape, dtype=np.float32):
+    rng = np.random.default_rng(seed)
+    return [rng.standard_normal(shape).astype(dtype) for _ in range(3)]
+
+
+@pytest.mark.parametrize("window", [None, 64])
+def test_plain_matches_pallas_kernel_in_interpret_mode(window):
+    q, k, v = _qkv(0, (1, 2, 256, 64))
+    want = np.asarray(pallas_flash(*map(jnp.asarray, (q, k, v)),
+                                   window=window, interpret=True))
+    got = K3.flash_attention(*map(torch.from_numpy, (q, k, v)), window=window)
+    np.testing.assert_allclose(got.numpy(), want, **TOL)
+
+
+@pytest.mark.parametrize("S,D,window", [(200, 64, None), (200, 128, 48),
+                                        (1, 64, None), (77, 64, 1)])
+def test_ragged_lengths_match_the_reference_oracle(S, D, window):
+    """The TPU kernel needs S % 128 == 0; the port takes any S."""
+    q, k, v = _qkv(1, (2, 2, S, D))
+    want = np.asarray(attention_ref(*map(jnp.asarray, (q, k, v)),
+                                    window=window))
+    got = K3.flash_attention(*map(torch.from_numpy, (q, k, v)), window=window)
+    np.testing.assert_allclose(got.numpy(), want, **TOL)
+
+
+def test_bf16_inputs_give_bf16_output_near_the_oracle():
+    q, k, v = _qkv(2, (1, 2, 128, 64))
+    tq, tk, tv = (torch.from_numpy(a).to(torch.bfloat16) for a in (q, k, v))
+    got = K3.flash_attention(tq, tk, tv)
+    assert got.dtype == torch.bfloat16
+    want = np.asarray(attention_ref(*(jnp.asarray(t.float().numpy())
+                                      for t in (tq, tk, tv))))
+    np.testing.assert_allclose(got.float().numpy(), want, rtol=2e-2,
+                               atol=2e-2)
+
+
+def test_cpu_tensors_take_the_plain_version_and_count_no_launch():
+    q, k, v = map(torch.from_numpy, _qkv(3, (1, 1, 64, 64)))
+    before = K3.flash_attention.launches
+    got = K3.flash_attention(q, k, v)
+    assert K3.flash_attention.launches == before
+    assert torch.equal(got, K3.flash_attention_plain(q, k, v))
+
+
+def test_inputs_the_kernel_refuses_raise():
+    q = torch.zeros(1, 2, 8, 64)
+    with pytest.raises(ValueError, match="one shape"):
+        K3.flash_attention(q, q, torch.zeros(1, 2, 9, 64))
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        K3.flash_attention(q.double(), q.double(), q.double())
+    with pytest.raises(ValueError, match="contiguous"):
+        K3.flash_attention(q.transpose(2, 3), q.transpose(2, 3),
+                           q.transpose(2, 3))
+    with pytest.raises(ValueError, match="window"):
+        K3.flash_attention(q, q, q, window=0)
+
+
+# ---------------------------------------------------------------------------
+# the attention layer
+# ---------------------------------------------------------------------------
+
+def _layer(seed, d=128, heads=2, kv_heads=2, hd=64, window=None):
+    spec_args = dict(d_model=d, n_heads=heads, n_kv_heads=kv_heads,
+                     head_dim=hd, sliding_window=window)
+    jspec, tspec = JL.AttnSpec(**spec_args), TL.AttnSpec(**spec_args)
+    jp = JL.attention_init(jax.random.key(seed), jspec)
+    tp = jax.tree.map(lambda a: torch.from_numpy(np.array(a)), jp)
+    return jspec, tspec, jp, tp
+
+
+@pytest.mark.parametrize("kv_heads,window", [(2, None), (1, 16)])
+def test_attention_prefill_matches_the_reference_layer(kv_heads, window):
+    jspec, tspec, jp, tp = _layer(0, kv_heads=kv_heads, window=window)
+    b, s = 2, 40
+    x = np.random.default_rng(4).standard_normal((b, s, 128)).astype(np.float32)
+    pos = np.broadcast_to(np.arange(s, dtype=np.int32)[None], (b, s))
+    jy, (jk, jv) = JL.attention_apply(jp, jnp.asarray(x), jnp.asarray(pos),
+                                      jspec, return_kv=True)
+    ty, (tk, tv) = TL.attention_apply(tp, torch.from_numpy(x),
+                                      torch.from_numpy(pos.copy()), tspec,
+                                      return_kv=True)
+    np.testing.assert_allclose(ty.numpy(), np.asarray(jy), **TOL)
+    np.testing.assert_allclose(tk.numpy(), np.asarray(jk), **TOL)
+    np.testing.assert_allclose(tv.numpy(), np.asarray(jv), **TOL)
+
+
+def test_attention_decode_against_the_ring_buffer_matches_the_reference():
+    jspec, tspec, jp, tp = _layer(1, kv_heads=1)
+    rng = np.random.default_rng(5)
+    b, clen = 2, 8
+    kc = rng.standard_normal((b, clen, 1, 64)).astype(np.float32)
+    vc = rng.standard_normal((b, clen, 1, 64)).astype(np.float32)
+    cpos = np.array([[0, 1, 2, -1, -1, -1, -1, -1],
+                     [8, 9, 10, 3, 4, 5, 6, 7]], np.int32)
+    pos = np.array([[3], [11]], np.int32)          # row 1 wraps the ring
+    x = rng.standard_normal((b, 1, 128)).astype(np.float32)
+    jy, (jcache, jcpos) = JL.attention_apply(
+        jp, jnp.asarray(x), jnp.asarray(pos), jspec,
+        {"k": jnp.asarray(kc), "v": jnp.asarray(vc)}, jnp.asarray(cpos))
+    tcache = {"k": torch.from_numpy(kc.copy()), "v": torch.from_numpy(vc.copy())}
+    ty, (tcache, tcpos) = TL.attention_apply(
+        tp, torch.from_numpy(x), torch.from_numpy(pos), tspec, tcache,
+        torch.from_numpy(cpos.copy()))
+    np.testing.assert_allclose(ty.numpy(), np.asarray(jy), **TOL)
+    np.testing.assert_array_equal(tcpos.numpy(), np.asarray(jcpos))
+    for name in ("k", "v"):
+        np.testing.assert_allclose(tcache[name].numpy(),
+                                   np.asarray(jcache[name]), **TOL)
+
+
+def test_rope_and_norms_match_the_reference():
+    rng = np.random.default_rng(6)
+    x = rng.standard_normal((2, 5, 3, 64)).astype(np.float32) * 3
+    pos = rng.integers(0, 5000, (2, 5)).astype(np.int32)
+    np.testing.assert_allclose(
+        TL.apply_rope(torch.from_numpy(x), torch.from_numpy(pos)).numpy(),
+        np.asarray(JL.apply_rope(jnp.asarray(x), jnp.asarray(pos))), **TOL)
+    h = rng.standard_normal((4, 32)).astype(np.float32)
+    p = {"scale": rng.standard_normal(32).astype(np.float32),
+         "bias": rng.standard_normal(32).astype(np.float32)}
+    tp = {k: torch.from_numpy(v) for k, v in p.items()}
+    jp = {k: jnp.asarray(v) for k, v in p.items()}
+    for kind in ("rmsnorm", "layernorm"):
+        np.testing.assert_allclose(
+            TL.norm_apply(kind, tp, torch.from_numpy(h)).numpy(),
+            np.asarray(JL.norm_apply(kind, jp, jnp.asarray(h))), **TOL)
+
+
+@pytest.mark.parametrize("activation", ["swiglu", "gelu"])
+def test_mlp_matches_the_reference(activation):
+    jp = JL.mlp_init(jax.random.key(7), 64, 96, activation=activation)
+    tp = jax.tree.map(lambda a: torch.from_numpy(np.array(a)), jp)
+    x = np.random.default_rng(7).standard_normal((2, 5, 64)).astype(np.float32)
+    np.testing.assert_allclose(
+        TL.mlp_apply(tp, torch.from_numpy(x), activation).numpy(),
+        np.asarray(JL.mlp_apply(jp, jnp.asarray(x), activation)), **TOL)

@@ -8,18 +8,28 @@ Hopper machine (no jax needed) run::
 
 Tolerances: the max-plus scan meets its plain version to the engine
 tolerance of ``docs/exactness.md`` (it scans in another order), fills
-within +-2; the sort and its counts are equal.
+within +-2; the sort and its counts are equal. Flash attention meets its
+plain version within 1e-4 in float32 and 2e-2 in bf16 (the kernel sums in
+another order; bf16 rounds the output); the SSD chunk within rtol 2e-4,
+atol 1e-4 (``tests/test_kernels.py``'s tolerances). Float32 comparisons
+run with TF32 off for matrix products and cuDNN.
 """
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
 
+from repro_torch.configs import base as TC
 from repro_torch.core import simulate as S
 from repro_torch.core.device_model import INFER_WORKLOADS, TRAIN_WORKLOADS
 from repro_torch.core.powermode import PowerModeSpace
 from repro_torch.kernels.fulcrum.lane_sort import lane_sort, lane_sort_plain
 from repro_torch.kernels.fulcrum.maxplus_scan import (maxplus_scan,
                                                       maxplus_scan_plain)
+from repro_torch.kernels.flash_attention import flash_attention as K3
+from repro_torch.kernels.ssd_scan import ssd_scan as K4
+from repro_torch.runtime.serving import GenerationServer
 
 ENG_TOL = dict(rtol=1e-9, atol=1e-8)
 
@@ -31,6 +41,8 @@ def hopper():
     if not torch.cuda.is_available() \
             or torch.cuda.get_device_capability() < (9, 0):
         pytest.skip("needs a CUDA card of compute capability >= 9.0")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     return torch.device("cuda")
 
 
@@ -124,3 +136,77 @@ def test_cuda_engine_matches_cpu_engine(hopper):
         np.testing.assert_allclose(b.latencies, a.latencies, **ENG_TOL)
         assert abs(a.train_minibatches - b.train_minibatches) <= 2
         np.testing.assert_array_equal(b._sorted, np.sort(b.latencies))
+
+
+@pytest.mark.parametrize("B,H,S,D,window", [
+    (1, 2, 256, 64, None), (2, 3, 300, 64, None), (1, 2, 300, 128, 50),
+    (1, 1, 1, 64, None), (2, 2, 129, 128, None), (1, 4, 1000, 64, 512),
+    (1, 2, 65, 64, 1)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_flash_attention_matches_plain(hopper, B, H, S, D, window, dtype):
+    gen = torch.Generator(device=hopper).manual_seed(B * S + D)
+    q, k, v = (torch.randn((B, H, S, D), generator=gen, device=hopper)
+               .to(dtype) for _ in range(3))
+    n0 = K3.flash_attention.launches
+    got = K3.flash_attention(q, k, v, window=window)
+    torch.cuda.synchronize()
+    assert K3.flash_attention.launches == n0 + 1
+    assert got.dtype == dtype
+    want = K3.flash_attention_plain(q, k, v, window=window)
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+def _ssd_inputs(shape, dev, seed):
+    b, nc, l, h, p, n = shape
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    f32 = dict(dtype=torch.float32, device=dev)
+    x = torch.randn((b, nc, l, h, p), generator=gen, **f32)
+    dt = torch.nn.functional.softplus(
+        torch.randn((b, nc, l, h), generator=gen, **f32) - 2.0)
+    A = -(1.0 + 15.0 * torch.rand(h, generator=gen, **f32))
+    B = torch.randn((b, nc, l, n), generator=gen, **f32)
+    C = torch.randn((b, nc, l, n), generator=gen, **f32)
+    return x, (dt * A).contiguous(), dt, B, C
+
+
+@pytest.mark.parametrize("shape", [(2, 2, 256, 8, 64, 64),     # full width
+                                   (1, 3, 32, 16, 32, 16),     # reduced
+                                   (1, 1, 100, 2, 100, 128),
+                                   (2, 1, 1, 3, 8, 4)])
+def test_cuda_ssd_chunk_matches_plain(hopper, shape):
+    args = _ssd_inputs(shape, hopper, sum(shape))
+    n0 = K4.ssd_chunk.launches
+    y, st = K4.ssd_chunk(*args)
+    torch.cuda.synchronize()
+    assert K4.ssd_chunk.launches == n0 + 1
+    yp, stp = K4.ssd_chunk_plain(*args)
+    torch.testing.assert_close(y, yp, rtol=2e-4, atol=1e-4)
+    torch.testing.assert_close(st, stp, rtol=2e-4, atol=1e-4)
+
+
+def test_cuda_model_kernels_refuse_what_they_do_not_take(hopper):
+    q = torch.zeros((1, 1, 8, 32), device=hopper)
+    with pytest.raises(ValueError, match="head dims"):
+        K3.flash_attention(q, q, q)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        K3.flash_attention(q.half(), q.half(), q.half())
+    for shape in [(1, 1, 300, 1, 8, 8), (1, 1, 8, 1, 200, 8),
+                  (1, 1, 8, 1, 8, 129)]:
+        with pytest.raises(ValueError, match="takes chunks up to"):
+            K4.ssd_chunk(*_ssd_inputs(shape, hopper, 0))
+
+
+def test_cuda_generation_matches_cpu_on_the_reduced_model(hopper):
+    cfg = dataclasses.replace(TC.reduced(TC.get_config("zamba2-1.2b")),
+                              compute_dtype=torch.float32)
+    gpu = GenerationServer(cfg, max_seq=80, bs=2, backend="cuda")
+    cpu = GenerationServer(cfg, max_seq=80, bs=2, backend="cpu",
+                           params=gpu.params)
+    toks = torch.randint(0, cfg.vocab_size, (2, 70), dtype=torch.int32,
+                         generator=torch.Generator().manual_seed(0))
+    lg, _ = gpu.prefill({"tokens": toks})
+    lc, _ = cpu.prefill({"tokens": toks})
+    torch.testing.assert_close(lg.cpu(), lc, rtol=1e-3, atol=1e-3)
+    np.testing.assert_array_equal(gpu.generate({"tokens": toks}, 8, 70),
+                                  cpu.generate({"tokens": toks}, 8, 70))
