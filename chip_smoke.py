@@ -36,12 +36,31 @@ each and stopping with a traceback at the first failure:
     trace at 80% of the measured minibatch rate for 5 s: p50 / p99 latency
     and the kernels' launches per minibatch; then one minibatch under
     ``torch.profiler`` (device busy time, idle share, top kernels).
+ 8. ``train``: ``Trainer`` on zamba2-1.2b at full width and depth (remat on,
+    float32 params, bf16 compute, AdamW) for a few steps of bs 4 x 512
+    tokens: ms per step, tokens/s, first and last loss (finite), peak
+    memory and every kernel's launches per step (forward, remat's second
+    forward, backward), and one step under ``torch.profiler``. Then a
+    2-layer full-width float32 copy takes one step on ``"cuda"`` and on
+    ``"cpu"`` from the same params and batch: losses within 1e-4, every
+    gradient leaf within 1e-3 of its largest |g|.
+ 9. ``serve_train_interleaved``: the runtime with that ``Trainer`` and the
+    ``serve_interleaved`` server on a uniform trace whose batch period is
+    the minibatch time plus 2.5 training steps, for 5 s or 2 periods,
+    whichever is longer: trained minibatches (at least one), p50 / p99
+    latency with and without the trainer, and the largest overrun of a
+    training step past its predicted end.
+10. ``tiled_matmul``: the ``kernels.ops.tiled_matmul`` entry point on the
+    serving minibatch's MLP up-projection, (16384, 2048) x (2048, 8192)
+    bf16, against ``torch.matmul``.
 
 The kernel phase also holds the attention kernel (K3) and the SSD chunk
 kernel (K4) against their plain versions at the shapes of the
-``serve_interleaved`` forward, K3 again at a windowed and a ragged shape.
-Float32 comparisons run with TF32 off (``torch.backends.cuda.matmul`` and
-``torch.backends.cudnn``).
+``serve_interleaved`` forward, K3 again at a windowed and a ragged shape,
+their backward kernels at the same shapes (K3's windowed and ragged too),
+and the tiled matmul (K5) at the up-projection's shape and a ragged
+float32 one. Float32 comparisons run with TF32 off
+(``torch.backends.cuda.matmul`` and ``torch.backends.cudnn``).
 
 Every path phase sets the kernels' launch counts to 0 before it runs and
 fails unless each kernel of its path launched. The line before the last
@@ -67,6 +86,14 @@ ENG_TOL = dict(rtol=1e-9, atol=1e-8)      # docs/exactness.md, engine tier
 ATTN_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 SSD_TOL = dict(rtol=2e-4, atol=1e-4)
 MODEL_TOL = dict(rtol=1e-3, atol=1e-3)   # cuda vs cpu logits, float32
+# backward kernels against their plain backwards, as a share of each
+# gradient's largest |value| or of 1, whichever is larger
+# (tests/test_torch_cuda.py): the attention kernel forms rowsum(dO O) from
+# the output rounded to the input type
+ATTN_BWD_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+SSD_BWD_TOL = 2e-4
+MM_TOL = {"float32": 1e-3, "bfloat16": 3e-2}   # tests/test_kernels.py
+TRAIN_LOSS_TOL, TRAIN_GRAD_TOL = 1e-4, 1e-3    # cuda vs cpu, float32 step
 HBM_BYTES_PER_S = 3.35e12                 # H100 SXM data sheet
 FP64_OPS_PER_S = 34e12                    # H100 SXM data sheet, float64
 #                                           outside the tensor cores
@@ -92,6 +119,16 @@ ATTN_SHAPE = (SERVE_BS, 32, SERVE_SEQ, 64)
 ATTN_CHECKS = ((1, 32, 1024, 64, 512), (2, 32, 300, 64, None),
                (1, 8, 300, 128, 100))
 SSD_SHAPE = (SERVE_BS, SERVE_SEQ // 256, 256, 64, 64, 64)
+# training: bs 4 x 512 tokens at full width; the cuda-vs-cpu step on a
+# 2-layer full-width copy; the interleaved trace's slack per batch
+TRAIN_BS, TRAIN_SEQ, TRAIN_STEPS = 4, 512, 3
+PARITY_TRAIN_SEQ = 256
+INTERLEAVE_TRAIN_STEPS = 2.5
+INTERLEAVE_MIN_BATCHES = 2      # the trace spans at least this many periods
+# K5: the serving minibatch's MLP up-projection (bs 8 x 2048 tokens,
+# d_model 2048 -> d_ff 8192), and a ragged float32 shape
+MM_SHAPE = (SERVE_BS * SERVE_SEQ, 2048, 8192)          # M, K, N
+MM_RAGGED = (1000, 777, 1531)
 
 KERNEL_ROWS = {
     "maxplus_scan": dict(
@@ -103,15 +140,31 @@ KERNEL_ROWS = {
     "flash_attention": dict(
         route="cuda", source="src/repro_torch/kernels/csrc/flash_attention.cu",
         replaces="src/repro/kernels/flash_attention/flash_attention.py:70"),
+    "flash_attention_bwd": dict(
+        route="cuda",
+        source="src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+        replaces="src/repro/kernels/flash_attention/flash_attention.py:70"),
     "ssd_chunk": dict(
         route="cuda", source="src/repro_torch/kernels/csrc/ssd_chunk.cu",
         replaces="src/repro/kernels/ssd_scan/ssd_scan.py:57"),
+    "ssd_chunk_bwd": dict(
+        route="cuda", source="src/repro_torch/kernels/csrc/ssd_chunk_bwd.cu",
+        replaces="src/repro/kernels/ssd_scan/ssd_scan.py:57"),
+    "tiled_matmul": dict(
+        route="cuda", source="src/repro_torch/kernels/csrc/tiled_matmul.cu",
+        replaces="src/repro/kernels/tiled_matmul/tiled_matmul.py:37"),
 }
 ENGINE_KERNELS = ("maxplus_scan", "lane_sort")
 MODEL_KERNELS = ("flash_attention", "ssd_chunk")
+TRAIN_KERNELS = MODEL_KERNELS + ("flash_attention_bwd", "ssd_chunk_bwd")
+
+
+START = time.perf_counter()
 
 
 def emit(obj: dict) -> None:
+    if "phase" in obj:      # seconds since the start, to see where time goes
+        obj["at_s"] = time.perf_counter() - START
     print(json.dumps(obj), flush=True)
 
 
@@ -347,6 +400,160 @@ def time_ssd(torch, K4, gen, dev, reps: int) -> dict:
             "bound_ms": b_ms, "bound_by": by, "max_abs_err": err}
 
 
+def rel_err(got, want, floor: float = 1.0) -> tuple[float, float]:
+    """(max |got - want|, the scale a tolerance is a share of: max |want|,
+    or ``floor`` where that is smaller — a kernel gradient that is exactly
+    0 has no scale of its own), in float32."""
+    return (float((got.float() - want.float()).abs().max()),
+            max(float(want.float().abs().max()), floor, 1e-30))
+
+
+def check_attention_bwd(torch, K3, shape, dtype, window, gen, dev) -> tuple:
+    """K3's backward kernel against its plain backward; returns the inputs
+    and the worst error as a share of each gradient's largest |value|."""
+    q, k, v, do = (torch.randn(shape, generator=gen, device=dev).to(dtype)
+                   for _ in range(4))
+    out, lse = K3.flash_attention_fwd(q, k, v, window)
+    got = K3.flash_attention_bwd(q, k, v, out, lse, do, window)
+    torch.cuda.synchronize()
+    want = K3.flash_attention_bwd_plain(q, k, v, do, window)
+    tol = ATTN_BWD_TOL[str(dtype).split(".")[-1]]
+    worst = 0.0
+    for name, g, w in zip("qkv", got, want):
+        err, scale = rel_err(g, w)
+        worst = max(worst, err / scale)
+        if err > tol * scale:
+            fail(f"flash_attention_bwd {shape} {dtype} window={window}: d{name} "
+                 f"differs from the plain backward by {err} (tolerance "
+                 f"{tol} x {scale})")
+    del got, want
+    return (q, k, v, out, lse, do), worst
+
+
+def time_attention_bwd(torch, K3, gen, dev, reps: int) -> dict:
+    """K3's backward at the serve_interleaved forward's shape in bf16
+    (timed, with SDPA's backward as the library yardstick), then checked
+    at the windowed and ragged shapes in float32 and bf16."""
+    B, H, S, D = ATTN_SHAPE
+    (q, k, v, out, lse, do), err = check_attention_bwd(
+        torch, K3, ATTN_SHAPE, torch.bfloat16, None, gen, dev)
+    ms = cuda_ms(torch, lambda: K3.flash_attention_bwd(q, k, v, out, lse, do),
+                 reps)
+    plain_ms = cuda_ms(torch, lambda: K3.flash_attention_bwd_plain(q, k, v, do),
+                       1)
+    torch.cuda.empty_cache()
+    leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+    ref = torch.nn.functional.scaled_dot_product_attention(*leaves,
+                                                           is_causal=True)
+    library_ms = cuda_ms(torch, lambda: torch.autograd.grad(
+        ref, leaves, do, retain_graph=True), reps)
+    del leaves, ref
+    # q, k, v, o, do read once (and the float32 logsumexp), dq, dk, dv
+    # written once; 10 D flops per visible pair (q k^T recomputed, do v^T,
+    # dv, dq, dk), at the bf16 tensor rate
+    elem = q.element_size()
+    b_ms, by = bound(8.0 * B * H * S * D * elem + 4.0 * B * H * S,
+                     10.0 * D * B * H * attention_pairs(S, None),
+                     OPS_PER_S["bfloat16"])
+    del q, k, v, out, lse, do
+    checks = []
+    for (b, h, s_, d, window) in ATTN_CHECKS:
+        for dtype in (torch.float32, torch.bfloat16):
+            _, e = check_attention_bwd(torch, K3, (b, h, s_, d), dtype, window,
+                                       gen, dev)
+            checks.append({"shape": [b, h, s_, d], "window": window,
+                           "dtype": str(dtype).split(".")[-1],
+                           "max_err_share": e})
+    torch.cuda.empty_cache()
+    return {"shape": list(ATTN_SHAPE), "dtype": "bfloat16", "kernel_ms": ms,
+            "plain_ms": plain_ms, "library_ms": library_ms,
+            "library": "backward of scaled_dot_product_attention(is_causal="
+                       "True) (torch.autograd.grad over its graph)",
+            "bound_ms": b_ms, "bound_by": by, "max_abs_err": err,
+            "max_abs_err_is": "share of each gradient's largest |value|",
+            "checks": checks}
+
+
+def time_ssd_bwd(torch, K4, gen, dev, reps: int) -> dict:
+    """K4's backward at the serve_interleaved forward's shape, with the
+    chunk's |cs| in the hundreds (A in -[1, 16), l = 256)."""
+    b, nc, l, h, p, n = SSD_SHAPE
+    args = ssd_case(torch, SSD_SHAPE, gen, dev)
+    dy = torch.randn(args[0].shape, generator=gen, device=dev)
+    dst = torch.randn((b, nc, h, n, p), generator=gen, device=dev)
+    got = K4.ssd_chunk_bwd(*args, dy, dst)
+    torch.cuda.synchronize()
+    want = K4.ssd_chunk_bwd_plain(*args, dy, dst)
+    err = 0.0
+    for name, g, w in zip(("x", "dA", "dt", "B", "C"), got, want):
+        e, scale = rel_err(g, w)
+        err = max(err, e / scale)
+        if e > SSD_BWD_TOL * scale or not bool(torch.isfinite(g).all()):
+            fail(f"ssd_chunk_bwd {SSD_SHAPE}: d{name} differs from the plain "
+                 f"backward by {e} (tolerance {SSD_BWD_TOL} x {scale})")
+    del got, want
+    ms = cuda_ms(torch, lambda: K4.ssd_chunk_bwd(*args, dy, dst), reps)
+    plain_ms = cuda_ms(torch, lambda: K4.ssd_chunk_bwd_plain(*args, dy, dst),
+                       1)
+    # x, dy, dA, dt, B, C, dst read once; dx, ddA, ddt, dB, dC written
+    # once. Least work: G = C B^T, dC = dG B and dB = dG^T C below the
+    # diagonal once per (batch, chunk) (the heads' dG summed first), then
+    # per head dy x^T and M^T dy below the diagonal and the two state
+    # products, 2 flops per multiply-add
+    tri = l * (l + 1) // 2
+    nbytes = 4.0 * (3 * b * nc * l * h * p + 4 * b * nc * l * h
+                    + 4 * b * nc * l * n + b * nc * h * n * p)
+    ops = 2.0 * b * nc * (3 * tri * n + h * (2 * tri * p + 2 * l * n * p))
+    b_ms, by = bound(nbytes, ops, OPS_PER_S["float32"])
+    del args, dy, dst
+    torch.cuda.empty_cache()
+    return {"shape": list(SSD_SHAPE), "dtype": "float32", "kernel_ms": ms,
+            "plain_ms": plain_ms, "library_ms": None,
+            "library": "none: no single PyTorch call computes the SSD chunk's "
+                       "gradient",
+            "bound_ms": b_ms, "bound_by": by, "max_abs_err": err,
+            "max_abs_err_is": "share of each gradient's largest |value|"}
+
+
+def check_matmul(torch, K5, shape, dtype, gen, dev) -> tuple:
+    M, K, N = shape
+    a = torch.randn((M, K), generator=gen, device=dev).to(dtype)
+    b = (torch.randn((K, N), generator=gen, device=dev)
+         / math.sqrt(K)).to(dtype)
+    got = K5.tiled_matmul(a, b)
+    torch.cuda.synchronize()
+    want = K5.tiled_matmul_plain(a, b)
+    tol = MM_TOL[str(dtype).split(".")[-1]]
+    err = float((got.float() - want.float()).abs().max())
+    if not torch.allclose(got.float(), want.float(), rtol=tol, atol=tol):
+        fail(f"tiled_matmul {shape} {dtype}: differs from the plain version by "
+             f"{err} (tolerance {tol})")
+    return (a, b), err
+
+
+def time_matmul(torch, K5, gen, dev, reps: int) -> dict:
+    """K5 at the MLP up-projection's shape in bf16 (timed, with
+    ``torch.matmul`` as the library yardstick), then checked at a ragged
+    float32 shape."""
+    M, K, N = MM_SHAPE
+    (a, b), err = check_matmul(torch, K5, MM_SHAPE, torch.bfloat16, gen, dev)
+    ms = cuda_ms(torch, lambda: K5.tiled_matmul(a, b), reps)
+    plain_ms = cuda_ms(torch, lambda: K5.tiled_matmul_plain(a, b), 2)
+    library_ms = cuda_ms(torch, lambda: torch.matmul(a, b), reps)
+    # a, b read once, c written once; 2 M N K flops at the bf16 tensor rate
+    b_ms, by = bound(2.0 * (M * K + K * N + M * N), 2.0 * M * N * K,
+                     OPS_PER_S["bfloat16"])
+    del a, b
+    _, ragged_err = check_matmul(torch, K5, MM_RAGGED, torch.float32, gen, dev)
+    torch.cuda.empty_cache()
+    return {"shape": list(MM_SHAPE), "dtype": "bfloat16", "kernel_ms": ms,
+            "plain_ms": plain_ms, "library_ms": library_ms,
+            "library": "torch.matmul", "bound_ms": b_ms, "bound_by": by,
+            "max_abs_err": err, "tflops": 2.0 * M * N * K / ms / 1e9,
+            "checks": [{"shape": list(MM_RAGGED), "dtype": "float32",
+                        "max_abs_err": ragged_err}]}
+
+
 # ---------------------------------------------------------------------------
 # phases
 # ---------------------------------------------------------------------------
@@ -373,7 +580,7 @@ def phase_device(torch, build) -> dict:
     return out
 
 
-def phase_kernels(torch, K1, K2, K3, K4, seed: int) -> dict:
+def phase_kernels(torch, K1, K2, K3, K4, K5, seed: int) -> dict:
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(seed)
     args, valid = maxplus_case(torch, *MAXPLUS_SHAPE, gen, dev)
@@ -387,11 +594,16 @@ def phase_kernels(torch, K1, K2, K3, K4, seed: int) -> dict:
     torch.cuda.empty_cache()
     k3 = time_attention(torch, K3, gen, dev, reps=10)
     k4 = time_ssd(torch, K4, gen, dev, reps=10)
+    k3b = time_attention_bwd(torch, K3, gen, dev, reps=5)
+    k4b = time_ssd_bwd(torch, K4, gen, dev, reps=5)
+    k5 = time_matmul(torch, K5, gen, dev, reps=10)
     out = {"phase": "kernels", "maxplus_scan": k1, "lane_sort": k2,
            "lane_sort_global_pass": k2_global,
            "maxplus_scan_library": "no single PyTorch call computes the "
                                    "max-plus recurrence with fills",
-           "flash_attention": k3, "ssd_chunk": k4}
+           "flash_attention": k3, "ssd_chunk": k4,
+           "flash_attention_bwd": k3b, "ssd_chunk_bwd": k4b,
+           "tiled_matmul": k5}
     emit(out)
     return out
 
@@ -587,15 +799,21 @@ def phase_sweep(torch, np, rt, launches: Launches) -> dict:
     return out
 
 
-def check_model_launches(cfg, counts: dict, runs: int, what: str) -> None:
+def check_model_launches(cfg, counts: dict, runs: int, what: str,
+                         train_steps: int = 0) -> None:
     """One attention-kernel launch per shared-attention site and one SSD
-    launch per Mamba2 layer, per prefill or forward."""
-    want = {"flash_attention": cfg.n_attn_sites * runs,
-            "ssd_chunk": cfg.num_layers * runs}
+    launch per Mamba2 layer, per prefill or forward; a training step adds
+    its forward, with remat a second forward in the backward pass, and one
+    launch of each backward kernel per site and per layer."""
+    forwards = runs + train_steps * (2 if cfg.remat else 1)
+    want = {"flash_attention": cfg.n_attn_sites * forwards,
+            "ssd_chunk": cfg.num_layers * forwards,
+            "flash_attention_bwd": cfg.n_attn_sites * train_steps,
+            "ssd_chunk_bwd": cfg.num_layers * train_steps}
     for name, n in want.items():
         if counts[name] != n:
             fail(f"{what}: {name} launched {counts[name]} times, expected "
-                 f"{n} ({runs} run(s))")
+                 f"{n} ({runs} forward(s), {train_steps} training step(s))")
 
 
 def phase_generate(torch, np, rt, launches: Launches, seed: int) -> dict:
@@ -673,16 +891,17 @@ def phase_generate(torch, np, rt, launches: Launches, seed: int) -> dict:
     return out
 
 
-def profile_forward(torch, srv) -> dict:
-    """One minibatch forward under ``torch.profiler``: the device's busy
-    time (the sum of kernel time) against the wall, and the kernels with
-    the most device time."""
+def profile_device(torch, fn) -> dict:
+    """One call of ``fn`` (a minibatch forward, a training step) under
+    ``torch.profiler``: the device's busy time (the sum of kernel time)
+    against the wall, the number of kernels and copies it ran, and the
+    kernels with the most device time."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        srv.infer()
+        fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     rows = []
@@ -700,6 +919,7 @@ def profile_forward(torch, srv) -> dict:
     busy = sum(us for _, us, _ in rows) / 1e6
     return {"wall_s": wall, "device_busy_s": busy,
             "idle_share": (1.0 - busy / wall) if rows else None,
+            "device_ops": sum(n for _, _, n in rows),
             "top": [{"name": k[:120], "device_ms": us / 1e3, "count": n}
                     for k, us, n in rows[:15]]}
 
@@ -737,7 +957,7 @@ def phase_serve_interleaved(torch, np, rt, launches: Launches,
             or not bool(torch.isfinite(logits.float()).all()):
         fail("serve_interleaved: logits are not finite of the right shape")
     del logits
-    profile = profile_forward(torch, srv)
+    profile = profile_device(torch, srv.infer)
     del srv
     torch.cuda.empty_cache()
     out = {"phase": "serve_interleaved", "arch": ARCH, "seq_len": SERVE_SEQ,
@@ -749,6 +969,211 @@ def phase_serve_interleaved(torch, np, rt, launches: Launches,
            "violation_rate": rep.violation_rate(2 * t_mb),
            "max_memory_allocated_bytes": peak, "launches": counts,
            "profile": profile}
+    emit(out)
+    return out
+
+
+def train_parity(torch, np, rt, cfg, seed: int) -> dict:
+    """One training step of a 2-layer full-width float32 copy on cuda and
+    on cpu from the same params and batch: losses within TRAIN_LOSS_TOL,
+    every gradient leaf within TRAIN_GRAD_TOL of its largest |g|."""
+    ST, T, A = rt["ST"], rt["T"], rt["A"]
+    small = dataclasses.replace(cfg, num_layers=PARITY_LAYERS,
+                                compute_dtype=torch.float32)
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(seed + 2)
+    base = rt["M"].init_params(small, gen, dev)
+    batch = next(iter(rt["D"].SyntheticTokenSource(small, 1, PARITY_TRAIN_SEQ,
+                                                   seed=seed)))
+    out = {}
+    for name, device in (("cuda", dev), ("cpu", torch.device("cpu"))):
+        params = T.tree_map(lambda t: t.detach().to(device).clone()
+                            .requires_grad_(), base)
+        b = {k: torch.from_numpy(v).to(device) for k, v in batch.items()}
+        t0 = time.perf_counter()
+        metrics, grads = ST.loss_and_grads(params, b, small)
+        state = A.init_opt_state(params)
+        A.adamw_update(grads, state, params, A.AdamWConfig())
+        loss = float(metrics["loss"])
+        out[name] = (loss, [g.cpu() for g in T.leaves(grads)],
+                     [p.detach().cpu() for p in T.leaves(params)],
+                     time.perf_counter() - t0)
+    (lg, gg, pg, tg), (lc, gc, pc, tc) = out["cuda"], out["cpu"]
+    if not (math.isfinite(lg) and abs(lg - lc) <= TRAIN_LOSS_TOL):
+        fail(f"train parity: cuda loss {lg} vs cpu {lc} (tolerance "
+             f"{TRAIN_LOSS_TOL})")
+    worst = 0.0
+    for i, (a, b) in enumerate(zip(gg, gc)):
+        err, scale = rel_err(a, b, floor=0.0)
+        worst = max(worst, err / scale)
+        if err > TRAIN_GRAD_TOL * scale:
+            fail(f"train parity: gradient leaf {i} differs by {err} "
+                 f"(tolerance {TRAIN_GRAD_TOL} x {scale})")
+    return {"layers": PARITY_LAYERS, "seq": PARITY_TRAIN_SEQ,
+            "loss_cuda": lg, "loss_cpu": lc, "max_grad_err_share": worst,
+            "max_abs_param_diff_after_step": max(
+                float((a - b).abs().max()) for a, b in zip(pg, pc)),
+            "cuda_s": tg, "cpu_s": tc}
+
+
+def phase_train(torch, np, rt, launches: Launches, seed: int) -> dict:
+    """The full-width 38-layer trainer for a few steps, then the 2-layer
+    float32 cuda-vs-cpu step."""
+    C, TL, A = rt["C"], rt["TL"], rt["A"]
+    cfg = C.get_config(ARCH)
+    t0 = time.perf_counter()
+    trainer = TL.Trainer(cfg, TRAIN_BS, TRAIN_SEQ, A.AdamWConfig(), seed=seed,
+                         backend="cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    try:
+        warm = trainer.train(1, log_every=0)          # library set-up
+        torch.cuda.reset_peak_memory_stats()
+        launches.reset()
+        rep = trainer.train(TRAIN_STEPS, log_every=0)
+        counts = launches.read("train", TRAIN_KERNELS)
+        peak = torch.cuda.max_memory_allocated()
+        profile = profile_device(torch, trainer.step_minibatch)
+    finally:
+        trainer.close()
+    check_model_launches(cfg, counts, 0, "train", TRAIN_STEPS)
+    losses = warm.losses + rep.losses
+    if not all(math.isfinite(x) for x in losses):
+        fail(f"train: losses are not finite: {losses}")
+    del trainer
+    torch.cuda.empty_cache()
+    parity = train_parity(torch, np, rt, cfg, seed)
+    step_s = sum(rep.step_times) / len(rep.step_times)
+    out = {"phase": "train", "arch": ARCH, "layers": cfg.num_layers,
+           "d_model": cfg.d_model, "params": cfg.param_count(),
+           "remat": cfg.remat, "bs": TRAIN_BS, "seq": TRAIN_SEQ,
+           "steps": TRAIN_STEPS, "init_s": init_s,
+           "ms_per_step": 1e3 * step_s, "step_ms": [1e3 * x for x in
+                                                    rep.step_times],
+           "tokens_per_s": TRAIN_BS * TRAIN_SEQ / step_s,
+           "first_loss": losses[0], "last_loss": losses[-1],
+           "losses": losses, "max_memory_allocated_bytes": peak,
+           "launches": counts,
+           "launches_per_step": {k: v / TRAIN_STEPS for k, v in counts.items()},
+           "parity": parity, "profile": profile}
+    emit(out)
+    return out
+
+
+class TimedTrainer:
+    """A trainer as the runtime sees it, measured: its minibatch time is
+    measured once, and each step records how long it took."""
+
+    def __init__(self, trainer):
+        self.trainer = trainer
+        self.t_tr = None
+        self.step_s: list = []
+
+    def train_minibatch_time(self) -> float:
+        if self.t_tr is None:
+            self.t_tr = self.trainer.train_minibatch_time()
+        return self.t_tr
+
+    def step_minibatch(self) -> None:
+        t0 = time.perf_counter()
+        self.trainer.step_minibatch()
+        self.step_s.append(time.perf_counter() - t0)
+
+
+def phase_serve_train_interleaved(torch, np, rt, launches: Launches,
+                                  seed: int) -> dict:
+    """Fulcrum's real-mode executor filling inference slack with training
+    minibatches of the full-width trainer, against the same trace served
+    without a trainer."""
+    C, SV, IR, S, TL, A = rt["C"], rt["SV"], rt["IR"], rt["S"], rt["TL"], \
+        rt["A"]
+    cfg = C.get_config(ARCH)
+    srv = SV.BatchInferenceServer(cfg, seq_len=SERVE_SEQ, bs=SERVE_BS,
+                                  seed=seed, backend="cuda")
+    t_mb = srv.minibatch_time(iters=3)
+    trainer = TL.Trainer(cfg, TRAIN_BS, TRAIN_SEQ, A.AdamWConfig(), seed=seed,
+                         backend="cuda")
+    try:
+        timed = TimedTrainer(trainer)
+        t_tr = timed.train_minibatch_time()
+        period = t_mb + INTERLEAVE_TRAIN_STEPS * t_tr
+        rate = SERVE_BS / period
+        duration = max(SERVE_DURATION, INTERLEAVE_MIN_BATCHES * period)
+        trace = S.ArrivalTrace.uniform(rate, duration)
+        icfg = IR.InterleaveConfig(rate, SERVE_BS, latency_budget=2 * period,
+                                   duration=duration)
+        runtime = IR.ManagedInterleaveRuntime(timed, srv, icfg, trace=trace)
+        torch.cuda.reset_peak_memory_stats()
+        launches.reset()
+        t0 = time.perf_counter()
+        rep = runtime.run()
+        wall = time.perf_counter() - t0
+        counts = launches.read("serve_train_interleaved", TRAIN_KERNELS)
+        peak = torch.cuda.max_memory_allocated()
+        step_s = list(timed.step_s)
+    finally:
+        trainer.close()
+    minibatches = len(rep.latencies) // SERVE_BS
+    if rep.train_minibatches < 1:
+        fail("serve_train_interleaved: no training minibatch ran in the "
+             "inference slack")
+    if minibatches < 1 or len(rep.latencies) != minibatches * SERVE_BS:
+        fail(f"serve_train_interleaved: served {len(rep.latencies)} requests "
+             f"of {len(trace)}")
+    check_model_launches(cfg, counts, minibatches, "serve_train_interleaved",
+                         rep.train_minibatches)
+    del trainer, timed, runtime
+    torch.cuda.empty_cache()
+    alone = IR.ManagedInterleaveRuntime(None, srv, icfg, trace=trace).run()
+    del srv
+    torch.cuda.empty_cache()
+    overrun = max(x - t_tr for x in step_s)
+    out = {"phase": "serve_train_interleaved", "arch": ARCH,
+           "seq_len": SERVE_SEQ, "bs": SERVE_BS, "minibatch_s": t_mb,
+           "train_bs": TRAIN_BS, "train_seq": TRAIN_SEQ, "train_step_s": t_tr,
+           "batch_period_s": period, "rate": rate, "duration_s": duration,
+           "requests": len(trace),
+           "served": len(rep.latencies), "minibatches": minibatches,
+           "trained_minibatches": rep.train_minibatches, "wall_s": wall,
+           "p50_latency_s": rep.latency_quantile(0.5),
+           "p99_latency_s": rep.latency_quantile(0.99),
+           "p50_latency_s_without_trainer": alone.latency_quantile(0.5),
+           "p99_latency_s_without_trainer": alone.latency_quantile(0.99),
+           "train_step_s_in_run": step_s,
+           "max_train_overrun_s": overrun,
+           "max_memory_allocated_bytes": peak, "launches": counts}
+    emit(out)
+    return out
+
+
+def phase_tiled_matmul(torch, rt, launches: Launches, seed: int) -> dict:
+    """The ``kernels.ops.tiled_matmul`` entry point on the serving
+    minibatch's MLP up-projection, against ``torch.matmul``."""
+    OPS = rt["OPS"]
+    M, K, N = MM_SHAPE
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(seed + 3)
+    x = torch.randn((M, K), generator=gen, device=dev).to(torch.bfloat16)
+    w = (torch.randn((K, N), generator=gen, device=dev)
+         / math.sqrt(K)).to(torch.bfloat16)
+    launches.reset()
+    t0 = time.perf_counter()
+    y = OPS.tiled_matmul(x, w)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = launches.read("tiled_matmul", ("tiled_matmul",))
+    ref = torch.matmul(x, w)
+    err = float((y.float() - ref.float()).abs().max())
+    tol = MM_TOL["bfloat16"]
+    if tuple(y.shape) != (M, N) or not bool(torch.isfinite(y).all()) \
+            or not torch.allclose(y.float(), ref.float(), rtol=tol, atol=tol):
+        fail(f"tiled_matmul: the entry point's product differs from "
+             f"torch.matmul by {err} (tolerance {tol})")
+    del x, w, y, ref
+    torch.cuda.empty_cache()
+    out = {"phase": "tiled_matmul", "shape": [M, K, N], "dtype": "bfloat16",
+           "wall_s": wall, "max_abs_err_vs_torch_matmul": err,
+           "launches": counts}
     emit(out)
     return out
 
@@ -774,6 +1199,8 @@ def main() -> int:
     import repro_torch.kernels.fulcrum.lane_sort as K2
     import repro_torch.kernels.fulcrum.maxplus_scan as K1
     import repro_torch.kernels.ssd_scan.ssd_scan as K4
+    import repro_torch.kernels.tiled_matmul.tiled_matmul as K5
+    from repro_torch import tree as T
     from repro_torch.configs import base as C
     from repro_torch.core import problem as P
     from repro_torch.core import simulate as S
@@ -781,19 +1208,29 @@ def main() -> int:
                                                TRAIN_WORKLOADS)
     from repro_torch.core.powermode import PowerModeSpace
     from repro_torch.core.scheduler import Fulcrum
+    from repro_torch.data import pipeline as D
     from repro_torch.kernels import build
+    from repro_torch.kernels import ops as OPS
+    from repro_torch.launch import steps as ST
+    from repro_torch.models import model as M
+    from repro_torch.optim import adamw as A
     from repro_torch.runtime import interleave_runtime as IR
     from repro_torch.runtime import serving as SV
+    from repro_torch.runtime import train_loop as TL
     rt = dict(P=P, S=S, K1=K1, K2=K2, Fulcrum=Fulcrum, DeviceModel=DeviceModel,
               PowerModeSpace=PowerModeSpace, TRAIN=TRAIN_WORKLOADS,
-              INFER=INFER_WORKLOADS, C=C, SV=SV, IR=IR)
+              INFER=INFER_WORKLOADS, C=C, SV=SV, IR=IR, TL=TL, A=A, ST=ST,
+              T=T, M=M, D=D, OPS=OPS)
 
     device = phase_device(torch, build)
-    kern = phase_kernels(torch, K1, K2, K3, K4, args.seed)
+    kern = phase_kernels(torch, K1, K2, K3, K4, K5, args.seed)
     launches = Launches({"maxplus_scan": K1.maxplus_scan,
                          "lane_sort": K2.lane_sort,
                          "flash_attention": K3.flash_attention,
-                         "ssd_chunk": K4.ssd_chunk})
+                         "flash_attention_bwd": K3.flash_attention_bwd,
+                         "ssd_chunk": K4.ssd_chunk,
+                         "ssd_chunk_bwd": K4.ssd_chunk_bwd,
+                         "tiled_matmul": K5.tiled_matmul})
     paths = {"execute": phase_execute(torch, np, rt, launches),
              "serve_dynamic": phase_serve_dynamic(torch, np, rt, launches)}
     sweep = phase_sweep(torch, np, rt, launches)
@@ -802,6 +1239,10 @@ def main() -> int:
     paths["generate"] = phase_generate(torch, np, rt, launches, args.seed)
     paths["serve_interleaved"] = phase_serve_interleaved(torch, np, rt,
                                                          launches, args.seed)
+    paths["train"] = phase_train(torch, np, rt, launches, args.seed)
+    paths["serve_train_interleaved"] = phase_serve_train_interleaved(
+        torch, np, rt, launches, args.seed)
+    paths["tiled_matmul"] = phase_tiled_matmul(torch, rt, launches, args.seed)
 
     rows = []
     for name, meta in KERNEL_ROWS.items():

@@ -3,11 +3,13 @@
 What crosses from a run of the JAX package (or from a saved run) is plain
 data: workload profiles, power modes, arrival-trace times and queue states
 for the plan-and-execute path, and model parameters for the model
-substrate. Each converter takes that data as plain fields, NumPy arrays and
-nested dicts, never as the reference's objects, so the port stays free of
-the ``repro`` package; ``dataclasses.asdict`` of a reference object gives
-exactly the fields these take, and ``jax.tree.map(np.asarray, params)`` a
-parameter tree ``model_params`` takes. The tests feed both packages
+substrate, and the optimizer state for training. Each converter takes that
+data as plain fields, NumPy arrays and nested dicts, never as the
+reference's objects, so the port stays free of the ``repro`` package;
+``dataclasses.asdict`` of a reference object gives exactly the fields
+these take, ``jax.tree.map(np.asarray, params)`` a parameter tree
+``model_params`` takes, and ``jax.tree.map(np.asarray, opt_state)`` an
+optimizer state ``opt_state`` takes. The tests feed both packages
 identical inputs through here.
 """
 from __future__ import annotations
@@ -69,3 +71,15 @@ def model_params(tree: Mapping, cfg: ModelConfig, device=None) -> dict:
 
     params["layers"] = [layer(i, stacked) for i in range(cfg.num_layers)]
     return params
+
+
+def opt_state(tree: Mapping, cfg: ModelConfig, device=None) -> dict:
+    """The port's AdamW state from the reference's, given as nested dicts of
+    NumPy arrays: ``m``, ``v`` (and ``master``, if present) are parameter
+    trees converted by ``model_params``; ``step`` becomes an int32
+    scalar."""
+    out = {k: model_params(tree[k], cfg, device)
+           for k in ("m", "v", "master") if k in tree}
+    out["step"] = torch.tensor(int(np.asarray(tree["step"])),
+                               dtype=torch.int32, device=device)
+    return out

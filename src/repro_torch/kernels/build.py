@@ -28,7 +28,9 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-SOURCES = ("maxplus_scan", "lane_sort", "flash_attention", "ssd_chunk")
+SOURCES = ("maxplus_scan", "lane_sort", "flash_attention",
+           "flash_attention_bwd", "ssd_chunk", "ssd_chunk_bwd",
+           "tiled_matmul")
 
 _LIBS: dict = {}
 _LOCK = threading.Lock()

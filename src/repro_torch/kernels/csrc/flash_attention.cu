@@ -8,6 +8,9 @@
 // (q_i . k_j) / sqrt(D); masked scores are -1e30, the softmax is online in
 // float32 (running max m, normaliser l, accumulator acc) and the output is
 // acc / max(l, 1e-30) in the input type — the TPU kernel's arithmetic.
+// When lse is not null it also gets each row's float32 logsumexp m + log l
+// (B*H, S), which the backward kernel (flash_attention_bwd.cu) recomputes
+// the probabilities from; serving passes null.
 //
 // Design: on the TPU the KV axis is the innermost grid axis and m, l, acc
 // live in VMEM scratch across grid steps. Here one block of 256 threads
@@ -70,7 +73,8 @@ template <typename T, int D>
 __global__ void __launch_bounds__(kThreads)
 flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                        const T* __restrict__ v, T* __restrict__ o,
-                       int64_t S, int window, float scale) {
+                       float* __restrict__ lse, int64_t S, int window,
+                       float scale) {
   constexpr int NC = D / 64;         // 64-column groups of the output
   extern __shared__ float4 smem4[];
   float* Qt = reinterpret_cast<float*>(smem4);   // [D][kBQ]
@@ -199,6 +203,7 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int64_t row = q0 + ty * 4 + i;
     if (row >= S) continue;
     const float inv = 1.f / fmaxf(l[i], 1e-30f);
+    if (lse != nullptr && tx == 0) lse[bh * S + row] = m[i] + logf(l[i]);
 #pragma unroll
     for (int g = 0; g < NC; ++g)
 #pragma unroll
@@ -209,7 +214,8 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
 template <typename T, int D>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
-                   int64_t BH, int64_t S, int window, cudaStream_t stream) {
+                   float* lse, int64_t BH, int64_t S, int window,
+                   cudaStream_t stream) {
   const size_t smem = smem_bytes<D>();
   cudaError_t err = cudaFuncSetAttribute(
       flash_attention_kernel<T, D>,
@@ -217,16 +223,18 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
   if (err != cudaSuccess) return err;
   const dim3 grid((unsigned)((S + kBQ - 1) / kBQ), (unsigned)BH);
   flash_attention_kernel<T, D><<<grid, kThreads, smem, stream>>>(
-      (const T*)q, (const T*)k, (const T*)v, (T*)o, S, window,
+      (const T*)q, (const T*)k, (const T*)v, (T*)o, lse, S, window,
       1.0f / sqrtf((float)D));
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bf16. window <= 0: no window.
+// dtype: 0 = float32, 1 = bf16. window <= 0: no window. lse: null, or
+// float32 (B*H, S) for the rows' logsumexp.
 extern "C" int flash_attention_launch(const void* q, const void* k,
-                                      const void* v, void* o, int64_t BH,
+                                      const void* v, void* o, void* lse,
+                                      int64_t BH,
                                       int64_t S, int64_t D, int64_t window,
                                       int dtype, void* stream) {
   if (BH <= 0 || S <= 0) return (int)cudaSuccess;
@@ -235,12 +243,15 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
     return (int)cudaErrorInvalidValue;
   const int w = window > 0 ? (int)window : 0;
   cudaStream_t st = (cudaStream_t)stream;
-  if (dtype == 0 && D == 64) return (int)launch<float, 64>(q, k, v, o, BH, S, w, st);
-  if (dtype == 0 && D == 128) return (int)launch<float, 128>(q, k, v, o, BH, S, w, st);
+  float* ls = (float*)lse;
+  if (dtype == 0 && D == 64)
+    return (int)launch<float, 64>(q, k, v, o, ls, BH, S, w, st);
+  if (dtype == 0 && D == 128)
+    return (int)launch<float, 128>(q, k, v, o, ls, BH, S, w, st);
   if (dtype == 1 && D == 64)
-    return (int)launch<__nv_bfloat16, 64>(q, k, v, o, BH, S, w, st);
+    return (int)launch<__nv_bfloat16, 64>(q, k, v, o, ls, BH, S, w, st);
   if (dtype == 1 && D == 128)
-    return (int)launch<__nv_bfloat16, 128>(q, k, v, o, BH, S, w, st);
+    return (int)launch<__nv_bfloat16, 128>(q, k, v, o, ls, BH, S, w, st);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -24,6 +24,26 @@ back in the input dtype.
    window. It computes on CUDA cores in float32 whatever the input type,
    so it is bound by operations: ``4 D`` flops per visible (query, key)
    pair over the card's rate for the input type.
+
+The gradient (the reference differentiates ``attention_ref``'s jnp ops;
+the port's forward is a kernel, so its backward is one too):
+
+ * ``flash_attention`` is differentiable: when grad is enabled and an input
+   requires it, the call goes through ``FlashAttentionFn``. On the card the
+   forward kernel then also writes each row's float32 logsumexp, and the
+   backward launches ``csrc/flash_attention_bwd.cu`` through
+   ``flash_attention_bwd``; on the CPU both directions run the plain
+   versions. Without grad (serving) the kernel writes no logsumexp.
+ * ``flash_attention_bwd_plain`` is the explicit gradient in torch ops:
+   probabilities ``P`` in float32, ``dS = P (dO V^T - rowsum(P dO V^T))``,
+   ``dQ = dS K / sqrt(D)``, ``dK = dS^T Q / sqrt(D)``, ``dV = P^T dO``.
+ * ``flash_attention_bwd`` launches the backward kernels: one pass forms
+   ``D = rowsum(dO * O)``, one block per 64-key tile accumulates ``dK, dV``
+   over the query tiles that see it, one block per 64-query tile
+   accumulates ``dQ`` — a deterministic split with no atomics. It
+   recomputes ``P`` from ``Q, K`` and the logsumexp, keeps the forward's
+   masking (causal, window, the ragged tail past S) and accumulates in
+   float32; it is bound by operations: ``14 D`` flops per visible pair.
 """
 from __future__ import annotations
 
@@ -40,13 +60,17 @@ HEAD_DIMS = (64, 128)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 _SIGNATURES = {"flash_attention_launch": (
-    [ctypes.c_void_p] * 4 + [ctypes.c_int64] * 4 + [ctypes.c_int]
+    [ctypes.c_void_p] * 5 + [ctypes.c_int64] * 4 + [ctypes.c_int]
+    + [ctypes.c_void_p], ctypes.c_int)}
+_BWD_SIGNATURES = {"flash_attention_bwd_launch": (
+    [ctypes.c_void_p] * 10 + [ctypes.c_int64] * 4 + [ctypes.c_int]
     + [ctypes.c_void_p], ctypes.c_int)}
 
 
-def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                          window: Optional[int] = None) -> torch.Tensor:
-    """Masked softmax attention in torch ops, on any device."""
+def _probs(q: torch.Tensor, k: torch.Tensor,
+           window: Optional[int]) -> torch.Tensor:
+    """Float32 attention probabilities (B, H, S, S) under the causal
+    (windowed) mask."""
     s = q.shape[2]
     scale = 1.0 / math.sqrt(q.shape[-1])
     scores = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * scale
@@ -56,8 +80,32 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if window is not None:
         mask = mask & (kpos > qpos - window)
     scores = scores.masked_fill(~mask, NEG_INF)
-    probs = torch.softmax(scores, dim=-1)
+    return torch.softmax(scores, dim=-1)
+
+
+def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          window: Optional[int] = None) -> torch.Tensor:
+    """Masked softmax attention in torch ops, on any device."""
+    probs = _probs(q, k, window)
     return torch.einsum("bhqk,bhkd->bhqd", probs, v.float()).to(q.dtype)
+
+
+def flash_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor,
+                              v: torch.Tensor, do: torch.Tensor,
+                              window: Optional[int] = None
+                              ) -> tuple[torch.Tensor, torch.Tensor,
+                                         torch.Tensor]:
+    """(dq, dk, dv) of ``flash_attention_plain`` for the output gradient
+    ``do``, in torch ops on any device, in the input dtype."""
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    probs = _probs(q, k, window)
+    dof = do.float()
+    dv = torch.einsum("bhqk,bhqd->bhkd", probs, dof)
+    dp = torch.einsum("bhqd,bhkd->bhqk", dof, v.float())
+    ds = probs * (dp - (probs * dp).sum(dim=-1, keepdim=True))
+    dq = torch.einsum("bhqk,bhkd->bhqd", ds, k.float()) * scale
+    dk = torch.einsum("bhqk,bhqd->bhkd", ds, q.float()) * scale
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -81,6 +129,101 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"window must be >= 1, got {window}")
 
 
+def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        window: Optional[int] = None, with_lse: bool = True
+                        ) -> tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """The forward kernel on CUDA tensors (checked by the caller): the
+    output and, with ``with_lse``, the rows' float32 logsumexp (B, H, S)
+    that ``flash_attention_bwd`` takes. Adds one to
+    ``flash_attention.launches``."""
+    B, H, S, D = q.shape
+    if D not in HEAD_DIMS:
+        raise ValueError(f"the kernel takes head dims {HEAD_DIMS}, got {D}")
+    out = torch.empty_like(q)
+    lse = (torch.empty((B, H, S), dtype=torch.float32, device=q.device)
+           if with_lse else None)
+    if B * H * S == 0:
+        return out, lse
+    lib = build.load("flash_attention", _SIGNATURES)
+    with torch.cuda.device(q.device):
+        err = lib.flash_attention_launch(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            None if lse is None else lse.data_ptr(),
+            B * H, S, D, 0 if window is None else window, _DTYPES[q.dtype],
+            torch.cuda.current_stream().cuda_stream)
+    build.check(lib, err, "flash_attention")
+    flash_attention.launches += 1
+    return out, lse
+
+
+def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        out: torch.Tensor, lse: torch.Tensor,
+                        do: torch.Tensor, window: Optional[int] = None
+                        ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(dq, dk, dv) from the backward kernels, for CUDA tensors: ``out`` and
+    ``lse`` are the forward's output and logsumexp, ``do`` the output
+    gradient. Adds one to ``flash_attention_bwd.launches``; raises on inputs
+    the kernels do not take."""
+    _check(q, k, v, window)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention_bwd launches the CUDA kernel; "
+                         f"{q.device} tensors take flash_attention_bwd_plain")
+    B, H, S, D = q.shape
+    if D not in HEAD_DIMS:
+        raise ValueError(f"the kernel takes head dims {HEAD_DIMS}, got {D}")
+    for name, t in (("out", out), ("do", do)):
+        if t.shape != q.shape or t.dtype != q.dtype or t.device != q.device \
+                or not t.is_contiguous():
+            raise ValueError(f"{name} must be a contiguous {q.dtype} tensor "
+                             f"of q's shape on {q.device}")
+    if lse.shape != (B, H, S) or lse.dtype != torch.float32 \
+            or lse.device != q.device or not lse.is_contiguous():
+        raise ValueError("lse must be a contiguous float32 (B, H, S) tensor")
+    dq, dk, dv = (torch.empty_like(q) for _ in range(3))
+    if B * H * S == 0:
+        return dq, dk, dv
+    dsum = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
+    lib = build.load("flash_attention_bwd", _BWD_SIGNATURES)
+    with torch.cuda.device(q.device):
+        err = lib.flash_attention_bwd_launch(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            do.data_ptr(), lse.data_ptr(), dsum.data_ptr(), dq.data_ptr(),
+            dk.data_ptr(), dv.data_ptr(), B * H, S, D,
+            0 if window is None else window, _DTYPES[q.dtype],
+            torch.cuda.current_stream().cuda_stream)
+    build.check(lib, err, "flash_attention_bwd")
+    flash_attention_bwd.launches += 1
+    return dq, dk, dv
+
+
+flash_attention_bwd.launches = 0
+
+
+class FlashAttentionFn(torch.autograd.Function):
+    """Attention with a hand-written gradient: the kernels on CUDA tensors,
+    the plain versions on CPU tensors."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, window):
+        if q.device.type == "cpu":
+            out, lse = flash_attention_plain(q, k, v, window), None
+        else:
+            out, lse = flash_attention_fwd(q, k, v, window)
+        ctx.window = window
+        ctx.save_for_backward(q, k, v, out, lse)
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, out, lse = ctx.saved_tensors
+        do = do.contiguous()
+        if q.device.type == "cpu":
+            grads = flash_attention_bwd_plain(q, k, v, do, ctx.window)
+        else:
+            grads = flash_attention_bwd(q, k, v, out, lse, do, ctx.window)
+        return (*grads, None)
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     window: Optional[int] = None) -> torch.Tensor:
     """(B, H, S, D) -> (B, H, S, D) causal attention in the input dtype.
@@ -88,28 +231,18 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     CUDA tensors launch the hand-written kernel on the current stream (and
     add one to ``flash_attention.launches``); CPU tensors run the plain
     version. Anything else raises, and so does a head dim the kernel does
-    not take."""
+    not take. Differentiable through ``FlashAttentionFn`` when grad is
+    enabled and an input requires it."""
     _check(q, k, v, window)
-    if q.device.type == "cpu":
-        return flash_attention_plain(q, k, v, window)
-    if q.device.type != "cuda":
+    if q.device.type not in ("cpu", "cuda"):
         raise ValueError(f"flash_attention runs on cuda or cpu tensors, "
                          f"not {q.device}")
-    B, H, S, D = q.shape
-    if D not in HEAD_DIMS:
-        raise ValueError(f"the kernel takes head dims {HEAD_DIMS}, got {D}")
-    out = torch.empty_like(q)
-    if B * H * S == 0:
-        return out
-    lib = build.load("flash_attention", _SIGNATURES)
-    with torch.cuda.device(q.device):
-        err = lib.flash_attention_launch(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            B * H, S, D, 0 if window is None else window, _DTYPES[q.dtype],
-            torch.cuda.current_stream().cuda_stream)
-    build.check(lib, err, "flash_attention")
-    flash_attention.launches += 1
-    return out
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return FlashAttentionFn.apply(q, k, v, window)
+    if q.device.type == "cpu":
+        return flash_attention_plain(q, k, v, window)
+    return flash_attention_fwd(q, k, v, window, with_lse=False)[0]
 
 
 flash_attention.launches = 0

@@ -3,14 +3,20 @@
 Counterpart of ``repro.kernels.ops``. ``ssd_scan`` is the full SSD scan of
 a Mamba2 layer: the intra-chunk kernel (``ssd_scan.ssd_chunk``, K4) plus the
 inter-chunk recurrence over the ``nc`` chunks and the off-diagonal term, in
-torch ops (O(nc) small steps). The attention kernel needs no wrapper: the
-model calls ``flash_attention`` directly.
+torch ops (O(nc) small steps); its gradient runs through torch autograd,
+with the kernel's own backward for the intra-chunk part. ``tiled_matmul``
+is the entry point of the tiled-matmul kernel (K5). The attention kernel
+needs no wrapper: the model calls ``flash_attention`` directly.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.kernels.ssd_scan.ssd_scan import chunk_cumsum, ssd_chunk
+# the entry point of K5 (the reference's ``block_*`` arguments are TPU
+# tiling and are not taken)
+from repro_torch.kernels.tiled_matmul.tiled_matmul import \
+    tiled_matmul  # noqa: F401
 
 
 def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,

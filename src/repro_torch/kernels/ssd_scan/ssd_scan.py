@@ -27,6 +27,28 @@ the chunk states (b, nc, h, n, p), both float32.
    by operations: the least work is ``C B^T`` once per (batch, chunk)
    (it does not depend on the head) plus, per head, the masked product
    with ``x`` and the state product.
+
+The gradient (the reference differentiates ``ssd_chunk_ref``'s jnp ops; the
+port's forward is a kernel, so its backward is one too):
+
+ * ``ssd_chunk`` is differentiable: when grad is enabled and an input
+   requires it, the call goes through ``SSDChunkFn``, whose backward gives
+   the gradients of ``x``, ``dA``, ``dt``, ``B`` and ``C`` from the
+   upstream ``dy`` and ``dstates`` — on the card through
+   ``ssd_chunk_bwd`` (``csrc/ssd_chunk_bwd.cu``), on the CPU through
+   ``ssd_chunk_bwd_plain``.
+ * ``ssd_chunk_bwd_plain`` is the explicit gradient in torch ops. ``B`` and
+   ``C`` are shared by every head, so their gradients sum over heads; the
+   gradient of ``cs`` runs back to ``dA`` as a reverse cumulative sum
+   (summed in float64 and rounded once, as ``cs`` is formed); ``exp`` is
+   again taken only below the diagonal, where above it ``0 * inf`` would
+   be a NaN in the gradient.
+ * ``ssd_chunk_bwd`` launches the backward kernels: per (batch, chunk,
+   head) one pass over query tiles for this head's ``dC`` and the row
+   terms of ``dcs``, one pass over key tiles for ``dx``, this head's
+   ``dB``, ``ddt`` and the column terms; then a reverse cumulative sum for
+   ``ddA`` and a sum of the heads' ``dB``, ``dC`` partials — deterministic,
+   no atomics, float32 on CUDA cores.
 """
 from __future__ import annotations
 
@@ -41,6 +63,9 @@ MAX_DIM = 128
 
 _SIGNATURES = {"ssd_chunk_launch": (
     [ctypes.c_void_p] * 7 + [ctypes.c_int64] * 5 + [ctypes.c_void_p],
+    ctypes.c_int)}
+_BWD_SIGNATURES = {"ssd_chunk_bwd_launch": (
+    [ctypes.c_void_p] * 13 + [ctypes.c_int64] * 5 + [ctypes.c_void_p],
     ctypes.c_int)}
 
 
@@ -71,6 +96,45 @@ def ssd_chunk_plain(x: torch.Tensor, dA: torch.Tensor, dt: torch.Tensor,
     return y, states
 
 
+def ssd_chunk_bwd_plain(x: torch.Tensor, dA: torch.Tensor, dt: torch.Tensor,
+                        B: torch.Tensor, C: torch.Tensor, dy: torch.Tensor,
+                        dstates: torch.Tensor) -> tuple[torch.Tensor, ...]:
+    """(dx, ddA, ddt, dB, dC) of ``ssd_chunk_plain`` for the upstream
+    gradients ``dy`` (like y) and ``dstates`` (like the states), in torch
+    ops on any device."""
+    l = x.shape[2]
+    cs = chunk_cumsum(dA)                                 # (b, nc, l, h)
+    seg = cs[:, :, :, None, :] - cs[:, :, None, :, :]     # (b, nc, i, j, h)
+    causal = torch.ones(l, l, dtype=torch.bool, device=x.device).tril()
+    causal = causal[None, None, :, :, None]
+    L = torch.exp(seg.masked_fill(~causal, 0.0)).masked_fill(~causal, 0.0)
+    G = torch.einsum("bcin,bcjn->bcij", C, B)[..., None]  # (b, nc, i, j, 1)
+    dtj = dt[:, :, None, :, :]                            # (b, nc, 1, j, h)
+    M = G * L * dtj                                       # (b, nc, i, j, h)
+    dM = torch.einsum("bcihp,bcjhp->bcijh", dy, x) * causal
+    dG = dM * L * dtj
+    E = dM * M
+    dx = torch.einsum("bcijh,bcihp->bcjhp", M, dy)
+    dC = torch.einsum("bcijh,bcjn->bcin", dG, B)
+    dB = torch.einsum("bcijh,bcin->bcjn", dG, C)
+    ddt = (dM * G * L).sum(dim=2)                         # (b, nc, j, h)
+    dcs = E.sum(dim=3) - E.sum(dim=2)                     # (b, nc, l, h)
+    # chunk states: st = sum_j B_j^T w_j x_j, w_j = exp(cs_last - cs_j) dt_j
+    decay = torch.exp(cs[:, :, -1:, :] - cs)              # (b, nc, l, h)
+    w = decay * dt
+    xd = torch.einsum("bcjhp,bchnp->bcjhn", x, dstates)   # (dst x_j)
+    bd = torch.einsum("bcjn,bchnp->bcjhp", B, dstates)    # (dst^T B_j)
+    dw = torch.einsum("bcjn,bcjhn->bcjh", B, xd)
+    dx = dx + w[..., None] * bd
+    dB = dB + torch.einsum("bcjh,bcjhn->bcjn", w, xd)
+    ddt = ddt + decay * dw
+    dcs = dcs - w * dw
+    dcs[:, :, -1] += (w * dw).sum(dim=2)
+    ddA = torch.flip(torch.cumsum(torch.flip(dcs.double(), [2]), dim=2),
+                     [2]).float()
+    return dx, ddA, ddt, dB, dC
+
+
 def _check(x, dA, dt, B, C) -> None:
     """Raise on inputs the kernel does not take."""
     if x.dim() != 5:
@@ -90,27 +154,17 @@ def _check(x, dA, dt, B, C) -> None:
             raise ValueError(f"{name} must be contiguous")
 
 
-def ssd_chunk(x: torch.Tensor, dA: torch.Tensor, dt: torch.Tensor,
-              B: torch.Tensor, C: torch.Tensor) -> tuple[torch.Tensor,
-                                                         torch.Tensor]:
-    """Intra-chunk SSD: (y (b, nc, l, h, p), states (b, nc, h, n, p)).
-
-    CUDA tensors launch the hand-written kernel on the current stream (and
-    add one to ``ssd_chunk.launches``); CPU tensors run the plain version.
-    Anything else raises, and so does a chunk longer than 256 or a head or
-    state dim above 128."""
-    _check(x, dA, dt, B, C)
-    if x.device.type == "cpu":
-        return ssd_chunk_plain(x, dA, dt, B, C)
-    if x.device.type != "cuda":
-        raise ValueError(f"ssd_chunk runs on cuda or cpu tensors, "
-                         f"not {x.device}")
-    b, nc, l, h, p = x.shape
-    n = B.shape[-1]
+def _check_dims(l: int, p: int, n: int) -> None:
     if l > MAX_CHUNK or p > MAX_DIM or n > MAX_DIM:
         raise ValueError(f"the kernel takes chunks up to {MAX_CHUNK} and "
                          f"head / state dims up to {MAX_DIM}, got l={l}, "
                          f"p={p}, n={n}")
+
+
+def _launch_forward(x, dA, dt, B, C) -> tuple[torch.Tensor, torch.Tensor]:
+    b, nc, l, h, p = x.shape
+    n = B.shape[-1]
+    _check_dims(l, p, n)
     y = torch.empty_like(x)
     states = torch.empty((b, nc, h, n, p), dtype=torch.float32,
                          device=x.device)
@@ -125,6 +179,92 @@ def ssd_chunk(x: torch.Tensor, dA: torch.Tensor, dt: torch.Tensor,
     build.check(lib, err, "ssd_chunk")
     ssd_chunk.launches += 1
     return y, states
+
+
+def ssd_chunk_bwd(x: torch.Tensor, dA: torch.Tensor, dt: torch.Tensor,
+                  B: torch.Tensor, C: torch.Tensor, dy: torch.Tensor,
+                  dstates: torch.Tensor) -> tuple[torch.Tensor, ...]:
+    """(dx, ddA, ddt, dB, dC) from the backward kernels, for CUDA tensors.
+    Adds one to ``ssd_chunk_bwd.launches``; raises on inputs the kernels do
+    not take."""
+    _check(x, dA, dt, B, C)
+    if x.device.type != "cuda":
+        raise ValueError(f"ssd_chunk_bwd launches the CUDA kernel; "
+                         f"{x.device} tensors take ssd_chunk_bwd_plain")
+    b, nc, l, h, p = x.shape
+    n = B.shape[-1]
+    _check_dims(l, p, n)
+    for name, t, shape in (("dy", dy, x.shape),
+                           ("dstates", dstates, (b, nc, h, n, p))):
+        if tuple(t.shape) != tuple(shape) or t.dtype != torch.float32 \
+                or t.device != x.device or not t.is_contiguous():
+            raise ValueError(f"{name} must be a contiguous float32 "
+                             f"{tuple(shape)} tensor on {x.device}")
+    dx, ddA, ddt, dB, dC = (torch.empty_like(t) for t in (x, dA, dt, B, C))
+    if x.numel() == 0 or n == 0:
+        return tuple(t.zero_() for t in (dx, ddA, ddt, dB, dC))
+    scratch = torch.empty(2 * b * nc * h * l * n + 3 * b * nc * l * h,
+                          dtype=torch.float32, device=x.device)
+    lib = build.load("ssd_chunk_bwd", _BWD_SIGNATURES)
+    with torch.cuda.device(x.device):
+        err = lib.ssd_chunk_bwd_launch(
+            x.data_ptr(), dA.data_ptr(), dt.data_ptr(), B.data_ptr(),
+            C.data_ptr(), dy.data_ptr(), dstates.data_ptr(), dx.data_ptr(),
+            ddA.data_ptr(), ddt.data_ptr(), dB.data_ptr(), dC.data_ptr(),
+            scratch.data_ptr(), b * nc, l, h, p, n,
+            torch.cuda.current_stream().cuda_stream)
+    build.check(lib, err, "ssd_chunk_bwd")
+    ssd_chunk_bwd.launches += 1
+    return dx, ddA, ddt, dB, dC
+
+
+ssd_chunk_bwd.launches = 0
+
+
+class SSDChunkFn(torch.autograd.Function):
+    """The intra-chunk product with a hand-written gradient: the kernels on
+    CUDA tensors, the plain versions on CPU tensors."""
+
+    @staticmethod
+    def forward(ctx, x, dA, dt, B, C):
+        if x.device.type == "cpu":
+            y, states = ssd_chunk_plain(x, dA, dt, B, C)
+        else:
+            y, states = _launch_forward(x, dA, dt, B, C)
+        ctx.save_for_backward(x, dA, dt, B, C)
+        return y, states
+
+    @staticmethod
+    def backward(ctx, dy, dstates):
+        x, dA, dt, B, C = ctx.saved_tensors
+        b, nc, l, h, p = x.shape
+        dy = torch.zeros_like(x) if dy is None else dy.contiguous()
+        dstates = (x.new_zeros((b, nc, h, B.shape[-1], p)) if dstates is None
+                   else dstates.contiguous())
+        bwd = ssd_chunk_bwd_plain if x.device.type == "cpu" else ssd_chunk_bwd
+        return bwd(x, dA, dt, B, C, dy, dstates)
+
+
+def ssd_chunk(x: torch.Tensor, dA: torch.Tensor, dt: torch.Tensor,
+              B: torch.Tensor, C: torch.Tensor) -> tuple[torch.Tensor,
+                                                         torch.Tensor]:
+    """Intra-chunk SSD: (y (b, nc, l, h, p), states (b, nc, h, n, p)).
+
+    CUDA tensors launch the hand-written kernel on the current stream (and
+    add one to ``ssd_chunk.launches``); CPU tensors run the plain version.
+    Anything else raises, and so does a chunk longer than 256 or a head or
+    state dim above 128. Differentiable through ``SSDChunkFn`` when grad is
+    enabled and an input requires it."""
+    _check(x, dA, dt, B, C)
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"ssd_chunk runs on cuda or cpu tensors, "
+                         f"not {x.device}")
+    if torch.is_grad_enabled() and any(t.requires_grad
+                                       for t in (x, dA, dt, B, C)):
+        return SSDChunkFn.apply(x, dA, dt, B, C)
+    if x.device.type == "cpu":
+        return ssd_chunk_plain(x, dA, dt, B, C)
+    return _launch_forward(x, dA, dt, B, C)
 
 
 ssd_chunk.launches = 0

@@ -1,0 +1,88 @@
+"""Tiled matrix product: the CUDA kernel's wrapper and its plain PyTorch
+version.
+
+Replaces the Pallas kernel ``repro/kernels/tiled_matmul/tiled_matmul.py::
+tiled_matmul`` (body ``_mm_kernel``), reached through the entry point
+``kernels.ops.tiled_matmul``. No model path calls it: the model's products
+stay ``torch.matmul``, as the reference's are ``jnp.einsum``.
+
+Contract (``repro/kernels/tiled_matmul/ref.py::matmul_ref``): ``a`` (M, K)
+and ``b`` (K, N) of one dtype, bf16 or float32; the product is summed in
+float32 and returned in the input dtype. The reference's ``block_m``,
+``block_n`` and ``block_k`` are TPU tiling, not part of the function, and
+are not taken.
+
+ * ``tiled_matmul_plain`` is ``a.float() @ b.float()`` cast back, for any
+   shape and device (run it with TF32 off for float32 comparisons).
+ * ``tiled_matmul`` launches ``csrc/tiled_matmul.cu`` for CUDA tensors and
+   takes the plain version only for CPU tensors, for any M, N, K. bf16
+   runs on the tensor cores through ``mma.sync`` with float32 accumulation
+   (a 128 x 128 output tile per block); float32 runs on CUDA cores in
+   float32, without TF32. It is bound by operations: ``2 M N K`` flops.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import build
+
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+_SIGNATURES = {"tiled_matmul_launch": (
+    [ctypes.c_void_p] * 3 + [ctypes.c_int64] * 3 + [ctypes.c_int]
+    + [ctypes.c_void_p], ctypes.c_int)}
+
+
+def tiled_matmul_plain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` summed in float32, in the input dtype, on any device."""
+    return (a.float() @ b.float()).to(a.dtype)
+
+
+def _check(a: torch.Tensor, b: torch.Tensor) -> None:
+    """Raise on inputs the kernel does not take."""
+    if a.dim() != 2 or b.dim() != 2 or a.shape[1] != b.shape[0]:
+        raise ValueError(f"need a (M, K) and b (K, N), got {tuple(a.shape)} "
+                         f"and {tuple(b.shape)}")
+    for name, x in (("a", a), ("b", b)):
+        if x.dtype not in _DTYPES:
+            raise TypeError(f"{name} must be float32 or bfloat16, got "
+                            f"{x.dtype}")
+        if not x.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if b.dtype != a.dtype:
+        raise TypeError(f"b is {b.dtype}, a is {a.dtype}")
+    if b.device != a.device:
+        raise ValueError(f"b is on {b.device}, a on {a.device}")
+
+
+def tiled_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """(M, K) @ (K, N) -> (M, N) in the input dtype, float32-accumulated.
+
+    CUDA tensors launch the hand-written kernel on the current stream (and
+    add one to ``tiled_matmul.launches``); CPU tensors run the plain
+    version. Anything else raises."""
+    _check(a, b)
+    if a.device.type == "cpu":
+        return tiled_matmul_plain(a, b)
+    if a.device.type != "cuda":
+        raise ValueError(f"tiled_matmul runs on cuda or cpu tensors, "
+                         f"not {a.device}")
+    (M, K), N = a.shape, b.shape[1]
+    c = torch.empty((M, N), dtype=a.dtype, device=a.device)
+    if M * N == 0:
+        return c
+    if K == 0:
+        return c.zero_()
+    lib = build.load("tiled_matmul", _SIGNATURES)
+    with torch.cuda.device(a.device):
+        err = lib.tiled_matmul_launch(
+            a.data_ptr(), b.data_ptr(), c.data_ptr(), M, N, K,
+            _DTYPES[a.dtype], torch.cuda.current_stream().cuda_stream)
+    build.check(lib, err, "tiled_matmul")
+    tiled_matmul.launches += 1
+    return c
+
+
+tiled_matmul.launches = 0

@@ -17,6 +17,7 @@ per-layer dicts; the reference stacks them on a leading axis for
 Entry points:
   init_params(cfg, generator, device)           -> params
   forward(params, batch, cfg)                   -> (logits, aux)
+  train_loss(params, batch, cfg)                -> (loss, metrics)
   prefill(params, batch, cfg, max_seq_len)      -> (last logits, cache)
   init_cache(cfg, batch, seq_len)               -> decode cache
   decode_step(params, cache, batch, pos, cfg)   -> (logits, cache)
@@ -28,6 +29,7 @@ import math
 from typing import Any, Optional
 
 import torch
+import torch.utils.checkpoint
 
 from repro_torch.models import layers as L
 
@@ -293,20 +295,64 @@ def _positions(b: int, s: int, device) -> torch.Tensor:
     return torch.arange(s, dtype=torch.int32, device=device)[None].expand(b, s)
 
 
+def _hybrid_layer(params: dict, i: int, x: torch.Tensor,
+                  positions: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """Layer ``i`` of the stack: the shared attention block where
+    ``i % attn_every == 0``, then the Mamba2 block (the reference's scan
+    body)."""
+    if i % cfg.attn_every == 0:
+        x, _ = _shared_block(params, x, positions, cfg, cfg.attn_spec)
+    lp = params["layers"][i]
+    h, _ = L.ssm_apply(lp["ssm"], L.norm_apply(cfg.norm, lp["ln"], x),
+                       cfg.ssm_spec)
+    return x + h
+
+
 def forward(params: dict, batch: dict, cfg: ModelConfig) -> tuple[torch.Tensor,
                                                                   torch.Tensor]:
-    """Full-sequence forward (train / prefill). Returns (logits, aux)."""
+    """Full-sequence forward (train / prefill). Returns (logits, aux).
+
+    With ``cfg.remat`` and grad enabled each layer runs under
+    ``torch.utils.checkpoint`` (non-reentrant): its activations are dropped
+    and recomputed in the backward pass, as the reference wraps each scan
+    body in ``jax.checkpoint``."""
     x = embed_inputs(params, batch, cfg)
     b, s, _ = x.shape
     positions = _positions(b, s, x.device)
-    for i, lp in enumerate(params["layers"]):
-        if i % cfg.attn_every == 0:
-            x, _ = _shared_block(params, x, positions, cfg, cfg.attn_spec)
-        h, _ = L.ssm_apply(lp["ssm"], L.norm_apply(cfg.norm, lp["ln"], x),
-                           cfg.ssm_spec)
-        x = x + h
+    remat = cfg.remat and torch.is_grad_enabled()
+    for i in range(len(params["layers"])):
+        if remat:
+            x = torch.utils.checkpoint.checkpoint(
+                _hybrid_layer, params, i, x, positions, cfg,
+                use_reentrant=False)
+        else:
+            x = _hybrid_layer(params, i, x, positions, cfg)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     return output_logits(params, x, cfg), aux
+
+
+# ---------------------------------------------------------------------------
+# loss
+# ---------------------------------------------------------------------------
+
+def softmax_xent(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Per-token cross entropy in float32; the logsumexp runs over every
+    column of ``logits`` (the padded vocabulary, as in the reference)."""
+    logits = logits.float()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = logits.gather(-1, labels.long()[..., None])[..., 0]
+    return logz - gold
+
+
+def train_loss(params: dict, batch: dict, cfg: ModelConfig
+               ) -> tuple[torch.Tensor, dict]:
+    """Mean next-token cross entropy of ``batch["tokens"]`` against
+    ``batch["labels"]`` plus the (zero) MoE auxiliary term. Returns
+    (loss, {"loss", "xent", "moe_aux"})."""
+    logits, aux = forward(params, batch, cfg)
+    xent = softmax_xent(logits, batch["labels"]).mean()
+    loss = xent + cfg.moe_aux_weight * aux
+    return loss, {"loss": loss, "xent": xent, "moe_aux": aux}
 
 
 # ---------------------------------------------------------------------------

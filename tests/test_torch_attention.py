@@ -8,7 +8,12 @@ layer (prefill through the kernel, decode through the ring buffer) is held
 to ``repro.models.layers.attention_apply`` in float32 within 1e-4. Inputs
 are made with NumPy from a seed and handed to both packages.
 
-The CUDA kernel itself is held to the plain version on the card by
+The plain backward (``flash_attention_bwd_plain``) is held to ``jax.vjp``
+of ``attention_ref`` within 1e-4 of each gradient's largest |value| in
+float32 and 2e-2 in bf16, windowed and ragged included; on CPU tensors the
+differentiable ``flash_attention`` runs it.
+
+The CUDA kernels themselves are held to the plain versions on the card by
 ``tests/test_torch_cuda.py`` and ``chip_smoke.py``.
 """
 import jax
@@ -163,3 +168,44 @@ def test_mlp_matches_the_reference(activation):
     np.testing.assert_allclose(
         TL.mlp_apply(tp, torch.from_numpy(x), activation).numpy(),
         np.asarray(JL.mlp_apply(jp, jnp.asarray(x), activation)), **TOL)
+
+
+def _near(got, want, tol):
+    want = np.asarray(want, np.float32)
+    err = np.abs(np.asarray(got, np.float32) - want).max()
+    assert err <= tol * np.abs(want).max(), (err, np.abs(want).max())
+
+
+@pytest.mark.parametrize("S,D,window,dtype", [
+    (128, 64, None, np.float32), (200, 64, 48, np.float32),
+    (77, 128, None, np.float32), (65, 64, 1, np.float32),
+    (128, 64, None, "bfloat16"), (100, 64, 30, "bfloat16")])
+def test_plain_backward_matches_jax_vjp_of_the_oracle(S, D, window, dtype):
+    q, k, v, do = _qkv(7, (1, 2, S, D)) + _qkv(8, (1, 2, S, D))[:1]
+    jdt, tdt = ((jnp.bfloat16, torch.bfloat16) if dtype == "bfloat16"
+                else (jnp.float32, torch.float32))
+    jin = [jnp.asarray(a).astype(jdt) for a in (q, k, v, do)]
+    tin = [torch.from_numpy(a).to(tdt) for a in (q, k, v, do)]
+    want = jax.jit(lambda ins, cot: jax.vjp(
+        lambda a, b, c: attention_ref(a, b, c, window=window), *ins)[1](cot))(
+            tuple(jin[:3]), jin[3])
+    got = K3.flash_attention_bwd_plain(*tin, window=window)
+    tol = 1e-4 if dtype == np.float32 else 2e-2
+    for g, w in zip(got, want):
+        assert g.dtype == tdt
+        _near(g.float().numpy(), np.asarray(w, np.float32), tol)
+
+
+def test_cpu_gradients_take_the_plain_backward_and_count_no_launch():
+    q, k, v, do = (torch.from_numpy(a) for a in
+                   _qkv(9, (2, 2, 70, 64)) + _qkv(10, (2, 2, 70, 64))[:1])
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    before = (K3.flash_attention.launches, K3.flash_attention_bwd.launches)
+    out = K3.flash_attention(*leaves, window=20)
+    assert out.grad_fn is not None
+    out.backward(do)
+    assert (K3.flash_attention.launches,
+            K3.flash_attention_bwd.launches) == before
+    want = K3.flash_attention_bwd_plain(q, k, v, do, window=20)
+    for leaf, w in zip(leaves, want):
+        assert torch.equal(leaf.grad, w)

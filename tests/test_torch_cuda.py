@@ -11,8 +11,14 @@ tolerance of ``docs/exactness.md`` (it scans in another order), fills
 within +-2; the sort and its counts are equal. Flash attention meets its
 plain version within 1e-4 in float32 and 2e-2 in bf16 (the kernel sums in
 another order; bf16 rounds the output); the SSD chunk within rtol 2e-4,
-atol 1e-4 (``tests/test_kernels.py``'s tolerances). Float32 comparisons
-run with TF32 off for matrix products and cuDNN.
+atol 1e-4 (``tests/test_kernels.py``'s tolerances). The backward kernels
+meet their plain backwards within 1e-4 (float32) and 2e-2 (bf16) of each
+gradient's largest |value| (or of 1, where that is smaller) for attention — the kernel forms rowsum(dO O)
+from the output rounded to the input type, the plain version from exact
+probabilities — and within 2e-4 of it for the SSD chunk; the tiled matmul
+meets its plain version within ``tests/test_kernels.py``'s 1e-3 (float32)
+and 3e-2 (bf16). Float32 comparisons run with TF32 off for matrix products
+and cuDNN.
 """
 import dataclasses
 
@@ -20,6 +26,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch import tree as T
 from repro_torch.configs import base as TC
 from repro_torch.core import simulate as S
 from repro_torch.core.device_model import INFER_WORKLOADS, TRAIN_WORKLOADS
@@ -29,6 +36,9 @@ from repro_torch.kernels.fulcrum.maxplus_scan import (maxplus_scan,
                                                       maxplus_scan_plain)
 from repro_torch.kernels.flash_attention import flash_attention as K3
 from repro_torch.kernels.ssd_scan import ssd_scan as K4
+from repro_torch.kernels.tiled_matmul import tiled_matmul as K5
+from repro_torch.launch.steps import loss_and_grads
+from repro_torch.models import model as TM
 from repro_torch.runtime.serving import GenerationServer
 
 ENG_TOL = dict(rtol=1e-9, atol=1e-8)
@@ -210,3 +220,115 @@ def test_cuda_generation_matches_cpu_on_the_reduced_model(hopper):
     torch.testing.assert_close(lg.cpu(), lc, rtol=1e-3, atol=1e-3)
     np.testing.assert_array_equal(gpu.generate({"tokens": toks}, 8, 70),
                                   cpu.generate({"tokens": toks}, 8, 70))
+
+
+def _near(got, want, tol, what, floor=1.0):
+    """|got - want| within ``tol`` of want's largest |value|, or of
+    ``floor`` where that is smaller (a kernel gradient that is exactly 0,
+    as for one key or a chunk of one step, has no scale of its own)."""
+    scale = max(float(want.float().abs().max()), floor, 1e-30)
+    err = float((got.float() - want.float()).abs().max())
+    assert err <= tol * scale, f"{what}: {err} > {tol} * {scale}"
+
+
+@pytest.mark.parametrize("B,H,S,D,window", [
+    (1, 2, 256, 64, None), (2, 3, 300, 64, None), (1, 2, 300, 128, 50),
+    (1, 1, 1, 64, None), (2, 2, 129, 128, None), (1, 4, 1000, 64, 512),
+    (1, 2, 65, 64, 1)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_flash_attention_bwd_matches_plain(hopper, B, H, S, D, window,
+                                                dtype):
+    gen = torch.Generator(device=hopper).manual_seed(B * S + D + 1)
+    q, k, v, do = (torch.randn((B, H, S, D), generator=gen, device=hopper)
+                   .to(dtype) for _ in range(4))
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    n0 = K3.flash_attention_bwd.launches
+    out = K3.flash_attention(*leaves, window=window)
+    out.backward(do)
+    torch.cuda.synchronize()
+    assert K3.flash_attention_bwd.launches == n0 + 1
+    want = K3.flash_attention_bwd_plain(q, k, v, do, window)
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    for name, leaf, w in zip("qkv", leaves, want):
+        assert leaf.grad.dtype == dtype
+        _near(leaf.grad, w, tol, f"d{name}")
+
+
+@pytest.mark.parametrize("shape,scale", [((2, 2, 256, 8, 64, 64), 1.0),
+                                         ((1, 2, 256, 4, 64, 64), 3.0),
+                                         ((1, 3, 32, 16, 32, 16), 1.0),
+                                         ((1, 1, 100, 2, 100, 128), 1.0),
+                                         ((2, 1, 1, 3, 8, 4), 1.0)])
+def test_cuda_ssd_chunk_bwd_matches_plain(hopper, shape, scale):
+    """``scale`` 3 puts |cs| at the end of a 256-chunk in the hundreds."""
+    x, dA, dt, B, C = _ssd_inputs(shape, hopper, sum(shape) + 1)
+    dA = (dA * scale).contiguous()
+    leaves = [t.clone().requires_grad_() for t in (x, dA, dt, B, C)]
+    n0 = K4.ssd_chunk_bwd.launches
+    y, st = K4.ssd_chunk(*leaves)
+    gen = torch.Generator(device=hopper).manual_seed(7)
+    dy = torch.randn(y.shape, generator=gen, device=hopper)
+    dst = torch.randn(st.shape, generator=gen, device=hopper)
+    torch.autograd.backward((y, st), (dy, dst))
+    torch.cuda.synchronize()
+    assert K4.ssd_chunk_bwd.launches == n0 + 1
+    want = K4.ssd_chunk_bwd_plain(x, dA, dt, B, C, dy, dst)
+    for name, leaf, w in zip(("x", "dA", "dt", "B", "C"), leaves, want):
+        assert bool(torch.isfinite(leaf.grad).all()), name
+        _near(leaf.grad, w, 2e-4, f"d{name}")
+
+
+def test_cuda_forward_outputs_carry_a_gradient(hopper):
+    """The kernels write their outputs through ctypes; without the autograd
+    functions a CUDA forward would cut the gradient."""
+    q = torch.randn((1, 2, 70, 64), device=hopper, requires_grad=True)
+    out = K3.flash_attention(q, q.detach(), q.detach())
+    assert out.grad_fn is not None
+    x, dA, dt, B, C = _ssd_inputs((1, 1, 32, 2, 8, 4), hopper, 3)
+    y, st = K4.ssd_chunk(x.requires_grad_(), dA, dt, B, C)
+    assert y.grad_fn is not None and st.grad_fn is not None
+    with torch.no_grad():
+        assert K3.flash_attention(q, q, q).grad_fn is None
+
+
+@pytest.mark.parametrize("M,K,N", [(128, 128, 128), (256, 384, 128),
+                                   (128, 256, 512), (100, 37, 53),
+                                   (1, 1, 1), (257, 300, 129),
+                                   (512, 2048, 1024)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_tiled_matmul_matches_plain(hopper, M, K, N, dtype):
+    gen = torch.Generator(device=hopper).manual_seed(M + K + N)
+    a = torch.randn((M, K), generator=gen, device=hopper).to(dtype)
+    b = torch.randn((K, N), generator=gen, device=hopper).to(dtype)
+    n0 = K5.tiled_matmul.launches
+    got = K5.tiled_matmul(a, b)
+    torch.cuda.synchronize()
+    assert K5.tiled_matmul.launches == n0 + 1 and got.dtype == dtype
+    tol = 1e-3 if dtype == torch.float32 else 3e-2
+    torch.testing.assert_close(got.float(), K5.tiled_matmul_plain(a, b).float(),
+                               rtol=tol, atol=tol)
+
+
+def test_cuda_training_gradients_match_cpu_at_full_width(hopper):
+    """Two layers of zamba2-1.2b at full width in float32, remat on: the
+    loss within 1e-4 and each gradient leaf within 1e-3 of its largest
+    |g| between the kernels and the plain versions."""
+    cfg = dataclasses.replace(TC.get_config("zamba2-1.2b"), num_layers=2,
+                              compute_dtype=torch.float32)
+    base = TM.init_params(cfg, torch.Generator(device=hopper).manual_seed(0),
+                          hopper)
+    rng = np.random.default_rng(0)
+    toks = rng.integers(0, cfg.vocab_size, (1, 301)).astype(np.int32)
+    out = {}
+    for dev in (hopper, torch.device("cpu")):
+        params = T.tree_map(lambda t: t.detach().to(dev).clone()
+                            .requires_grad_(), base)
+        batch = {"tokens": torch.from_numpy(toks[:, :-1]).to(dev),
+                 "labels": torch.from_numpy(toks[:, 1:]).to(dev)}
+        metrics, grads = loss_and_grads(params, batch, cfg)
+        out[dev.type] = (float(metrics["loss"]),
+                         [g.cpu() for g in T.leaves(grads)])
+    (lg, gg), (lc, gc) = out["cuda"], out["cpu"]
+    assert abs(lg - lc) <= 1e-4
+    for a, b in zip(gg, gc):
+        _near(a, b, 1e-3, "gradient", floor=0.0)

@@ -6,8 +6,11 @@ to the Pallas kernel in interpret mode within rtol 2e-4, atol 1e-4 (the
 tolerance ``tests/test_kernels.py`` sets for the kernel); the full scan is
 held to ``repro.kernels.ops.ssd_scan`` and ``layers.ssd_chunked``, and the
 Mamba2 block (prefill at a length that is not a chunk multiple, and the
-one-step decode) to ``layers.ssm_apply``, all in float32. Inputs are made
-with NumPy from a seed and handed to both packages.
+one-step decode) to ``layers.ssm_apply``, all in float32. The plain
+backward (``ssd_chunk_bwd_plain``) is held to ``jax.vjp`` of
+``ssd_chunk_ref``, and the gradient of ``ops.ssd_scan`` to ``jax.grad`` of
+``layers.ssd_chunked``, within 2e-4 of each gradient's largest |value|.
+Inputs are made with NumPy from a seed and handed to both packages.
 """
 import jax
 import jax.numpy as jnp
@@ -16,6 +19,7 @@ import pytest
 import torch
 
 from repro.kernels import ops as jops
+from repro.kernels.ssd_scan.ref import ssd_chunk_ref
 from repro.kernels.ssd_scan.ssd_scan import ssd_chunk as pallas_ssd_chunk
 from repro.models import layers as JL
 from repro_torch.kernels import ops as tops
@@ -99,6 +103,74 @@ def test_inputs_the_kernel_refuses_raise():
     with pytest.raises(ValueError, match="contiguous"):
         K4.ssd_chunk(x, dA, dt, B.transpose(2, 3).contiguous()
                      .transpose(2, 3), C)
+
+
+def _near(got, want, tol=2e-4):
+    want = np.asarray(want, np.float64)
+    err = np.abs(np.asarray(got, np.float64) - want).max()
+    assert err <= tol * np.abs(want).max(), (err, np.abs(want).max())
+
+
+@pytest.mark.parametrize("shape,scale", [(dict(), 1.0),
+                                         (dict(l=64, h=3, p=8, n=16), 1.0),
+                                         (dict(l=64, nc=1), 6.0)])
+def test_plain_backward_matches_jax_vjp_of_the_oracle(shape, scale):
+    """``scale`` 6 takes |cs| at the end of the chunk into the hundreds."""
+    x, dt, A, B, C = _ssd_case(11, **shape)
+    dA = (dt * A * scale).astype(np.float32)
+    rng = np.random.default_rng(12)
+    b, nc, l, h, p = x.shape
+    dy = rng.standard_normal(x.shape).astype(np.float32)
+    dst = rng.standard_normal((b, nc, h, B.shape[-1], p)).astype(np.float32)
+    want = jax.jit(lambda ins, cot: jax.vjp(ssd_chunk_ref, *ins)[1](cot))(
+        tuple(map(jnp.asarray, (x, dA, dt, B, C))),
+        (jnp.asarray(dy), jnp.asarray(dst)))
+    got = K4.ssd_chunk_bwd_plain(*map(torch.from_numpy,
+                                      (x, dA, dt, B, C, dy, dst)))
+    for g, w in zip(got, want):
+        assert bool(torch.isfinite(g).all())
+        _near(g.numpy(), w)
+
+
+def test_cpu_gradients_take_the_plain_backward_and_count_no_launch():
+    x, dt, A, B, C = (torch.from_numpy(a) for a in _ssd_case(13))
+    dA = dt * A
+    leaves = [t.clone().requires_grad_() for t in (x, dA, dt, B, C)]
+    before = (K4.ssd_chunk.launches, K4.ssd_chunk_bwd.launches)
+    y, st = K4.ssd_chunk(*leaves)
+    assert y.grad_fn is not None
+    dy, dst = torch.ones_like(y), torch.full_like(st, 0.5)
+    torch.autograd.backward((y, st), (dy, dst))
+    assert (K4.ssd_chunk.launches, K4.ssd_chunk_bwd.launches) == before
+    want = K4.ssd_chunk_bwd_plain(x, dA, dt, B, C, dy, dst)
+    for leaf, w in zip(leaves, want):
+        assert torch.equal(leaf.grad, w)
+
+
+def test_ssd_scan_gradient_matches_the_reference_chunked_scan():
+    x, dt, A, B, C = _ssd_case(14, nc=3)
+    b, nc, l, h, p = x.shape
+    n = B.shape[-1]
+    rng = np.random.default_rng(15)
+    dy = rng.standard_normal(x.shape).astype(np.float32)
+    dfin = rng.standard_normal((b, h, p, n)).astype(np.float32)
+
+    def jloss(x, dt, A, B, C):
+        y, fin = JL.ssd_chunked(x.reshape(b, nc * l, h, p),
+                                dt.reshape(b, nc * l, h), A,
+                                B.reshape(b, nc * l, 1, n),
+                                C.reshape(b, nc * l, 1, n), l)
+        return (jnp.sum(y.reshape(x.shape) * dy)
+                + jnp.sum(fin * dfin))
+
+    want = jax.jit(jax.grad(jloss, argnums=(0, 1, 2, 3, 4)))(
+        *map(jnp.asarray, (x, dt, A, B, C)))
+    leaves = [torch.from_numpy(a).requires_grad_() for a in (x, dt, A, B, C)]
+    y, fin = tops.ssd_scan(*leaves)
+    ((y * torch.from_numpy(dy)).sum()
+     + (fin * torch.from_numpy(dfin)).sum()).backward()
+    for leaf, w in zip(leaves, want):
+        _near(leaf.grad.numpy(), w)
 
 
 # ---------------------------------------------------------------------------
