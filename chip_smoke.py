@@ -44,12 +44,12 @@ each and stopping with a traceback at the first failure:
     2-layer full-width float32 copy takes one step on ``"cuda"`` and on
     ``"cpu"`` from the same params and batch: losses within 1e-4, every
     gradient leaf within 1e-3 of its largest |g|.
- 9. ``serve_train_interleaved``: the runtime with that ``Trainer`` and the
-    ``serve_interleaved`` server on a uniform trace whose batch period is
-    the minibatch time plus 2.5 training steps, for 5 s or 2 periods,
-    whichever is longer: trained minibatches (at least one), p50 / p99
-    latency with and without the trainer, and the largest overrun of a
-    training step past its predicted end.
+ 9. ``serve_train_interleaved``: the runtime with that ``Trainer`` (warm
+    from the train phase) and the ``serve_interleaved`` server on a uniform
+    5 s trace whose batch period is the minibatch time plus 2.5 training
+    steps: trained minibatches (at least one), p50 / p99 latency with and
+    without the trainer, and the largest overrun of a training step past
+    its predicted end.
 10. ``tiled_matmul``: the ``kernels.ops.tiled_matmul`` entry point on the
     serving minibatch's MLP up-projection, (16384, 2048) x (2048, 8192)
     bf16, against ``torch.matmul``.
@@ -57,10 +57,12 @@ each and stopping with a traceback at the first failure:
 The kernel phase also holds the attention kernel (K3) and the SSD chunk
 kernel (K4) against their plain versions at the shapes of the
 ``serve_interleaved`` forward, K3 again at a windowed and a ragged shape,
-their backward kernels at the same shapes (K3's windowed and ragged too),
-and the tiled matmul (K5) at the up-projection's shape and a ragged
-float32 one. Float32 comparisons run with TF32 off
-(``torch.backends.cuda.matmul`` and ``torch.backends.cudnn``).
+their backward kernels at the same shapes (K3's also in float32 at the
+main shape and at the train phase's, in both types), and the tiled matmul
+(K5) at the up-projection's shape and a ragged float32 one. The backward
+kernels are compared element by element, each gradient beside its RMS.
+Float32 comparisons run with TF32 off (``torch.backends.cuda.matmul`` and
+``torch.backends.cudnn``).
 
 Every path phase sets the kernels' launch counts to 0 before it runs and
 fails unless each kernel of its path launched. The line before the last
@@ -86,12 +88,15 @@ ENG_TOL = dict(rtol=1e-9, atol=1e-8)      # docs/exactness.md, engine tier
 ATTN_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 SSD_TOL = dict(rtol=2e-4, atol=1e-4)
 MODEL_TOL = dict(rtol=1e-3, atol=1e-3)   # cuda vs cpu logits, float32
-# backward kernels against their plain backwards, as a share of each
-# gradient's largest |value| or of 1, whichever is larger
-# (tests/test_torch_cuda.py): the attention kernel forms rowsum(dO O) from
-# the output rounded to the input type
+# backward kernels against their plain backwards, element by element
+# (tests/test_torch_cuda.py): |got - want| <= tol (|want| + scale), the
+# scale being the gradient's RMS, or GRAD_FLOOR where that is smaller (a
+# gradient that is exactly 0 has no scale of its own). Both attention
+# backwards form rowsum(dO O) from the forward kernel's output; bf16 rounds
+# dQ, dK and dV.
 ATTN_BWD_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 SSD_BWD_TOL = 2e-4
+GRAD_FLOOR = 0.1
 MM_TOL = {"float32": 1e-3, "bfloat16": 3e-2}   # tests/test_kernels.py
 TRAIN_LOSS_TOL, TRAIN_GRAD_TOL = 1e-4, 1e-3    # cuda vs cpu, float32 step
 HBM_BYTES_PER_S = 3.35e12                 # H100 SXM data sheet
@@ -124,7 +129,8 @@ SSD_SHAPE = (SERVE_BS, SERVE_SEQ // 256, 256, 64, 64, 64)
 TRAIN_BS, TRAIN_SEQ, TRAIN_STEPS = 4, 512, 3
 PARITY_TRAIN_SEQ = 256
 INTERLEAVE_TRAIN_STEPS = 2.5
-INTERLEAVE_MIN_BATCHES = 2      # the trace spans at least this many periods
+# K3's backward is also checked at the shape the train phase gives it
+ATTN_TRAIN_SHAPE = (TRAIN_BS, 32, TRAIN_SEQ, 64)
 # K5: the serving minibatch's MLP up-projection (bs 8 x 2048 tokens,
 # d_model 2048 -> d_ff 8192), and a ragged float32 shape
 MM_SHAPE = (SERVE_BS * SERVE_SEQ, 2048, 8192)          # M, K, N
@@ -400,47 +406,61 @@ def time_ssd(torch, K4, gen, dev, reps: int) -> dict:
             "bound_ms": b_ms, "bound_by": by, "max_abs_err": err}
 
 
-def rel_err(got, want, floor: float = 1.0) -> tuple[float, float]:
-    """(max |got - want|, the scale a tolerance is a share of: max |want|,
-    or ``floor`` where that is smaller — a kernel gradient that is exactly
-    0 has no scale of its own), in float32."""
-    return (float((got.float() - want.float()).abs().max()),
-            max(float(want.float().abs().max()), floor, 1e-30))
+def check_grads(torch, what: str, names, got, want, tol: float) -> dict:
+    """Kernel gradients against their plain versions, element by element:
+    |got - want| <= tol (|want| + scale), the scale being want's RMS or
+    GRAD_FLOOR, whichever is larger; fails at the first gradient past its
+    limit. Records each gradient's max |got - want| beside want's RMS and
+    largest |value|, and the largest share of its limit that any element
+    takes (at most 1 to pass; NaN where got is not finite)."""
+    recs = {}
+    for name, got_, want_ in zip(names, got, want):
+        g, w = got_.float(), want_.float()
+        diff = (g - w).abs()
+        rms = float(w.square().mean().sqrt())
+        limit = tol * (w.abs() + max(rms, GRAD_FLOOR))
+        rec = recs[f"d{name}"] = {
+            "max_abs_err": float(diff.max()), "rms": rms,
+            "max_abs": float(w.abs().max()),
+            "limit_share": float((diff / limit).max())}
+        if not rec["limit_share"] <= 1.0:
+            fail(f"{what}: d{name} differs from the plain backward by "
+                 f"{rec['max_abs_err']} at most, {rec['limit_share']} of "
+                 f"the limit {tol} (|want| + max(RMS {rms}, {GRAD_FLOOR}))")
+    return {"max_abs_err": max(r["max_abs_err"] for r in recs.values()),
+            "grads": recs}
 
 
 def check_attention_bwd(torch, K3, shape, dtype, window, gen, dev) -> tuple:
     """K3's backward kernel against its plain backward; returns the inputs
-    and the worst error as a share of each gradient's largest |value|."""
+    and the comparison's record."""
     q, k, v, do = (torch.randn(shape, generator=gen, device=dev).to(dtype)
                    for _ in range(4))
     out, lse = K3.flash_attention_fwd(q, k, v, window)
     got = K3.flash_attention_bwd(q, k, v, out, lse, do, window)
     torch.cuda.synchronize()
-    want = K3.flash_attention_bwd_plain(q, k, v, do, window)
-    tol = ATTN_BWD_TOL[str(dtype).split(".")[-1]]
-    worst = 0.0
-    for name, g, w in zip("qkv", got, want):
-        err, scale = rel_err(g, w)
-        worst = max(worst, err / scale)
-        if err > tol * scale:
-            fail(f"flash_attention_bwd {shape} {dtype} window={window}: d{name} "
-                 f"differs from the plain backward by {err} (tolerance "
-                 f"{tol} x {scale})")
+    want = K3.flash_attention_bwd_plain(q, k, v, out, do, window)
+    dt = str(dtype).split(".")[-1]
+    rec = check_grads(torch, f"flash_attention_bwd {shape} {dt} "
+                             f"window={window}", "qkv", got, want,
+                      ATTN_BWD_TOL[dt])
     del got, want
-    return (q, k, v, out, lse, do), worst
+    return (q, k, v, out, lse, do), {"shape": list(shape), "window": window,
+                                     "dtype": dt, **rec}
 
 
 def time_attention_bwd(torch, K3, gen, dev, reps: int) -> dict:
     """K3's backward at the serve_interleaved forward's shape in bf16
     (timed, with SDPA's backward as the library yardstick), then checked
-    at the windowed and ragged shapes in float32 and bf16."""
+    at that shape in float32, at the train phase's shape and at the
+    windowed and ragged shapes in float32 and bf16."""
     B, H, S, D = ATTN_SHAPE
-    (q, k, v, out, lse, do), err = check_attention_bwd(
+    (q, k, v, out, lse, do), main = check_attention_bwd(
         torch, K3, ATTN_SHAPE, torch.bfloat16, None, gen, dev)
     ms = cuda_ms(torch, lambda: K3.flash_attention_bwd(q, k, v, out, lse, do),
                  reps)
-    plain_ms = cuda_ms(torch, lambda: K3.flash_attention_bwd_plain(q, k, v, do),
-                       1)
+    plain_ms = cuda_ms(
+        torch, lambda: K3.flash_attention_bwd_plain(q, k, v, out, do), 1)
     torch.cuda.empty_cache()
     leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
     ref = torch.nn.functional.scaled_dot_product_attention(*leaves,
@@ -456,22 +476,25 @@ def time_attention_bwd(torch, K3, gen, dev, reps: int) -> dict:
                      10.0 * D * B * H * attention_pairs(S, None),
                      OPS_PER_S["bfloat16"])
     del q, k, v, out, lse, do
-    checks = []
-    for (b, h, s_, d, window) in ATTN_CHECKS:
-        for dtype in (torch.float32, torch.bfloat16):
-            _, e = check_attention_bwd(torch, K3, (b, h, s_, d), dtype, window,
-                                       gen, dev)
-            checks.append({"shape": [b, h, s_, d], "window": window,
-                           "dtype": str(dtype).split(".")[-1],
-                           "max_err_share": e})
     torch.cuda.empty_cache()
+    checks = [(ATTN_SHAPE, None, (torch.float32,)),
+              (ATTN_TRAIN_SHAPE, None, (torch.float32, torch.bfloat16))]
+    checks += [(c[:4], c[4], (torch.float32, torch.bfloat16))
+               for c in ATTN_CHECKS]
+    recs = []
+    for shape, window, dtypes in checks:
+        for dtype in dtypes:
+            _, rec = check_attention_bwd(torch, K3, shape, dtype, window, gen,
+                                         dev)
+            recs.append(rec)
+            torch.cuda.empty_cache()
     return {"shape": list(ATTN_SHAPE), "dtype": "bfloat16", "kernel_ms": ms,
             "plain_ms": plain_ms, "library_ms": library_ms,
             "library": "backward of scaled_dot_product_attention(is_causal="
                        "True) (torch.autograd.grad over its graph)",
-            "bound_ms": b_ms, "bound_by": by, "max_abs_err": err,
-            "max_abs_err_is": "share of each gradient's largest |value|",
-            "checks": checks}
+            "bound_ms": b_ms, "bound_by": by,
+            "max_abs_err": main["max_abs_err"], "grads": main["grads"],
+            "checks": recs}
 
 
 def time_ssd_bwd(torch, K4, gen, dev, reps: int) -> dict:
@@ -484,13 +507,8 @@ def time_ssd_bwd(torch, K4, gen, dev, reps: int) -> dict:
     got = K4.ssd_chunk_bwd(*args, dy, dst)
     torch.cuda.synchronize()
     want = K4.ssd_chunk_bwd_plain(*args, dy, dst)
-    err = 0.0
-    for name, g, w in zip(("x", "dA", "dt", "B", "C"), got, want):
-        e, scale = rel_err(g, w)
-        err = max(err, e / scale)
-        if e > SSD_BWD_TOL * scale or not bool(torch.isfinite(g).all()):
-            fail(f"ssd_chunk_bwd {SSD_SHAPE}: d{name} differs from the plain "
-                 f"backward by {e} (tolerance {SSD_BWD_TOL} x {scale})")
+    rec = check_grads(torch, f"ssd_chunk_bwd {SSD_SHAPE}",
+                      ("x", "dA", "dt", "B", "C"), got, want, SSD_BWD_TOL)
     del got, want
     ms = cuda_ms(torch, lambda: K4.ssd_chunk_bwd(*args, dy, dst), reps)
     plain_ms = cuda_ms(torch, lambda: K4.ssd_chunk_bwd_plain(*args, dy, dst),
@@ -511,8 +529,8 @@ def time_ssd_bwd(torch, K4, gen, dev, reps: int) -> dict:
             "plain_ms": plain_ms, "library_ms": None,
             "library": "none: no single PyTorch call computes the SSD chunk's "
                        "gradient",
-            "bound_ms": b_ms, "bound_by": by, "max_abs_err": err,
-            "max_abs_err_is": "share of each gradient's largest |value|"}
+            "bound_ms": b_ms, "bound_by": by,
+            "max_abs_err": rec["max_abs_err"], "grads": rec["grads"]}
 
 
 def check_matmul(torch, K5, shape, dtype, gen, dev) -> tuple:
@@ -893,21 +911,23 @@ def phase_generate(torch, np, rt, launches: Launches, seed: int) -> dict:
 
 def profile_device(torch, fn) -> dict:
     """One call of ``fn`` (a minibatch forward, a training step) under
-    ``torch.profiler``: the device's busy time (the sum of kernel time)
-    against the wall, the number of kernels and copies it ran, and the
-    kernels with the most device time."""
+    ``torch.profiler``, tracing the device only (host operators add events
+    that take longer to reduce than the step itself): the device's busy time
+    (the sum of kernel time) against the wall, the number of kernels and
+    copies it ran, the kernels with the most device time, and what the
+    profiled call cost in all (``cost_s``, the reduction included)."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    t_cost = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     rows = []
     for e in prof.key_averages():
-        # device-side entries only: an operator's entry repeats the time of
-        # the kernels it launched
+        # device-side entries only: the runtime's launch calls are host
+        # entries
         if e.device_type != torch.autograd.DeviceType.CUDA:
             continue
         # the attribute's name moved between PyTorch releases
@@ -921,7 +941,8 @@ def profile_device(torch, fn) -> dict:
             "idle_share": (1.0 - busy / wall) if rows else None,
             "device_ops": sum(n for _, _, n in rows),
             "top": [{"name": k[:120], "device_ms": us / 1e3, "count": n}
-                    for k, us, n in rows[:15]]}
+                    for k, us, n in rows[:15]],
+            "cost_s": time.perf_counter() - t_cost}
 
 
 def phase_serve_interleaved(torch, np, rt, launches: Launches,
@@ -1004,7 +1025,8 @@ def train_parity(torch, np, rt, cfg, seed: int) -> dict:
              f"{TRAIN_LOSS_TOL})")
     worst = 0.0
     for i, (a, b) in enumerate(zip(gg, gc)):
-        err, scale = rel_err(a, b, floor=0.0)
+        err = float((a - b).abs().max())
+        scale = max(float(b.abs().max()), 1e-30)
         worst = max(worst, err / scale)
         if err > TRAIN_GRAD_TOL * scale:
             fail(f"train parity: gradient leaf {i} differs by {err} "
@@ -1016,38 +1038,42 @@ def train_parity(torch, np, rt, cfg, seed: int) -> dict:
             "cuda_s": tg, "cpu_s": tc}
 
 
-def phase_train(torch, np, rt, launches: Launches, seed: int) -> dict:
+def phase_train(torch, np, rt, launches: Launches, seed: int) -> tuple:
     """The full-width 38-layer trainer for a few steps, then the 2-layer
-    float32 cuda-vs-cpu step."""
+    float32 cuda-vs-cpu step. Returns the phase's record and the trainer,
+    warm, for ``serve_train_interleaved``."""
     C, TL, A = rt["C"], rt["TL"], rt["A"]
     cfg = C.get_config(ARCH)
     t0 = time.perf_counter()
     trainer = TL.Trainer(cfg, TRAIN_BS, TRAIN_SEQ, A.AdamWConfig(), seed=seed,
                          backend="cuda")
-    torch.cuda.synchronize()
-    init_s = time.perf_counter() - t0
     try:
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
         warm = trainer.train(1, log_every=0)          # library set-up
+        warm_s = time.perf_counter() - t0
         torch.cuda.reset_peak_memory_stats()
         launches.reset()
         rep = trainer.train(TRAIN_STEPS, log_every=0)
         counts = launches.read("train", TRAIN_KERNELS)
         peak = torch.cuda.max_memory_allocated()
         profile = profile_device(torch, trainer.step_minibatch)
-    finally:
+        check_model_launches(cfg, counts, 0, "train", TRAIN_STEPS)
+        losses = warm.losses + rep.losses
+        if not all(math.isfinite(x) for x in losses):
+            fail(f"train: losses are not finite: {losses}")
+        t0 = time.perf_counter()
+        parity = train_parity(torch, np, rt, cfg, seed)
+        parity["wall_s"] = time.perf_counter() - t0
+    except BaseException:
         trainer.close()
-    check_model_launches(cfg, counts, 0, "train", TRAIN_STEPS)
-    losses = warm.losses + rep.losses
-    if not all(math.isfinite(x) for x in losses):
-        fail(f"train: losses are not finite: {losses}")
-    del trainer
-    torch.cuda.empty_cache()
-    parity = train_parity(torch, np, rt, cfg, seed)
+        raise
     step_s = sum(rep.step_times) / len(rep.step_times)
     out = {"phase": "train", "arch": ARCH, "layers": cfg.num_layers,
            "d_model": cfg.d_model, "params": cfg.param_count(),
            "remat": cfg.remat, "bs": TRAIN_BS, "seq": TRAIN_SEQ,
-           "steps": TRAIN_STEPS, "init_s": init_s,
+           "steps": TRAIN_STEPS, "init_s": init_s, "warm_step_s": warm_s,
            "ms_per_step": 1e3 * step_s, "step_ms": [1e3 * x for x in
                                                     rep.step_times],
            "tokens_per_s": TRAIN_BS * TRAIN_SEQ / step_s,
@@ -1057,7 +1083,7 @@ def phase_train(torch, np, rt, launches: Launches, seed: int) -> dict:
            "launches_per_step": {k: v / TRAIN_STEPS for k, v in counts.items()},
            "parity": parity, "profile": profile}
     emit(out)
-    return out
+    return out, trainer
 
 
 class TimedTrainer:
@@ -1067,11 +1093,17 @@ class TimedTrainer:
     def __init__(self, trainer):
         self.trainer = trainer
         self.t_tr = None
+        self.samples: list = []
         self.step_s: list = []
 
     def train_minibatch_time(self) -> float:
         if self.t_tr is None:
-            self.t_tr = self.trainer.train_minibatch_time()
+            # the trainer is warm from the train phase: one step to settle
+            # beside the server, then the mean of three, each kept
+            self.samples = [self.trainer.train_minibatch_time(warmup=0,
+                                                              iters=1)
+                            for _ in range(4)]
+            self.t_tr = sum(self.samples[1:]) / 3
         return self.t_tr
 
     def step_minibatch(self) -> None:
@@ -1080,25 +1112,23 @@ class TimedTrainer:
         self.step_s.append(time.perf_counter() - t0)
 
 
-def phase_serve_train_interleaved(torch, np, rt, launches: Launches,
+def phase_serve_train_interleaved(torch, np, rt, launches: Launches, trainer,
                                   seed: int) -> dict:
     """Fulcrum's real-mode executor filling inference slack with training
-    minibatches of the full-width trainer, against the same trace served
-    without a trainer."""
-    C, SV, IR, S, TL, A = rt["C"], rt["SV"], rt["IR"], rt["S"], rt["TL"], \
-        rt["A"]
+    minibatches of the train phase's full-width trainer (closed here),
+    against the same trace served without a trainer."""
+    C, SV, IR, S = rt["C"], rt["SV"], rt["IR"], rt["S"]
     cfg = C.get_config(ARCH)
-    srv = SV.BatchInferenceServer(cfg, seq_len=SERVE_SEQ, bs=SERVE_BS,
-                                  seed=seed, backend="cuda")
-    t_mb = srv.minibatch_time(iters=3)
-    trainer = TL.Trainer(cfg, TRAIN_BS, TRAIN_SEQ, A.AdamWConfig(), seed=seed,
-                         backend="cuda")
     try:
+        srv = SV.BatchInferenceServer(cfg, seq_len=SERVE_SEQ, bs=SERVE_BS,
+                                      seed=seed, backend="cuda")
+        t_mb = srv.minibatch_time(iters=3)
         timed = TimedTrainer(trainer)
         t_tr = timed.train_minibatch_time()
         period = t_mb + INTERLEAVE_TRAIN_STEPS * t_tr
         rate = SERVE_BS / period
-        duration = max(SERVE_DURATION, INTERLEAVE_MIN_BATCHES * period)
+        # 5 s, unless a step is so slow that no whole batch would form
+        duration = max(SERVE_DURATION, 1.01 * period)
         trace = S.ArrivalTrace.uniform(rate, duration)
         icfg = IR.InterleaveConfig(rate, SERVE_BS, latency_budget=2 * period,
                                    duration=duration)
@@ -1110,7 +1140,7 @@ def phase_serve_train_interleaved(torch, np, rt, launches: Launches,
         wall = time.perf_counter() - t0
         counts = launches.read("serve_train_interleaved", TRAIN_KERNELS)
         peak = torch.cuda.max_memory_allocated()
-        step_s = list(timed.step_s)
+        step_s, samples = list(timed.step_s), list(timed.samples)
     finally:
         trainer.close()
     minibatches = len(rep.latencies) // SERVE_BS
@@ -1131,6 +1161,7 @@ def phase_serve_train_interleaved(torch, np, rt, launches: Launches,
     out = {"phase": "serve_train_interleaved", "arch": ARCH,
            "seq_len": SERVE_SEQ, "bs": SERVE_BS, "minibatch_s": t_mb,
            "train_bs": TRAIN_BS, "train_seq": TRAIN_SEQ, "train_step_s": t_tr,
+           "train_step_samples_s": samples,
            "batch_period_s": period, "rate": rate, "duration_s": duration,
            "requests": len(trace),
            "served": len(rep.latencies), "minibatches": minibatches,
@@ -1239,9 +1270,10 @@ def main() -> int:
     paths["generate"] = phase_generate(torch, np, rt, launches, args.seed)
     paths["serve_interleaved"] = phase_serve_interleaved(torch, np, rt,
                                                          launches, args.seed)
-    paths["train"] = phase_train(torch, np, rt, launches, args.seed)
+    paths["train"], trainer = phase_train(torch, np, rt, launches, args.seed)
     paths["serve_train_interleaved"] = phase_serve_train_interleaved(
-        torch, np, rt, launches, args.seed)
+        torch, np, rt, launches, trainer, args.seed)
+    del trainer
     paths["tiled_matmul"] = phase_tiled_matmul(torch, rt, launches, args.seed)
 
     rows = []

@@ -34,9 +34,14 @@ the port's forward is a kernel, so its backward is one too):
    backward launches ``csrc/flash_attention_bwd.cu`` through
    ``flash_attention_bwd``; on the CPU both directions run the plain
    versions. Without grad (serving) the kernel writes no logsumexp.
- * ``flash_attention_bwd_plain`` is the explicit gradient in torch ops:
-   probabilities ``P`` in float32, ``dS = P (dO V^T - rowsum(P dO V^T))``,
-   ``dQ = dS K / sqrt(D)``, ``dK = dS^T Q / sqrt(D)``, ``dV = P^T dO``.
+ * ``flash_attention_bwd_plain`` is the explicit gradient in torch ops, of
+   the same inputs as the kernel's (the forward's output ``O`` among them):
+   probabilities ``P`` in float32, ``D = rowsum(dO * O)``, ``dS = P (dO
+   V^T - D)``, ``dQ = dS K / sqrt(D)``, ``dK = dS^T Q / sqrt(D)``, ``dV =
+   P^T dO``. ``O`` comes in the input type, as the kernel reads it: in bf16
+   its rounding moves ``D`` by up to a few thousandths, and ``dQ``, ``dK``
+   with it — further than any difference between the kernel and its plain
+   version, so both form ``D`` alike.
  * ``flash_attention_bwd`` launches the backward kernels: one pass forms
    ``D = rowsum(dO * O)``, one block per 64-key tile accumulates ``dK, dV``
    over the query tiles that see it, one block per 64-query tile
@@ -91,18 +96,19 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def flash_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor,
-                              v: torch.Tensor, do: torch.Tensor,
-                              window: Optional[int] = None
+                              v: torch.Tensor, out: torch.Tensor,
+                              do: torch.Tensor, window: Optional[int] = None
                               ) -> tuple[torch.Tensor, torch.Tensor,
                                          torch.Tensor]:
     """(dq, dk, dv) of ``flash_attention_plain`` for the output gradient
-    ``do``, in torch ops on any device, in the input dtype."""
+    ``do``, given the forward's output ``out``, in torch ops on any device,
+    in the input dtype."""
     scale = 1.0 / math.sqrt(q.shape[-1])
     probs = _probs(q, k, window)
     dof = do.float()
     dv = torch.einsum("bhqk,bhqd->bhkd", probs, dof)
     dp = torch.einsum("bhqd,bhkd->bhqk", dof, v.float())
-    ds = probs * (dp - (probs * dp).sum(dim=-1, keepdim=True))
+    ds = probs * (dp - (dof * out.float()).sum(dim=-1, keepdim=True))
     dq = torch.einsum("bhqk,bhkd->bhqd", ds, k.float()) * scale
     dk = torch.einsum("bhqk,bhqd->bhkd", ds, q.float()) * scale
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
@@ -218,7 +224,7 @@ class FlashAttentionFn(torch.autograd.Function):
         q, k, v, out, lse = ctx.saved_tensors
         do = do.contiguous()
         if q.device.type == "cpu":
-            grads = flash_attention_bwd_plain(q, k, v, do, ctx.window)
+            grads = flash_attention_bwd_plain(q, k, v, out, do, ctx.window)
         else:
             grads = flash_attention_bwd(q, k, v, out, lse, do, ctx.window)
         return (*grads, None)

@@ -11,11 +11,11 @@ converted from the reference with ``convert.model_params``, and with
 
 One deliberate difference from the reference, whose jitted steps dispatch
 asynchronously: ``step_minibatch`` waits for its own work on the device
-before it returns, and ``train_minibatch_time`` synchronises before it
-reads the clock. ``ManagedInterleaveRuntime`` tests ``now + t_tr <=
-ready`` before each training step; it must see finished work and a step
-time that is the device's, not the launch time, or inference would queue
-behind training still running on the card.
+before it returns, and ``train_minibatch_time`` times that same waited-for
+step. ``ManagedInterleaveRuntime`` tests ``now + t_tr <= ready`` before
+each training step; it must see finished work and the time of the step it
+will run, not the launch time, or inference would queue behind training
+still running on the card.
 """
 from __future__ import annotations
 
@@ -104,12 +104,17 @@ class Trainer:
                 self.ckpt_path, (self.params, self.opt_state))
             self.params = T.tree_map(lambda p: p.requires_grad_(), params)
 
-    def step_minibatch(self) -> None:
+    def _advance(self) -> None:
         """One optimizer step on the next data batch, waited for on the
         device before it returns."""
         self.step_fn(self.params, self.opt_state, next(self.data))
-        self.step += 1
         self._sync()
+
+    def step_minibatch(self) -> None:
+        """One counted step of ``_advance``: the unit the managed interleave
+        runtime schedules into inference slack."""
+        self._advance()
+        self.step += 1
 
     def train(self, num_steps: int, log_every: int = 10,
               ckpt_every: int = 0) -> TrainReport:
@@ -131,14 +136,13 @@ class Trainer:
         return TrainReport(self.step, losses, times)
 
     def train_minibatch_time(self, warmup: int = 2, iters: int = 3) -> float:
-        """Seconds of one training minibatch on the device (used by the
-        real-mode runtime): ``warmup`` steps, then the mean of ``iters``
-        steps between two device synchronisations."""
+        """Seconds of one training minibatch (used by the real-mode
+        runtime): ``warmup`` steps, then the mean of ``iters`` steps, each
+        waited for as ``step_minibatch`` waits for it. Like the reference's,
+        these steps update the params but do not count in ``step``."""
         for _ in range(warmup):
-            self.step_fn(self.params, self.opt_state, next(self.data))
-        self._sync()
+            self._advance()
         t0 = self.clock.now()
         for _ in range(iters):
-            self.step_fn(self.params, self.opt_state, next(self.data))
-        self._sync()
+            self._advance()
         return (self.clock.now() - t0) / iters

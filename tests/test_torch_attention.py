@@ -9,9 +9,9 @@ to ``repro.models.layers.attention_apply`` in float32 within 1e-4. Inputs
 are made with NumPy from a seed and handed to both packages.
 
 The plain backward (``flash_attention_bwd_plain``) is held to ``jax.vjp``
-of ``attention_ref`` within 1e-4 of each gradient's largest |value| in
-float32 and 2e-2 in bf16, windowed and ragged included; on CPU tensors the
-differentiable ``flash_attention`` runs it.
+of ``attention_ref`` element by element, within 1e-4 (float32) and 2e-2
+(bf16) of |value| plus the gradient's RMS, windowed and ragged included; on
+CPU tensors the differentiable ``flash_attention`` runs it.
 
 The CUDA kernels themselves are held to the plain versions on the card by
 ``tests/test_torch_cuda.py`` and ``chip_smoke.py``.
@@ -171,9 +171,13 @@ def test_mlp_matches_the_reference(activation):
 
 
 def _near(got, want, tol):
-    want = np.asarray(want, np.float32)
-    err = np.abs(np.asarray(got, np.float32) - want).max()
-    assert err <= tol * np.abs(want).max(), (err, np.abs(want).max())
+    """Element by element, |got - want| <= tol (|want| + scale), the scale
+    being want's RMS or 0.1, whichever is larger (a gradient that is
+    exactly 0, as with a window of 1, has no scale of its own)."""
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    scale = max(np.sqrt(np.mean(want ** 2)), 0.1)
+    share = (np.abs(got - want) / (tol * (np.abs(want) + scale))).max()
+    assert share <= 1.0, (share, scale)
 
 
 @pytest.mark.parametrize("S,D,window,dtype", [
@@ -189,7 +193,8 @@ def test_plain_backward_matches_jax_vjp_of_the_oracle(S, D, window, dtype):
     want = jax.jit(lambda ins, cot: jax.vjp(
         lambda a, b, c: attention_ref(a, b, c, window=window), *ins)[1](cot))(
             tuple(jin[:3]), jin[3])
-    got = K3.flash_attention_bwd_plain(*tin, window=window)
+    out = K3.flash_attention_plain(*tin[:3], window=window)
+    got = K3.flash_attention_bwd_plain(*tin[:3], out, tin[3], window=window)
     tol = 1e-4 if dtype == np.float32 else 2e-2
     for g, w in zip(got, want):
         assert g.dtype == tdt
@@ -206,6 +211,7 @@ def test_cpu_gradients_take_the_plain_backward_and_count_no_launch():
     out.backward(do)
     assert (K3.flash_attention.launches,
             K3.flash_attention_bwd.launches) == before
-    want = K3.flash_attention_bwd_plain(q, k, v, do, window=20)
+    want = K3.flash_attention_bwd_plain(
+        q, k, v, K3.flash_attention_plain(q, k, v, window=20), do, window=20)
     for leaf, w in zip(leaves, want):
         assert torch.equal(leaf.grad, w)

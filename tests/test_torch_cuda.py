@@ -12,13 +12,13 @@ within +-2; the sort and its counts are equal. Flash attention meets its
 plain version within 1e-4 in float32 and 2e-2 in bf16 (the kernel sums in
 another order; bf16 rounds the output); the SSD chunk within rtol 2e-4,
 atol 1e-4 (``tests/test_kernels.py``'s tolerances). The backward kernels
-meet their plain backwards within 1e-4 (float32) and 2e-2 (bf16) of each
-gradient's largest |value| (or of 1, where that is smaller) for attention — the kernel forms rowsum(dO O)
-from the output rounded to the input type, the plain version from exact
-probabilities — and within 2e-4 of it for the SSD chunk; the tiled matmul
-meets its plain version within ``tests/test_kernels.py``'s 1e-3 (float32)
-and 3e-2 (bf16). Float32 comparisons run with TF32 off for matrix products
-and cuDNN.
+meet their plain backwards element by element, |got - want| <= tol (|want|
++ scale) with the scale the gradient's RMS (or 0.1, where that is
+smaller): tol 1e-4 (float32) and 2e-2 (bf16) for attention, both forming
+rowsum(dO O) from the forward kernel's output, and 2e-4 for the SSD chunk.
+The tiled matmul meets its plain version within ``tests/test_kernels.py``'s
+1e-3 (float32) and 3e-2 (bf16). Float32 comparisons run with TF32 off for
+matrix products and cuDNN.
 """
 import dataclasses
 
@@ -222,11 +222,21 @@ def test_cuda_generation_matches_cpu_on_the_reduced_model(hopper):
                                   cpu.generate({"tokens": toks}, 8, 70))
 
 
-def _near(got, want, tol, what, floor=1.0):
-    """|got - want| within ``tol`` of want's largest |value|, or of
-    ``floor`` where that is smaller (a kernel gradient that is exactly 0,
-    as for one key or a chunk of one step, has no scale of its own)."""
-    scale = max(float(want.float().abs().max()), floor, 1e-30)
+def _close(got, want, tol, what):
+    """Element by element, |got - want| <= tol (|want| + scale), the scale
+    being want's RMS or 0.1, whichever is larger (a kernel gradient that is
+    exactly 0, as for one key or a chunk of one step, has no scale of its
+    own). A limit tied to the largest |value| would pass a kernel that
+    zeroed the small gradients of late keys or queries."""
+    g, w = got.float(), want.float()
+    scale = max(float(w.square().mean().sqrt()), 0.1)
+    share = float(((g - w).abs() / (tol * (w.abs() + scale))).max())
+    assert share <= 1.0, f"{what}: {share} of the limit (RMS {scale})"
+
+
+def _near(got, want, tol, what):
+    """|got - want| within ``tol`` of want's largest |value|."""
+    scale = max(float(want.float().abs().max()), 1e-30)
     err = float((got.float() - want.float()).abs().max())
     assert err <= tol * scale, f"{what}: {err} > {tol} * {scale}"
 
@@ -234,7 +244,7 @@ def _near(got, want, tol, what, floor=1.0):
 @pytest.mark.parametrize("B,H,S,D,window", [
     (1, 2, 256, 64, None), (2, 3, 300, 64, None), (1, 2, 300, 128, 50),
     (1, 1, 1, 64, None), (2, 2, 129, 128, None), (1, 4, 1000, 64, 512),
-    (1, 2, 65, 64, 1)])
+    (1, 2, 65, 64, 1), (4, 32, 512, 64, None)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_cuda_flash_attention_bwd_matches_plain(hopper, B, H, S, D, window,
                                                 dtype):
@@ -247,11 +257,11 @@ def test_cuda_flash_attention_bwd_matches_plain(hopper, B, H, S, D, window,
     out.backward(do)
     torch.cuda.synchronize()
     assert K3.flash_attention_bwd.launches == n0 + 1
-    want = K3.flash_attention_bwd_plain(q, k, v, do, window)
+    want = K3.flash_attention_bwd_plain(q, k, v, out.detach(), do, window)
     tol = 1e-4 if dtype == torch.float32 else 2e-2
     for name, leaf, w in zip("qkv", leaves, want):
         assert leaf.grad.dtype == dtype
-        _near(leaf.grad, w, tol, f"d{name}")
+        _close(leaf.grad, w, tol, f"d{name}")
 
 
 @pytest.mark.parametrize("shape,scale", [((2, 2, 256, 8, 64, 64), 1.0),
@@ -275,7 +285,7 @@ def test_cuda_ssd_chunk_bwd_matches_plain(hopper, shape, scale):
     want = K4.ssd_chunk_bwd_plain(x, dA, dt, B, C, dy, dst)
     for name, leaf, w in zip(("x", "dA", "dt", "B", "C"), leaves, want):
         assert bool(torch.isfinite(leaf.grad).all()), name
-        _near(leaf.grad, w, 2e-4, f"d{name}")
+        _close(leaf.grad, w, 2e-4, f"d{name}")
 
 
 def test_cuda_forward_outputs_carry_a_gradient(hopper):
@@ -331,4 +341,4 @@ def test_cuda_training_gradients_match_cpu_at_full_width(hopper):
     (lg, gg), (lc, gc) = out["cuda"], out["cpu"]
     assert abs(lg - lc) <= 1e-4
     for a, b in zip(gg, gc):
-        _near(a, b, 1e-3, "gradient", floor=0.0)
+        _near(a, b, 1e-3, "gradient")
