@@ -56,13 +56,15 @@ each and stopping with a traceback at the first failure:
 
 The kernel phase also holds the attention kernel (K3) and the SSD chunk
 kernel (K4) against their plain versions at the shapes of the
-``serve_interleaved`` forward, K3 again at a windowed and a ragged shape,
-their backward kernels at the same shapes (K3's also in float32 at the
-main shape and at the train phase's, in both types), and the tiled matmul
-(K5) at the up-projection's shape and a ragged float32 one. The backward
-kernels are compared element by element, each gradient beside its RMS.
-Float32 comparisons run with TF32 off (``torch.backends.cuda.matmul`` and
-``torch.backends.cudnn``).
+``serve_interleaved`` forward, K3 again at the train phase's shape and at
+windowed, ragged and D = 128 shapes, their backward kernels at the same
+shapes (K3's also in float32 at the main and the train shapes), and the
+tiled matmul (K5) at the up-projection's shape and a ragged float32 one.
+K3 (both ways) and K4's backward are compared element by element, each
+output's share of its limit beside its RMS (``ATTN_TOL``); K3 is timed
+at the main and the train shapes beside SDPA, whose share of the same
+limit is printed as a yardstick. Float32 comparisons run with TF32 off
+(``torch.backends.cuda.matmul`` and ``torch.backends.cudnn``).
 
 Every path phase sets the kernels' launch counts to 0 before it runs and
 fails unless each kernel of its path launched. The line before the last
@@ -84,17 +86,22 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 
 ENG_TOL = dict(rtol=1e-9, atol=1e-8)      # docs/exactness.md, engine tier
-# tests/test_kernels.py's tolerances of the attention and SSD kernels
-ATTN_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+# tests/test_kernels.py's tolerance of the SSD kernel
 SSD_TOL = dict(rtol=2e-4, atol=1e-4)
 MODEL_TOL = dict(rtol=1e-3, atol=1e-3)   # cuda vs cpu logits, float32
-# backward kernels against their plain backwards, element by element
-# (tests/test_torch_cuda.py): |got - want| <= tol (|want| + scale), the
-# scale being the gradient's RMS, or GRAD_FLOOR where that is smaller (a
-# gradient that is exactly 0 has no scale of its own). Both attention
-# backwards form rowsum(dO O) from the forward kernel's output; bf16 rounds
-# dQ, dK and dV.
-ATTN_BWD_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+# K3 forward and backward, and K4's backward, against their plain versions
+# element by element (tests/test_torch_cuda.py): |got - want| <= tol
+# (|want| + scale). K3 in bf16: the scale is per row (a query for O and dQ,
+# a key for dK and dV), the RMS of that row of want over D, floored at
+# ATTN_ROW_FLOOR x want's RMS and at ATTN_ABS_FLOOR; the tensor cores take
+# bf16 operands, so P and dS are rounded to bf16 before their products, and
+# a row whose few large terms cancel moves by more than tol x its own small
+# values. K3 in float32 and K4: the scale is want's RMS, or GRAD_FLOOR
+# where that is smaller (a gradient that is exactly 0 has no scale of its
+# own). Both attention backwards form rowsum(dO O) from the forward
+# kernel's output; bf16 rounds O, dQ, dK and dV.
+ATTN_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+ATTN_ROW_FLOOR, ATTN_ABS_FLOOR = 0.05, 1e-3
 SSD_BWD_TOL = 2e-4
 GRAD_FLOOR = 0.1
 MM_TOL = {"float32": 1e-3, "bfloat16": 3e-2}   # tests/test_kernels.py
@@ -315,51 +322,105 @@ def attention_pairs(S: int, window) -> int:
     return window * (window + 1) // 2 + (S - window) * window
 
 
+def attention_scale(torch, want, dtype: str):
+    """The scale of K3's element-wise limit for ``want`` (see ATTN_TOL):
+    per row in bf16, want's RMS (floored) in float32. Returns it and want's
+    RMS."""
+    rms = float(want.square().mean().sqrt())
+    if dtype == "bfloat16":
+        row = want.square().mean(dim=-1, keepdim=True).sqrt()
+        return row.clamp_min(max(ATTN_ROW_FLOOR * rms, ATTN_ABS_FLOOR)), rms
+    return max(rms, GRAD_FLOOR), rms
+
+
+def grad_scale(torch, want, dtype: str):
+    """K4's scale: want's RMS or GRAD_FLOOR, whichever is larger."""
+    rms = float(want.square().mean().sqrt())
+    return max(rms, GRAD_FLOOR), rms
+
+
+def limit_record(torch, got, want, tol: float, scale_of, dtype: str) -> dict:
+    """|got - want| against tol (|want| + scale): max |got - want|, want's
+    RMS and largest |value|, and the largest share of its limit that any
+    element takes (at most 1 to pass; NaN where got is not finite)."""
+    g, w = got.float(), want.float()
+    diff = (g - w).abs()
+    scale, rms = scale_of(torch, w, dtype)
+    return {"max_abs_err": float(diff.max()), "rms": rms,
+            "max_abs": float(w.abs().max()),
+            "limit_share": float((diff / (tol * (w.abs() + scale))).max())}
+
+
 def check_attention(torch, K3, shape, dtype, window, gen, dev) -> tuple:
+    """K3's forward against its plain version element by element; returns
+    the inputs, the plain output and the record."""
     q, k, v = (torch.randn(shape, generator=gen, device=dev).to(dtype)
                for _ in range(3))
     got = K3.flash_attention(q, k, v, window=window)
     torch.cuda.synchronize()
     want = K3.flash_attention_plain(q, k, v, window=window)
-    tol = ATTN_TOL[str(dtype).split(".")[-1]]
-    err = float((got.float() - want.float()).abs().max())
-    if not torch.allclose(got.float(), want.float(), rtol=tol, atol=tol):
-        fail(f"flash_attention {shape} {dtype} window={window}: differs "
-             f"from the plain version by {err} (tolerance {tol})")
-    return (q, k, v), err
+    dt = str(dtype).split(".")[-1]
+    rec = limit_record(torch, got, want, ATTN_TOL[dt], attention_scale, dt)
+    if not rec["limit_share"] <= 1.0:
+        fail(f"flash_attention {shape} {dt} window={window}: differs from "
+             f"the plain version by {rec['max_abs_err']} at most, "
+             f"{rec['limit_share']} of the limit {ATTN_TOL[dt]} (|want| + "
+             f"row scale; RMS {rec['rms']})")
+    return (q, k, v, want), {"shape": list(shape), "window": window,
+                             "dtype": dt, **rec}
 
 
-def time_attention(torch, K3, gen, dev, reps: int) -> dict:
-    """K3 at the serve_interleaved forward's shape in bf16 (timed, with
-    SDPA as the library yardstick), then checked at the windowed and ragged
-    shapes in float32 and bf16."""
-    B, H, S, D = ATTN_SHAPE
-    (q, k, v), err = check_attention(torch, K3, ATTN_SHAPE, torch.bfloat16,
-                                     None, gen, dev)
-    ms = cuda_ms(torch, lambda: K3.flash_attention(q, k, v), reps)
-    plain_ms = cuda_ms(torch, lambda: K3.flash_attention_plain(q, k, v), 2)
+def sdpa_share(torch, got, want) -> float:
+    """The largest share of K3's bf16 limit that SDPA's result takes: a
+    yardstick of the rule, not a gate."""
+    return limit_record(torch, got, want, ATTN_TOL["bfloat16"],
+                        attention_scale, "bfloat16")["limit_share"]
+
+
+def attention_fwd_timed(torch, K3, shape, gen, dev, reps: int,
+                        plain_reps: int) -> dict:
+    """K3's bf16 causal forward at ``shape``: checked, timed beside its
+    plain version and SDPA, with its bound and TFLOP/s of the least work."""
+    B, H, S, D = shape
+    (q, k, v, want), rec = check_attention(torch, K3, shape, torch.bfloat16,
+                                           None, gen, dev)
     sdpa = torch.nn.functional.scaled_dot_product_attention
+    rec["sdpa_limit_share"] = sdpa_share(torch, sdpa(q, k, v, is_causal=True),
+                                         want)
+    del want
+    ms = cuda_ms(torch, lambda: K3.flash_attention(q, k, v), reps)
+    plain_ms = cuda_ms(torch, lambda: K3.flash_attention_plain(q, k, v),
+                       plain_reps)
     library_ms = cuda_ms(torch, lambda: sdpa(q, k, v, is_causal=True), reps)
     # q, k, v read once and o written once; 4 D flops (QK^T and PV) per
     # visible (query, key) pair, at the bf16 tensor rate
-    b_ms, by = bound(4.0 * B * H * S * D * q.element_size(),
-                     4.0 * D * B * H * attention_pairs(S, None),
+    flops = 4.0 * D * B * H * attention_pairs(S, None)
+    b_ms, by = bound(4.0 * B * H * S * D * q.element_size(), flops,
                      OPS_PER_S["bfloat16"])
     del q, k, v
+    torch.cuda.empty_cache()
+    return {**rec, "kernel_ms": ms, "plain_ms": plain_ms,
+            "library_ms": library_ms, "bound_ms": b_ms, "bound_by": by,
+            "tflops": flops / ms / 1e9, "library_tflops":
+            flops / library_ms / 1e9}
+
+
+def time_attention(torch, K3, gen, dev, reps: int) -> dict:
+    """K3 at the serve_interleaved forward's shape and at the train phase's
+    in bf16 (timed, with SDPA as the library yardstick), then checked at
+    the windowed and ragged shapes in float32 and bf16."""
+    main = attention_fwd_timed(torch, K3, ATTN_SHAPE, gen, dev, reps, 2)
+    train = attention_fwd_timed(torch, K3, ATTN_TRAIN_SHAPE, gen, dev,
+                                4 * reps, reps)
     checks = []
     for (b, h, s, d, window) in ATTN_CHECKS:
         for dtype in (torch.float32, torch.bfloat16):
-            _, e = check_attention(torch, K3, (b, h, s, d), dtype, window,
-                                   gen, dev)
-            checks.append({"shape": [b, h, s, d], "window": window,
-                           "dtype": str(dtype).split(".")[-1],
-                           "max_abs_err": e})
+            _, rec = check_attention(torch, K3, (b, h, s, d), dtype, window,
+                                     gen, dev)
+            checks.append(rec)
     torch.cuda.empty_cache()
-    return {"shape": list(ATTN_SHAPE), "dtype": "bfloat16", "kernel_ms": ms,
-            "plain_ms": plain_ms, "library_ms": library_ms,
-            "library": "scaled_dot_product_attention(is_causal=True)",
-            "bound_ms": b_ms, "bound_by": by, "max_abs_err": err,
-            "checks": checks}
+    return {**main, "library": "scaled_dot_product_attention(is_causal=True)",
+            "train_shape": train, "checks": checks}
 
 
 def ssd_case(torch, shape, gen, dev):
@@ -406,28 +467,23 @@ def time_ssd(torch, K4, gen, dev, reps: int) -> dict:
             "bound_ms": b_ms, "bound_by": by, "max_abs_err": err}
 
 
-def check_grads(torch, what: str, names, got, want, tol: float) -> dict:
+def check_grads(torch, what: str, names, got, want, tol: float,
+                scale_of=grad_scale, dtype: str = "float32") -> dict:
     """Kernel gradients against their plain versions, element by element:
-    |got - want| <= tol (|want| + scale), the scale being want's RMS or
-    GRAD_FLOOR, whichever is larger; fails at the first gradient past its
-    limit. Records each gradient's max |got - want| beside want's RMS and
-    largest |value|, and the largest share of its limit that any element
-    takes (at most 1 to pass; NaN where got is not finite)."""
+    |got - want| <= tol (|want| + scale), ``scale_of`` giving the scale;
+    fails at the first gradient past its limit. Records each gradient's
+    max |got - want| beside want's RMS and largest |value|, and the largest
+    share of its limit that any element takes (``limit_record``)."""
     recs = {}
     for name, got_, want_ in zip(names, got, want):
-        g, w = got_.float(), want_.float()
-        diff = (g - w).abs()
-        rms = float(w.square().mean().sqrt())
-        limit = tol * (w.abs() + max(rms, GRAD_FLOOR))
-        rec = recs[f"d{name}"] = {
-            "max_abs_err": float(diff.max()), "rms": rms,
-            "max_abs": float(w.abs().max()),
-            "limit_share": float((diff / limit).max())}
+        rec = recs[f"d{name}"] = limit_record(torch, got_, want_, tol,
+                                              scale_of, dtype)
         if not rec["limit_share"] <= 1.0:
             fail(f"{what}: d{name} differs from the plain backward by "
                  f"{rec['max_abs_err']} at most, {rec['limit_share']} of "
-                 f"the limit {tol} (|want| + max(RMS {rms}, {GRAD_FLOOR}))")
+                 f"the limit {tol} (|want| + scale; RMS {rec['rms']})")
     return {"max_abs_err": max(r["max_abs_err"] for r in recs.values()),
+            "limit_share": max(r["limit_share"] for r in recs.values()),
             "grads": recs}
 
 
@@ -443,42 +499,63 @@ def check_attention_bwd(torch, K3, shape, dtype, window, gen, dev) -> tuple:
     dt = str(dtype).split(".")[-1]
     rec = check_grads(torch, f"flash_attention_bwd {shape} {dt} "
                              f"window={window}", "qkv", got, want,
-                      ATTN_BWD_TOL[dt])
+                      ATTN_TOL[dt], attention_scale, dt)
     del got, want
     return (q, k, v, out, lse, do), {"shape": list(shape), "window": window,
                                      "dtype": dt, **rec}
 
 
-def time_attention_bwd(torch, K3, gen, dev, reps: int) -> dict:
-    """K3's backward at the serve_interleaved forward's shape in bf16
-    (timed, with SDPA's backward as the library yardstick), then checked
-    at that shape in float32, at the train phase's shape and at the
-    windowed and ragged shapes in float32 and bf16."""
-    B, H, S, D = ATTN_SHAPE
-    (q, k, v, out, lse, do), main = check_attention_bwd(
-        torch, K3, ATTN_SHAPE, torch.bfloat16, None, gen, dev)
+def attention_bwd_timed(torch, K3, shape, gen, dev, reps: int,
+                        plain_reps: int) -> dict:
+    """K3's bf16 causal backward at ``shape``: checked, timed beside its
+    plain version and SDPA's backward, with its bound and TFLOP/s of the
+    least work. SDPA's gradients are read against the plain backward of
+    SDPA's own output under the same rule, as a yardstick."""
+    B, H, S, D = shape
+    (q, k, v, out, lse, do), rec = check_attention_bwd(
+        torch, K3, shape, torch.bfloat16, None, gen, dev)
     ms = cuda_ms(torch, lambda: K3.flash_attention_bwd(q, k, v, out, lse, do),
                  reps)
     plain_ms = cuda_ms(
-        torch, lambda: K3.flash_attention_bwd_plain(q, k, v, out, do), 1)
+        torch, lambda: K3.flash_attention_bwd_plain(q, k, v, out, do),
+        plain_reps)
     torch.cuda.empty_cache()
     leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
     ref = torch.nn.functional.scaled_dot_product_attention(*leaves,
                                                            is_causal=True)
+    sdpa_grads = torch.autograd.grad(ref, leaves, do, retain_graph=True)
+    want = K3.flash_attention_bwd_plain(q, k, v, ref.detach(), do)
+    rec["sdpa_limit_share"] = {f"d{n}": sdpa_share(torch, g, w) for n, g, w
+                               in zip("qkv", sdpa_grads, want)}
+    del sdpa_grads, want
+    torch.cuda.empty_cache()
     library_ms = cuda_ms(torch, lambda: torch.autograd.grad(
         ref, leaves, do, retain_graph=True), reps)
     del leaves, ref
     # q, k, v, o, do read once (and the float32 logsumexp), dq, dk, dv
     # written once; 10 D flops per visible pair (q k^T recomputed, do v^T,
     # dv, dq, dk), at the bf16 tensor rate
-    elem = q.element_size()
-    b_ms, by = bound(8.0 * B * H * S * D * elem + 4.0 * B * H * S,
-                     10.0 * D * B * H * attention_pairs(S, None),
-                     OPS_PER_S["bfloat16"])
+    flops = 10.0 * D * B * H * attention_pairs(S, None)
+    b_ms, by = bound(8.0 * B * H * S * D * q.element_size() + 4.0 * B * H * S,
+                     flops, OPS_PER_S["bfloat16"])
     del q, k, v, out, lse, do
     torch.cuda.empty_cache()
+    return {**rec, "kernel_ms": ms, "plain_ms": plain_ms,
+            "library_ms": library_ms, "bound_ms": b_ms, "bound_by": by,
+            "tflops": flops / ms / 1e9,
+            "library_tflops": flops / library_ms / 1e9}
+
+
+def time_attention_bwd(torch, K3, gen, dev, reps: int) -> dict:
+    """K3's backward at the serve_interleaved forward's shape and at the
+    train phase's in bf16 (timed, with SDPA's backward as the library
+    yardstick), then checked in float32 at both shapes and at the windowed
+    and ragged shapes in float32 and bf16."""
+    main = attention_bwd_timed(torch, K3, ATTN_SHAPE, gen, dev, reps, 1)
+    train = attention_bwd_timed(torch, K3, ATTN_TRAIN_SHAPE, gen, dev,
+                                4 * reps, reps)
     checks = [(ATTN_SHAPE, None, (torch.float32,)),
-              (ATTN_TRAIN_SHAPE, None, (torch.float32, torch.bfloat16))]
+              (ATTN_TRAIN_SHAPE, None, (torch.float32,))]
     checks += [(c[:4], c[4], (torch.float32, torch.bfloat16))
                for c in ATTN_CHECKS]
     recs = []
@@ -488,13 +565,10 @@ def time_attention_bwd(torch, K3, gen, dev, reps: int) -> dict:
                                          dev)
             recs.append(rec)
             torch.cuda.empty_cache()
-    return {"shape": list(ATTN_SHAPE), "dtype": "bfloat16", "kernel_ms": ms,
-            "plain_ms": plain_ms, "library_ms": library_ms,
-            "library": "backward of scaled_dot_product_attention(is_causal="
-                       "True) (torch.autograd.grad over its graph)",
-            "bound_ms": b_ms, "bound_by": by,
-            "max_abs_err": main["max_abs_err"], "grads": main["grads"],
-            "checks": recs}
+    return {**main, "library": "backward of scaled_dot_product_attention("
+                               "is_causal=True) (torch.autograd.grad over its "
+                               "graph)",
+            "train_shape": train, "checks": recs}
 
 
 def time_ssd_bwd(torch, K4, gen, dev, reps: int) -> dict:

@@ -114,6 +114,14 @@ def flash_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor,
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
+def _check_aligned(name: str, x: torch.Tensor) -> None:
+    """The bf16 kernels load through TMA, which needs 16-byte aligned base
+    addresses: raise on a CUDA tensor that starts elsewhere."""
+    if x.device.type == "cuda" and x.data_ptr() % 16:
+        raise ValueError(f"{name} must start at a 16-byte aligned address, "
+                         f"got {x.data_ptr():#x}")
+
+
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
            window: Optional[int]) -> None:
     """Raise on inputs the kernel does not take."""
@@ -131,6 +139,7 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             raise ValueError(f"{name} is on {x.device}, q on {q.device}")
         if not x.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
+        _check_aligned(name, x)
     if window is not None and window < 1:
         raise ValueError(f"window must be >= 1, got {window}")
 
@@ -182,6 +191,7 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                 or not t.is_contiguous():
             raise ValueError(f"{name} must be a contiguous {q.dtype} tensor "
                              f"of q's shape on {q.device}")
+        _check_aligned(name, t)
     if lse.shape != (B, H, S) or lse.dtype != torch.float32 \
             or lse.device != q.device or not lse.is_contiguous():
         raise ValueError("lse must be a contiguous float32 (B, H, S) tensor")

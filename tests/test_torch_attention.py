@@ -215,3 +215,99 @@ def test_cpu_gradients_take_the_plain_backward_and_count_no_launch():
         q, k, v, K3.flash_attention_plain(q, k, v, window=20), do, window=20)
     for leaf, w in zip(leaves, want):
         assert torch.equal(leaf.grad, w)
+
+
+# ---------------------------------------------------------------------------
+# the rule that holds the bf16 kernels to their plain versions on the card
+# ---------------------------------------------------------------------------
+
+def _row_share(got, want):
+    """The largest share of K3's bf16 limit (``tests/test_torch_cuda.py``,
+    ``chip_smoke.py``): |got - want| <= 2e-2 (|want| + scale), the scale per
+    row, max(RMS of the row over D, 0.05 x want's RMS, 1e-3)."""
+    g, w = got.float(), want.float()
+    rms = float(w.square().mean().sqrt())
+    scale = w.square().mean(dim=-1, keepdim=True).sqrt().clamp_min(
+        max(0.05 * rms, 1e-3))
+    return float(((g - w).abs() / (2e-2 * (w.abs() + scale))).max())
+
+
+def _bf16(x):
+    return x.to(torch.bfloat16).float()
+
+
+def _tensor_core_roundings(q, k, v, do, window):
+    """K3's bf16 arithmetic on the tensor cores, in torch ops: the online
+    softmax in float32 with P rounded to bf16 for P V (the normaliser summed
+    unrounded), and in the backward P rounded for dV and dS for dQ and dK;
+    products accumulate in float32. Returns (out, dq, dk, dv) in bf16."""
+    qf, kf, vf, dof = (t.float() for t in (q, k, v, do))
+    s = qf.shape[2]
+    scale = 1.0 / np.sqrt(q.shape[-1])
+    scores = torch.einsum("bhqd,bhkd->bhqk", qf, kf) * scale
+    qpos, kpos = torch.arange(s)[:, None], torch.arange(s)[None, :]
+    mask = kpos <= qpos
+    if window is not None:
+        mask = mask & (kpos > qpos - window)
+    scores = scores.masked_fill(~mask, -np.inf)
+    m = scores.amax(-1, keepdim=True)
+    p = torch.exp(scores - m)
+    l = p.sum(-1, keepdim=True)
+    out = (torch.einsum("bhqk,bhkd->bhqd", _bf16(p), vf) / l).to(q.dtype)
+    probs = torch.exp(scores - (m + torch.log(l)))
+    dv = torch.einsum("bhqk,bhqd->bhkd", _bf16(probs), dof)
+    dp = torch.einsum("bhqd,bhkd->bhqk", dof, vf)
+    ds = _bf16(probs * (dp - (dof * out.float()).sum(-1, keepdim=True)))
+    dq = torch.einsum("bhqk,bhkd->bhqd", ds, kf) * scale
+    dk = torch.einsum("bhqk,bhqd->bhkd", ds, qf) * scale
+    return out, dq.to(q.dtype), dk.to(q.dtype), dv.to(q.dtype)
+
+
+_RULE_SHAPES = [((1, 4, 2048, 64), None), ((1, 2, 1000, 128), 256)]
+
+
+def _rule_case(shape, window):
+    q, k, v = (torch.from_numpy(a).to(torch.bfloat16) for a in _qkv(11, shape))
+    do = torch.from_numpy(_qkv(12, shape)[0]).to(torch.bfloat16)
+    got = _tensor_core_roundings(q, k, v, do, window)
+    want = (K3.flash_attention_plain(q, k, v, window=window),
+            *K3.flash_attention_bwd_plain(q, k, v, got[0], do, window=window))
+    return got, want
+
+
+@pytest.mark.parametrize("shape,window", _RULE_SHAPES)
+def test_tensor_core_roundings_take_under_half_the_row_limit(shape, window):
+    got, want = _rule_case(shape, window)
+    for name, g, w in zip(("O", "dQ", "dK", "dV"), got, want):
+        assert _row_share(g, w) < 0.5, name
+
+
+@pytest.mark.parametrize("fault", ["late_half_5pct", "last_tile_zeroed"])
+@pytest.mark.parametrize("shape,window", _RULE_SHAPES)
+def test_row_limit_fails_late_errors(shape, window, fault):
+    """Rows are queries for O and dQ, keys for dK and dV: a 5% error over
+    the late half of the rows, or the last 64 rows zeroed, fails every
+    output."""
+    _, want = _rule_case(shape, window)
+    s = shape[2]
+    for name, w in zip(("O", "dQ", "dK", "dV"), want):
+        bad = w.float().clone()
+        if fault == "late_half_5pct":
+            bad[..., s // 2:, :] *= 0.95
+        else:
+            bad[..., s - 64:, :] = 0.0
+        assert _row_share(bad.to(w.dtype), w) > 1.0, name
+
+
+def test_old_forward_limit_passed_a_late_five_percent_error():
+    """The forward's limit before the per-row rule, allclose at rtol = atol
+    = 2e-2, is 60% of a typical late output at S = 2048 and lets a 5% error
+    over the late half through."""
+    q, k, v = (torch.from_numpy(a).to(torch.bfloat16)
+               for a in _qkv(11, (1, 4, 2048, 64)))
+    want = K3.flash_attention_plain(q, k, v)
+    bad = want.float().clone()
+    bad[..., 1024:, :] *= 0.95
+    bad = bad.to(want.dtype)
+    assert torch.allclose(bad.float(), want.float(), rtol=2e-2, atol=2e-2)
+    assert _row_share(bad, want) > 1.0

@@ -8,14 +8,18 @@ Hopper machine (no jax needed) run::
 
 Tolerances: the max-plus scan meets its plain version to the engine
 tolerance of ``docs/exactness.md`` (it scans in another order), fills
-within +-2; the sort and its counts are equal. Flash attention meets its
-plain version within 1e-4 in float32 and 2e-2 in bf16 (the kernel sums in
-another order; bf16 rounds the output); the SSD chunk within rtol 2e-4,
-atol 1e-4 (``tests/test_kernels.py``'s tolerances). The backward kernels
-meet their plain backwards element by element, |got - want| <= tol (|want|
-+ scale) with the scale the gradient's RMS (or 0.1, where that is
-smaller): tol 1e-4 (float32) and 2e-2 (bf16) for attention, both forming
-rowsum(dO O) from the forward kernel's output, and 2e-4 for the SSD chunk.
+within +-2; the sort and its counts are equal. Flash attention, forward
+and backward, meets its plain version element by element, |got - want| <=
+tol (|want| + scale): tol 1e-4 in float32 with the scale want's RMS (or
+0.1, where that is smaller), tol 2e-2 in bf16 with a scale per row (a
+query for O and dQ, a key for dK and dV): the RMS of that row of want,
+floored at 0.05 x want's RMS and at 1e-3. The bf16 kernels feed the
+tensor cores P and dS rounded to bf16; where a row's few large terms
+cancel, that moves it by more than 2e-2 of its own small values. Both
+backwards form rowsum(dO O) from the forward kernel's output. The SSD
+chunk meets its plain version within rtol 2e-4, atol 1e-4
+(``tests/test_kernels.py``'s tolerance), its backward element by element
+within 2e-4 (|want| + max(RMS, 0.1)).
 The tiled matmul meets its plain version within ``tests/test_kernels.py``'s
 1e-3 (float32) and 3e-2 (bf16). Float32 comparisons run with TF32 off for
 matrix products and cuDNN.
@@ -148,10 +152,27 @@ def test_cuda_engine_matches_cpu_engine(hopper):
         np.testing.assert_array_equal(b._sorted, np.sort(b.latencies))
 
 
+def _attn_close(got, want, dtype, what):
+    """K3's rule (the module's docstring): |got - want| <= tol (|want| +
+    scale), per row in bf16. A limit tied to the largest |value|, or an
+    atol of 2e-2 in bf16, would pass a kernel that scaled the small late
+    outputs and gradients by 0.95."""
+    g, w = got.float(), want.float()
+    rms = float(w.square().mean().sqrt())
+    if dtype == torch.bfloat16:
+        tol = 2e-2
+        scale = w.square().mean(dim=-1, keepdim=True).sqrt().clamp_min(
+            max(0.05 * rms, 1e-3))
+    else:
+        tol, scale = 1e-4, max(rms, 0.1)
+    share = float(((g - w).abs() / (tol * (w.abs() + scale))).max())
+    assert share <= 1.0, f"{what}: {share} of the limit (RMS {rms})"
+
+
 @pytest.mark.parametrize("B,H,S,D,window", [
     (1, 2, 256, 64, None), (2, 3, 300, 64, None), (1, 2, 300, 128, 50),
     (1, 1, 1, 64, None), (2, 2, 129, 128, None), (1, 4, 1000, 64, 512),
-    (1, 2, 65, 64, 1)])
+    (1, 2, 65, 64, 1), (8, 32, 2048, 64, None)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_cuda_flash_attention_matches_plain(hopper, B, H, S, D, window, dtype):
     gen = torch.Generator(device=hopper).manual_seed(B * S + D)
@@ -163,8 +184,22 @@ def test_cuda_flash_attention_matches_plain(hopper, B, H, S, D, window, dtype):
     assert K3.flash_attention.launches == n0 + 1
     assert got.dtype == dtype
     want = K3.flash_attention_plain(q, k, v, window=window)
-    tol = 1e-4 if dtype == torch.float32 else 2e-2
-    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+    _attn_close(got, want, dtype, "O")
+
+
+def test_cuda_flash_attention_refuses_misaligned_views(hopper):
+    """The bf16 kernels load through TMA, which needs 16-byte aligned base
+    addresses: a contiguous view at an odd offset raises, it never falls
+    back."""
+    flat = torch.randn(2 * 64 * 64 + 1, device=hopper).to(torch.bfloat16)
+    bad = flat[1:].view(1, 2, 64, 64)
+    good = flat[:-1].view(1, 2, 64, 64)
+    assert bad.is_contiguous() and bad.data_ptr() % 16 != 0
+    with pytest.raises(ValueError, match="16-byte"):
+        K3.flash_attention(bad, good, good)
+    out, lse = K3.flash_attention_fwd(good, good, good)
+    with pytest.raises(ValueError, match="16-byte"):
+        K3.flash_attention_bwd(good, good, good, out, lse, bad)
 
 
 def _ssd_inputs(shape, dev, seed):
@@ -225,9 +260,9 @@ def test_cuda_generation_matches_cpu_on_the_reduced_model(hopper):
 def _close(got, want, tol, what):
     """Element by element, |got - want| <= tol (|want| + scale), the scale
     being want's RMS or 0.1, whichever is larger (a kernel gradient that is
-    exactly 0, as for one key or a chunk of one step, has no scale of its
-    own). A limit tied to the largest |value| would pass a kernel that
-    zeroed the small gradients of late keys or queries."""
+    exactly 0, as for a chunk of one step, has no scale of its own). A
+    limit tied to the largest |value| would pass a kernel that zeroed the
+    small gradients of late positions."""
     g, w = got.float(), want.float()
     scale = max(float(w.square().mean().sqrt()), 0.1)
     share = float(((g - w).abs() / (tol * (w.abs() + scale))).max())
@@ -244,7 +279,7 @@ def _near(got, want, tol, what):
 @pytest.mark.parametrize("B,H,S,D,window", [
     (1, 2, 256, 64, None), (2, 3, 300, 64, None), (1, 2, 300, 128, 50),
     (1, 1, 1, 64, None), (2, 2, 129, 128, None), (1, 4, 1000, 64, 512),
-    (1, 2, 65, 64, 1), (4, 32, 512, 64, None)])
+    (1, 2, 65, 64, 1), (4, 32, 512, 64, None), (8, 32, 2048, 64, None)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_cuda_flash_attention_bwd_matches_plain(hopper, B, H, S, D, window,
                                                 dtype):
@@ -258,10 +293,9 @@ def test_cuda_flash_attention_bwd_matches_plain(hopper, B, H, S, D, window,
     torch.cuda.synchronize()
     assert K3.flash_attention_bwd.launches == n0 + 1
     want = K3.flash_attention_bwd_plain(q, k, v, out.detach(), do, window)
-    tol = 1e-4 if dtype == torch.float32 else 2e-2
     for name, leaf, w in zip("qkv", leaves, want):
         assert leaf.grad.dtype == dtype
-        _close(leaf.grad, w, tol, f"d{name}")
+        _attn_close(leaf.grad, w, dtype, f"d{name}")
 
 
 @pytest.mark.parametrize("shape,scale", [((2, 2, 256, 8, 64, 64), 1.0),
