@@ -168,6 +168,10 @@ KERNEL_ROWS = {
         replaces="src/repro/kernels/tiled_matmul/tiled_matmul.py:37"),
 }
 ENGINE_KERNELS = ("maxplus_scan", "lane_sort")
+# the device functions of K3's two sources, as the profiler names them
+K3_FUNCTIONS = ("flash_attention_tc", "flash_attention_kernel",
+                "rowdot_kernel", "dkdv_tc", "dkdv_kernel", "dq_tc",
+                "dq_kernel")
 MODEL_KERNELS = ("flash_attention", "ssd_chunk")
 TRAIN_KERNELS = MODEL_KERNELS + ("flash_attention_bwd", "ssd_chunk_bwd")
 
@@ -519,6 +523,10 @@ def attention_bwd_timed(torch, K3, shape, gen, dev, reps: int,
     plain_ms = cuda_ms(
         torch, lambda: K3.flash_attention_bwd_plain(q, k, v, out, do),
         plain_reps)
+    # the three kernels' shares of one call (D, dK/dV pass, dQ pass)
+    prof = profile_device(torch, lambda: K3.flash_attention_bwd(
+        q, k, v, out, lse, do))
+    rec["split_ms"] = {e["name"][:60]: e["device_ms"] for e in prof["top"]}
     torch.cuda.empty_cache()
     leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
     ref = torch.nn.functional.scaled_dot_product_attention(*leaves,
@@ -988,8 +996,9 @@ def profile_device(torch, fn) -> dict:
     ``torch.profiler``, tracing the device only (host operators add events
     that take longer to reduce than the step itself): the device's busy time
     (the sum of kernel time) against the wall, the number of kernels and
-    copies it ran, the kernels with the most device time, and what the
-    profiled call cost in all (``cost_s``, the reduction included)."""
+    copies it ran, K3's device time and kernels (forward and backward),
+    the kernels with the most device time, and what the profiled call cost
+    in all (``cost_s``, the reduction included)."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     t_cost = time.perf_counter()
@@ -1011,9 +1020,12 @@ def profile_device(torch, fn) -> dict:
             rows.append((e.key, us, e.count))
     rows.sort(key=lambda r: -r[1])
     busy = sum(us for _, us, _ in rows) / 1e6
+    k3 = [(us, n) for k, us, n in rows if any(f in k for f in K3_FUNCTIONS)]
     return {"wall_s": wall, "device_busy_s": busy,
             "idle_share": (1.0 - busy / wall) if rows else None,
             "device_ops": sum(n for _, _, n in rows),
+            "k3_device_ms": sum(us for us, _ in k3) / 1e3,
+            "k3_kernels": sum(n for _, n in k3),
             "top": [{"name": k[:120], "device_ms": us / 1e3, "count": n}
                     for k, us, n in rows[:15]],
             "cost_s": time.perf_counter() - t_cost}

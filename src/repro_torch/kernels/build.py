@@ -3,8 +3,9 @@
 Each ``csrc/<name>.cu`` exposes a plain C launcher and is compiled on its
 own by ``nvcc`` for ``sm_90a`` into ``build/kernels/`` at the repository
 root (git-ignored), the first time a kernel is launched. A library's file
-name carries a digest of its source and flags, so an edited source is
-rebuilt and an unchanged one is loaded as it is. ``build_all`` starts one
+name carries a digest of its source, the ``csrc`` headers it includes
+(``hopper.cuh``) and the flags, so an edited source or header is rebuilt
+and an unchanged one is loaded as it is. ``build_all`` starts one
 ``nvcc`` per source at once and waits for all of them.
 
 Nothing here runs at import, so ``import repro_torch`` needs neither CUDA
@@ -17,6 +18,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -44,9 +46,17 @@ def _nvcc() -> str:
     return nvcc
 
 
+def _source(name: str) -> bytes:
+    """``csrc/<name>.cu`` and the ``csrc`` headers it includes by name."""
+    src = (CSRC / f"{name}.cu").read_bytes()
+    heads = re.findall(rb'^#include "([^"]+)"', src, flags=re.M)
+    return src + b"".join((CSRC / h.decode()).read_bytes() for h in heads)
+
+
 def library_path(name: str) -> Path:
-    """Where the library of ``csrc/<name>.cu`` lives for the current source."""
-    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes()
+    """Where the library of ``csrc/<name>.cu`` lives for the current source
+    and headers."""
+    digest = hashlib.sha256(_source(name)
                             + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 

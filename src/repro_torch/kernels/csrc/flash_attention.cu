@@ -5,29 +5,46 @@
 //
 // q, k, v, o are row-major (B*H, S, D), float32 or bf16. Query i attends
 // to keys j <= i (and j > i - window when window > 0) with scores
-// (q_i . k_j) / sqrt(D); masked scores are -1e30, the softmax is online in
-// float32 (running max m, normaliser l, accumulator acc) and the output is
-// acc / max(l, 1e-30) in the input type — the TPU kernel's arithmetic.
-// When lse is not null it also gets each row's float32 logsumexp m + log l
-// (B*H, S), which the backward kernel (flash_attention_bwd.cu) recomputes
-// the probabilities from; serving passes null.
+// (q_i . k_j) / sqrt(D); the softmax is online in float32 (running max m,
+// normaliser l, accumulator acc) and the output is acc / l in the input
+// type — the TPU kernel's arithmetic. When lse is not null it also gets
+// each row's float32 logsumexp m + log l in the natural log (B*H, S),
+// which the backward kernels (flash_attention_bwd.cu) recompute the
+// probabilities from; serving passes null.
 //
-// Design: on the TPU the KV axis is the innermost grid axis and m, l, acc
-// live in VMEM scratch across grid steps. Here one block of 256 threads
-// owns (one batch x head, one 64-query tile) and loops over 64-key tiles
-// itself, so m, l and acc stay in registers for the whole row: each thread
-// holds 4 query rows x 4 key columns of the score tile and 4 rows x D/16
-// output columns. Key tiles above the causal diagonal and tiles wholly
-// outside the window are never visited; the heaviest query tiles (the last
-// ones) are scheduled first. Q (transposed), each K tile (transposed) and
-// V tile, and the tile's probabilities sit in shared memory as float32;
-// the row max and sum are reduced over the 16 threads of a row with warp
-// shuffles. Any S: rows past S are computed but not stored and keys past S
-// load as zeros, which causality keeps away from every real query.
+// bf16, on the tensor cores (flash_attention_tc): one block of two
+// consumer warpgroups and one producer warp owns (one batch x head, one
+// 128-query tile), 64 query rows per warpgroup; on the TPU the KV axis is
+// the innermost grid axis with m, l, acc in VMEM scratch, here the block
+// loops over key tiles itself (128 keys at D = 64, 64 at D = 128, where
+// the accumulators need the registers) and m, l, acc stay in registers.
+// The producer loads Q once and streams K and V through a two-stage ring
+// in shared memory with TMA (hopper.cuh's layout: 128-byte swizzle, rows
+// past S as zeros), completing on mbarriers, so the next tile loads while
+// this one is multiplied. S = Q K^T is wgmma m64nBKk16 with both operands
+// K-major in shared memory; the softmax runs in base 2 (log2 e folded into
+// the scale) on the accumulator, its row max and sum taken over the four
+// threads of a quad; O += P V is wgmma with P from registers (the
+// accumulator pairs packed to bf16x2, which is the A-fragment layout) and
+// V MN-major through the transpose bit. Only tiles that cross the diagonal
+// or the window's edge are masked; tiles above the diagonal or wholly
+// outside the window are never loaded, or skipped by the warpgroup they do
+// not reach. Query tiles run heaviest first, a head's tiles adjacent in
+// launch order so its K and V are reused from L2. O is written in bf16
+// from registers; the logsumexp is converted to the natural log at the
+// store.
 //
-// What bounds it: operations. It does 4 D flops per visible (query, key)
-// pair on CUDA cores in float32 (mma.sync / wgmma on the tensor cores is
-// later work); device memory sees q, k, v and o about once per query tile.
+// float32, on CUDA cores (flash_attention_kernel): one block of 256
+// threads per (batch x head, 64-query tile) loops over 64-key tiles;
+// each thread holds 4 query rows x 4 key columns of the score tile and
+// 4 rows x D/16 output columns, and Q, K (transposed), V and the tile's
+// probabilities sit in shared memory as float32. TF32 would miss the
+// float32 tolerance; float32 runs only in the port's parity tests.
+//
+// What bounds it: operations, 4 D flops per visible (query, key) pair at
+// the bf16 tensor-core rate (device memory sees q, k, v and o about once
+// per query tile, 4 S D bytes against 2 S^2 D flops per head).
+#include "hopper.cuh"
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -41,14 +58,9 @@ constexpr int kLDK = kBK + 4;        // padded row of the transposed K tile
 constexpr int kThreads = 256;        // 16 x 16: rows ty*4.., columns tx*4..
 constexpr float kNegInf = -1e30f;
 
+// the CUDA-core kernels below are instantiated for float32 only
 __device__ __forceinline__ float to_f(float v) { return v; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
 __device__ __forceinline__ void from_f(float* p, float v) { *p = v; }
-__device__ __forceinline__ void from_f(__nv_bfloat16* p, float v) {
-  *p = __float2bfloat16(v);
-}
 
 // reduce over the 16 threads that share a row (one half-warp)
 __device__ __forceinline__ float row_max(float v) {
@@ -228,18 +240,220 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
   return cudaGetLastError();
 }
 
+// ---- bf16 on the tensor cores ---------------------------------------------
+
+constexpr int kWG = 128;             // threads of a warpgroup
+constexpr int kTcThreads = 2 * kWG + 32;   // two consumers, one producer warp
+constexpr int kTcBQ = 128;           // query rows per block (64 per consumer)
+constexpr int kStages = 2;           // K / V ring depth
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
+
+template <int D>
+struct TcFwd {
+  static constexpr int BK = D == 64 ? 128 : 64;   // keys per tile
+  static constexpr int Q_BYTES = kTcBQ * D * 2;
+  static constexpr int KV_BYTES = BK * D * 2;     // one K or V tile
+  static constexpr int TILES = Q_BYTES + 2 * kStages * KV_BYTES;
+  // tiles, then full[kStages], empty[kStages] and the Q barrier, and
+  // 1024 bytes to align the tiles for the swizzle
+  static constexpr size_t SMEM = TILES + 8 * (2 * kStages + 1) + 1024;
+};
+
+template <int D>
+__global__ void __launch_bounds__(kTcThreads, 1)
+flash_attention_tc(const __grid_constant__ CUtensorMap tq,
+                   const __grid_constant__ CUtensorMap tk,
+                   const __grid_constant__ CUtensorMap tv,
+                   __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
+                   int S, int window, float scale_log2) {
+  using C = TcFwd<D>;
+  constexpr int BK = C::BK;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* base = smem_raw + ((1024 - (hopper::smem_u32(smem_raw) & 1023))
+                              & 1023);
+  uint8_t* sQ = base;
+  uint8_t* sKV = base + C::Q_BYTES;         // stage s: K, then V
+  uint64_t* full = reinterpret_cast<uint64_t*>(base + C::TILES);
+  uint64_t* empty = full + kStages;
+  uint64_t* qbar = empty + kStages;
+
+  const int bh = blockIdx.y;
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * kTcBQ;   // heaviest first
+  const int last_q = min(q0 + kTcBQ - 1, S - 1);
+  const int kt_end = last_q / BK + 1;
+  const int kt_begin =
+      (window > 0 && q0 - window + 1 > 0) ? (q0 - window + 1) / BK : 0;
+  const int ntiles = kt_end - kt_begin;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      hopper::mbar_init(&full[s], 1);
+      hopper::mbar_init(&empty[s], 2 * kWG);
+    }
+    hopper::mbar_init(qbar, 1);
+    hopper::fence_barrier_init();
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / kWG;
+  if (wg == 2) {                             // the producer warp
+    if (threadIdx.x == 2 * kWG) {
+      hopper::mbar_expect_tx(qbar, C::Q_BYTES);
+      hopper::tma_tile<D>(sQ, kTcBQ, kTcBQ, &tq, qbar, q0, bh);
+      for (int i = 0; i < ntiles; ++i) {
+        const int st = i % kStages;
+        if (i >= kStages) hopper::mbar_wait(&empty[st], (i / kStages - 1) & 1);
+        hopper::mbar_expect_tx(&full[st], 2 * C::KV_BYTES);
+        const int k0 = (kt_begin + i) * BK;
+        uint8_t* sK = sKV + st * 2 * C::KV_BYTES;
+        hopper::tma_tile<D>(sK, BK, BK, &tk, &full[st], k0, bh);
+        hopper::tma_tile<D>(sK + C::KV_BYTES, BK, BK, &tv, &full[st], k0, bh);
+      }
+    }
+    return;
+  }
+
+  // a consumer warpgroup: rows qlo .. qlo + 63 of the block's tile
+  const int t = threadIdx.x % kWG, lane = t % 32;
+  const int row0 = 16 * (t / 32) + lane / 4;     // and row0 + 8
+  const int qlo = q0 + 64 * wg, qhi = qlo + 63;
+  const int qr[2] = {qlo + row0, qlo + row0 + 8};
+  const uint32_t uQ = hopper::smem_u32(sQ);
+
+  float acc[D / 2];
+#pragma unroll
+  for (int j = 0; j < D / 2; ++j) acc[j] = 0.f;
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+
+  hopper::mbar_wait(qbar, 0);
+  for (int i = 0; i < ntiles; ++i) {
+    const int st = i % kStages;
+    const int k0 = (kt_begin + i) * BK;
+    const bool reached = k0 <= qhi && (window <= 0 || k0 + BK - 1 > qlo - window);
+    hopper::mbar_wait(&full[st], (i / kStages) & 1);
+    if (reached) {
+      const uint32_t uK = hopper::smem_u32(sKV + st * 2 * C::KV_BYTES);
+      const uint32_t uV = uK + C::KV_BYTES;
+      float s[BK / 2];
+      hopper::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        hopper::wgmma_ss<BK>(s, hopper::desc_kmajor(uQ, kTcBQ, 64 * wg, kk),
+                             hopper::desc_kmajor(uK, BK, 0, kk), kk > 0);
+      hopper::wgmma_commit();
+      hopper::wgmma_wait_all();
+      hopper::fence_regs(s);
+
+      // every pair of the tile visible to every row: no mask work
+      const bool open = k0 + BK - 1 <= qlo &&
+                        (window <= 0 || k0 > qhi - window);
+      float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+      for (int j = 0; j < BK / 2; ++j) {
+        const int h = (j >> 1) & 1;
+        float x = s[j] * scale_log2;
+        if (!open) {
+          const int kp = k0 + 8 * (j >> 2) + 2 * (lane & 3) + (j & 1);
+          const bool ok = kp <= qr[h] && (window <= 0 || kp > qr[h] - window);
+          x = ok ? x : -INFINITY;
+        }
+        s[j] = x;
+        mx[h] = fmaxf(mx[h], x);
+      }
+      float alpha[2];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
+        mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
+        const float mn = fmaxf(m[h], mx[h]);
+        alpha[h] = exp2f(m[h] - mn);
+        m[h] = mn;
+        l[h] *= alpha[h];
+      }
+#pragma unroll
+      for (int j = 0; j < BK / 2; ++j) {
+        const int h = (j >> 1) & 1;
+        s[j] = exp2f(s[j] - m[h]);
+        l[h] += s[j];
+      }
+#pragma unroll
+      for (int j = 0; j < D / 2; ++j) acc[j] *= alpha[(j >> 1) & 1];
+      uint32_t p[BK / 16][4];
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk)
+#pragma unroll
+        for (int r = 0; r < 4; ++r)
+          p[kk][r] = hopper::pack_bf16(s[8 * kk + 2 * r], s[8 * kk + 2 * r + 1]);
+      hopper::fence_regs(acc);
+      hopper::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk)
+        hopper::wgmma_rs<D>(acc, p[kk], hopper::desc_mnmajor(uV, BK, kk), 1);
+      hopper::wgmma_commit();
+      hopper::wgmma_wait_all();
+      hopper::fence_regs(acc);
+    }
+    hopper::mbar_arrive(&empty[st]);
+  }
+
+  // the row sums are spread over the quad
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 1);
+    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 2);
+  }
+  const float inv[2] = {1.f / fmaxf(l[0], 1e-30f), 1.f / fmaxf(l[1], 1e-30f)};
+  __nv_bfloat16* ob = o + (int64_t)bh * S * D;
+#pragma unroll
+  for (int j = 0; j < D / 2; j += 2) {
+    const int h = (j >> 1) & 1;
+    if (qr[h] >= S) continue;
+    const int col = 8 * (j >> 2) + 2 * (lane & 3);
+    *reinterpret_cast<__nv_bfloat162*>(&ob[(int64_t)qr[h] * D + col]) =
+        __floats2bfloat162_rn(acc[j] * inv[h], acc[j + 1] * inv[h]);
+  }
+  if (lse != nullptr && (lane & 3) == 0) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      if (qr[h] < S)
+        lse[(int64_t)bh * S + qr[h]] = (m[h] + log2f(l[h])) * kLn2;
+  }
+}
+
+template <int D>
+cudaError_t launch_tc(const void* q, const void* k, const void* v, void* o,
+                      float* lse, int64_t BH, int64_t S, int window,
+                      cudaStream_t stream) {
+  CUtensorMap mq, mk, mv;
+  if (!hopper::make_tile_map(&mq, q, BH, S, D) ||
+      !hopper::make_tile_map(&mk, k, BH, S, D) ||
+      !hopper::make_tile_map(&mv, v, BH, S, D))
+    return cudaErrorInvalidValue;
+  const size_t smem = TcFwd<D>::SMEM;
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_attention_tc<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((unsigned)((S + kTcBQ - 1) / kTcBQ), (unsigned)BH);
+  flash_attention_tc<D><<<grid, kTcThreads, smem, stream>>>(
+      mq, mk, mv, (__nv_bfloat16*)o, lse, (int)S, window,
+      kLog2e / sqrtf((float)D));
+  return cudaGetLastError();
+}
+
 }  // namespace
 
-// dtype: 0 = float32, 1 = bf16. window <= 0: no window. lse: null, or
-// float32 (B*H, S) for the rows' logsumexp.
+// dtype: 0 = float32 (CUDA cores), 1 = bf16 (tensor cores; q, k, v 16-byte
+// aligned). window <= 0: no window. lse: null, or float32 (B*H, S) for the
+// rows' logsumexp.
 extern "C" int flash_attention_launch(const void* q, const void* k,
                                       const void* v, void* o, void* lse,
                                       int64_t BH,
                                       int64_t S, int64_t D, int64_t window,
                                       int dtype, void* stream) {
   if (BH <= 0 || S <= 0) return (int)cudaSuccess;
-  if (BH > 65535 || (S + kBQ - 1) / kBQ > 2147483647LL ||
-      window > 2147483647LL)
+  if (BH > 65535 || S > 2147483647LL - kTcBQ || window > 2147483647LL)
     return (int)cudaErrorInvalidValue;
   const int w = window > 0 ? (int)window : 0;
   cudaStream_t st = (cudaStream_t)stream;
@@ -249,9 +463,9 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
   if (dtype == 0 && D == 128)
     return (int)launch<float, 128>(q, k, v, o, ls, BH, S, w, st);
   if (dtype == 1 && D == 64)
-    return (int)launch<__nv_bfloat16, 64>(q, k, v, o, ls, BH, S, w, st);
+    return (int)launch_tc<64>(q, k, v, o, ls, BH, S, w, st);
   if (dtype == 1 && D == 128)
-    return (int)launch<__nv_bfloat16, 128>(q, k, v, o, ls, BH, S, w, st);
+    return (int)launch_tc<128>(q, k, v, o, ls, BH, S, w, st);
   return (int)cudaErrorInvalidValue;
 }
 

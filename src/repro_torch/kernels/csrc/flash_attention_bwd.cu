@@ -5,8 +5,8 @@
 // forward runs the CUDA kernel, so its gradient is a kernel too.
 //
 // q, k, v, o, do, dq, dk, dv are row-major (B*H, S, D), float32 or bf16;
-// lse is the forward's float32 logsumexp per row (B*H, S). With
-// s_ij = (q_i . k_j) / sqrt(D) and the forward's mask (j <= i, and
+// lse is the forward's float32 logsumexp per row (B*H, S), natural log.
+// With s_ij = (q_i . k_j) / sqrt(D) and the forward's mask (j <= i, and
 // j > i - window when window > 0):
 //   P_ij  = exp(s_ij - lse_i)              (recomputed, never stored)
 //   D_i   = do_i . o_i
@@ -15,23 +15,43 @@
 //   dq_i  = sum_j dS_ij k_j / sqrt(D),
 // accumulated in float32 and written in the input type.
 //
-// Design: three kernels on one stream, no atomics, so the result does not
-// depend on the order blocks run in. (1) One warp per row forms D_i.
-// (2) One block of 256 threads per (batch x head, 64-key tile) loops over
-// the 64-query tiles that can see its keys (from the diagonal to the end of
-// the window) and keeps dk, dv for its 64 keys in registers. (3) One block
-// per (batch x head, 64-query tile) loops over the key tiles its queries
-// see, as the forward does, and keeps dq in registers. Each thread of a
-// block holds 4 rows x 4 columns of the 64 x 64 score tile (rows ty + 16 r,
-// columns tx + 16 u, so neighbouring threads read neighbouring shared-memory
-// words) and 4 rows x D/16 columns of its output. Tiles sit in shared
-// memory as float32 with rows padded to D + 1 words. Any S: rows past S
-// load as zeros, their probabilities are masked to 0 and they are not
-// stored.
+// Three kernels on one stream and no atomics, so the result does not
+// depend on the order blocks run in: (1) one warp per row forms D_i (in
+// bf16 beside lse_i log2 e, in rows padded to whole 64-row tiles);
+// (2) one block per (batch x head, key tile) loops over the query tiles
+// that see its keys and keeps dk, dv in registers; (3) one block per
+// (batch x head, query tile) loops over the key tiles its queries see and
+// keeps dq in registers. Each pass recomputes s and do . v, so the kernels
+// do 14 D flops per visible pair where 10 D would do with dq summed across
+// blocks by atomics: at (8, 32, 2048, 64) causal that is 481 GFLOP against
+// 344, a floor of 0.49 ms at the bf16 tensor-core rate.
 //
-// What bounds it: operations. Per visible (query, key) pair it does 7
-// products of length D (s and do.v twice, once per pass, then dv, dk, dq)
-// on CUDA cores in float32; mma.sync / wgmma is later work.
+// bf16, on the tensor cores (dkdv_tc, dq_tc): two consumer warpgroups of
+// 64 rows each and one producer warp per block. The producer loads the
+// block's own 128-row tiles once (K and V, or Q and dO) and streams the
+// other side's 64-row tiles through a two-stage ring with TMA and
+// mbarriers (hopper.cuh's layout, rows past S as zeros); in the dk/dv
+// pass each tile brings its 64 entries of lse log2 e and D by bulk copy
+// (read from device memory per element, they took half the pass's time).
+// There S^T = K Q^T and dP^T = V dO^T are wgmma with both operands K-major in
+// shared memory; P^T = exp2(S^T scale log2 e - lse log2 e) and dS^T = P^T
+// (dP^T - D) are formed on the accumulators, packed to bf16 as A fragments
+// in registers, and dV += P^T dO, dK += dS^T Q are wgmma with dO and Q
+// MN-major through the transpose bit. The dq pass forms S and dP as the
+// forward does and dQ += dS K with K MN-major. Only tiles that cross the
+// diagonal, the window's edge or S are masked; tiles a warpgroup's rows
+// never see are skipped. The tensor cores take bf16 operands, so P and dS
+// are rounded to bf16 before their products.
+//
+// float32, on CUDA cores (dkdv_kernel, dq_kernel): 256 threads per
+// 64-row tile, each holding 4 rows x 4 columns of the 64 x 64 score tile
+// (rows ty + 16 r, columns tx + 16 u) and 4 rows x D/16 columns of its
+// output; tiles sit in shared memory as float32, rows padded to D + 1
+// words. TF32 would miss the float32 tolerance.
+//
+// What bounds it: operations, 10 D flops per visible pair (q k^T, do v^T,
+// dv, dk, dq) at the bf16 tensor-core rate.
+#include "hopper.cuh"
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -43,14 +63,9 @@ constexpr int kB = 64;               // rows per tile (queries and keys)
 constexpr int kLDP = kB + 1;         // padded row of the P / dS tiles
 constexpr int kThreads = 256;        // 16 x 16 threads: ty, tx
 
+// the CUDA-core kernels below are instantiated for float32 only
 __device__ __forceinline__ float to_f(float v) { return v; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
 __device__ __forceinline__ void from_f(float* p, float v) { *p = v; }
-__device__ __forceinline__ void from_f(__nv_bfloat16* p, float v) {
-  *p = __float2bfloat16(v);
-}
 
 template <int D>
 constexpr size_t smem_bytes() {
@@ -344,18 +359,419 @@ cudaError_t launch(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
+// ---- bf16 on the tensor cores ---------------------------------------------
+
+constexpr int kWG = 128;             // threads of a warpgroup
+constexpr int kTcThreads = 2 * kWG + 32;   // two consumers, one producer warp
+constexpr int kOwn = 128;            // the block's own rows (64 per consumer)
+constexpr int kStream = 64;          // rows of a streamed tile
+constexpr int kStages = 2;
+constexpr float kLog2e = 1.4426950408889634f;
+
+// rows of the bf16 backward's row vectors: S padded to whole 64-row tiles,
+// so each streamed tile's 64 entries start 16-byte aligned for the bulk
+// copy
+__host__ __device__ __forceinline__ int64_t vec_stride(int64_t S) {
+  return (S + kStream - 1) / kStream * kStream;
+}
+
+constexpr int kVecBytes = 2 * kStream * 4;   // a stage's two row vectors
+
+template <int D>
+struct TcBwd {
+  static constexpr int OWN_BYTES = kOwn * D * 2;        // one own tile
+  static constexpr int STREAM_BYTES = kStream * D * 2;  // one streamed tile
+  static constexpr int TILES = 2 * OWN_BYTES + 2 * kStages * STREAM_BYTES;
+  static constexpr int VECS = kStages * kVecBytes;
+  static constexpr size_t SMEM = TILES + VECS + 8 * (2 * kStages + 1) + 1024;
+};
+
+// the block's shared memory: two own tiles, the ring, the ring's row
+// vectors, the barriers
+struct TcSmem {
+  uint8_t* own;                      // own tile 0, then own tile 1
+  uint8_t* ring;                     // stage s: streamed tile 0, then 1
+  float* vec;                        // stage s: lse log2 e, then D
+  uint64_t* full;
+  uint64_t* empty;
+  uint64_t* ownbar;
+};
+
+template <int D>
+__device__ __forceinline__ TcSmem tc_smem(uint8_t* raw) {
+  using C = TcBwd<D>;
+  uint8_t* base = raw + ((1024 - (hopper::smem_u32(raw) & 1023)) & 1023);
+  TcSmem m;
+  m.own = base;
+  m.ring = base + 2 * C::OWN_BYTES;
+  m.vec = reinterpret_cast<float*>(base + C::TILES);
+  m.full = reinterpret_cast<uint64_t*>(base + C::TILES + C::VECS);
+  m.empty = m.full + kStages;
+  m.ownbar = m.empty + kStages;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      hopper::mbar_init(&m.full[s], 1);
+      hopper::mbar_init(&m.empty[s], 2 * kWG);
+    }
+    hopper::mbar_init(m.ownbar, 1);
+    hopper::fence_barrier_init();
+  }
+  __syncthreads();
+  return m;
+}
+
+// the producer: the block's own 128 rows of a and b from row r0, then
+// 64-row tiles of c and d from rows (t0 + i) * 64 for ntiles tiles, and
+// with them, when ``vecs`` is not null, the same 64 entries of its two
+// row vectors (``vecs`` and ``vecs + plane``)
+template <int D>
+__device__ __forceinline__ void tc_produce(const TcSmem& m,
+                                           const CUtensorMap* a,
+                                           const CUtensorMap* b,
+                                           const CUtensorMap* c,
+                                           const CUtensorMap* d, int r0,
+                                           int t0, int ntiles, int bh,
+                                           const float* vecs,
+                                           int64_t plane) {
+  using C = TcBwd<D>;
+  const uint32_t vbytes = vecs != nullptr ? kVecBytes : 0;
+  hopper::mbar_expect_tx(m.ownbar, 2 * C::OWN_BYTES);
+  hopper::tma_tile<D>(m.own, kOwn, kOwn, a, m.ownbar, r0, bh);
+  hopper::tma_tile<D>(m.own + C::OWN_BYTES, kOwn, kOwn, b, m.ownbar, r0, bh);
+  for (int i = 0; i < ntiles; ++i) {
+    const int st = i % kStages;
+    if (i >= kStages) hopper::mbar_wait(&m.empty[st], (i / kStages - 1) & 1);
+    hopper::mbar_expect_tx(&m.full[st], 2 * C::STREAM_BYTES + vbytes);
+    uint8_t* tile = m.ring + st * 2 * C::STREAM_BYTES;
+    const int row = (t0 + i) * kStream;
+    if (vecs != nullptr) {
+      float* v = m.vec + st * 2 * kStream;
+      hopper::bulk_load(v, vecs + row, kStream * 4, &m.full[st]);
+      hopper::bulk_load(v + kStream, vecs + plane + row, kStream * 4,
+                        &m.full[st]);
+    }
+    hopper::tma_tile<D>(tile, kStream, kStream, c, &m.full[st], row, bh);
+    hopper::tma_tile<D>(tile + C::STREAM_BYTES, kStream, kStream, d,
+                        &m.full[st], row, bh);
+  }
+}
+
+// A = rows [64 wg, 64 wg + 64) of own tile ``ua`` and B = streamed tile
+// ``ub``, both K-major over D: acc = A B^T (64 x 64)
+template <int D>
+__device__ __forceinline__ void tc_scores(float (&acc)[32], uint32_t ua,
+                                          int wg, uint32_t ub) {
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk)
+    hopper::wgmma_ss<64>(acc, hopper::desc_kmajor(ua, kOwn, 64 * wg, kk),
+                         hopper::desc_kmajor(ub, kStream, 0, kk), kk > 0);
+}
+
+// the 64 x 64 tile's values packed as four k-steps of A fragments
+__device__ __forceinline__ void tc_pack(const float (&x)[32],
+                                        uint32_t (&a)[4][4]) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+      a[kk][r] = hopper::pack_bf16(x[8 * kk + 2 * r], x[8 * kk + 2 * r + 1]);
+}
+
+template <int D>
+__device__ __forceinline__ void tc_store(__nv_bfloat16* out, float (&acc)[D / 2],
+                                         const int (&row)[2], int S,
+                                         float mul, int lane) {
+#pragma unroll
+  for (int j = 0; j < D / 2; j += 2) {
+    const int h = (j >> 1) & 1;
+    if (row[h] >= S) continue;
+    const int col = 8 * (j >> 2) + 2 * (lane & 3);
+    *reinterpret_cast<__nv_bfloat162*>(&out[(int64_t)row[h] * D + col]) =
+        __floats2bfloat162_rn(acc[j] * mul, acc[j + 1] * mul);
+  }
+}
+
+// one block per (batch x head, 128-key tile): dk, dv over the 64-query
+// tiles that see its keys; the accumulators' rows are keys, columns queries
+template <int D>
+__global__ void __launch_bounds__(kTcThreads, 1)
+dkdv_tc(const __grid_constant__ CUtensorMap tq,
+        const __grid_constant__ CUtensorMap tk,
+        const __grid_constant__ CUtensorMap tv,
+        const __grid_constant__ CUtensorMap tdo,
+        const float* __restrict__ vecs, __nv_bfloat16* __restrict__ dk,
+        __nv_bfloat16* __restrict__ dv, int S, int window, float scale,
+        float scale_log2) {
+  using C = TcBwd<D>;
+  extern __shared__ uint8_t smem_raw[];
+  const TcSmem m = tc_smem<D>(smem_raw);
+  const int bh = blockIdx.y;
+  const int k0 = blockIdx.x * kOwn;          // the longest loops first
+  const int nq = (S + kStream - 1) / kStream;
+  int it_end = nq;
+  if (window > 0) it_end = min(nq, (k0 + kOwn - 1 + window - 1) / kStream + 1);
+  const int it_begin = k0 / kStream;
+  const int ntiles = it_end - it_begin;
+
+  const int wg = threadIdx.x / kWG;
+  if (wg == 2) {
+    if (threadIdx.x == 2 * kWG)
+      tc_produce<D>(m, &tk, &tv, &tq, &tdo, k0, it_begin, ntiles, bh,
+                    vecs + bh * vec_stride(S), gridDim.y * vec_stride(S));
+    return;
+  }
+
+  const int t = threadIdx.x % kWG, lane = t % 32;
+  const int klo = k0 + 64 * wg, khi = klo + 63;
+  const int kr[2] = {klo + 16 * (t / 32) + lane / 4,
+                     klo + 16 * (t / 32) + lane / 4 + 8};
+  const uint32_t uK = hopper::smem_u32(m.own);
+  const uint32_t uV = uK + C::OWN_BYTES;
+
+  float adk[D / 2], adv[D / 2];
+#pragma unroll
+  for (int j = 0; j < D / 2; ++j) adk[j] = adv[j] = 0.f;
+
+  hopper::mbar_wait(m.ownbar, 0);
+  for (int i = 0; i < ntiles; ++i) {
+    const int st = i % kStages;
+    const int q0 = (it_begin + i) * kStream;
+    const bool reached = q0 + kStream - 1 >= klo &&
+                         (window <= 0 || q0 <= khi + window - 1);
+    hopper::mbar_wait(&m.full[st], (i / kStages) & 1);
+    if (reached) {
+      const uint32_t uQ = hopper::smem_u32(m.ring + st * 2 * C::STREAM_BYTES);
+      const uint32_t uO = uQ + C::STREAM_BYTES;
+      const float* sl = m.vec + st * 2 * kStream;   // lse log2 e, then D
+      float s[32], dp[32];
+      hopper::wgmma_fence();
+      tc_scores<D>(s, uK, wg, uQ);
+      tc_scores<D>(dp, uV, wg, uO);
+      hopper::wgmma_commit();
+      hopper::wgmma_wait_all();
+      hopper::fence_regs(s);
+      hopper::fence_regs(dp);
+
+      const bool open = q0 >= khi && q0 + kStream <= S &&
+                        (window <= 0 || q0 + kStream - 1 < klo + window);
+#pragma unroll
+      for (int cb = 0; cb < 8; ++cb)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int c = 8 * cb + 2 * (lane & 3) + e;
+          const int qp = q0 + c;
+          const bool in = qp < S;
+          const float l2 = sl[c], di = sl[kStream + c];
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int j = 4 * cb + 2 * h + e;
+            float p = exp2f(s[j] * scale_log2 - l2);
+            if (!open) {
+              const bool ok = in && kr[h] <= qp &&
+                              (window <= 0 || kr[h] > qp - window);
+              p = ok ? p : 0.f;
+            }
+            s[j] = p;
+            dp[j] = p * (dp[j] - di);
+          }
+        }
+      uint32_t pa[4][4], da[4][4];
+      tc_pack(s, pa);
+      tc_pack(dp, da);
+      hopper::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        hopper::wgmma_rs<D>(adv, pa[kk],
+                            hopper::desc_mnmajor(uO, kStream, kk), 1);
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        hopper::wgmma_rs<D>(adk, da[kk],
+                            hopper::desc_mnmajor(uQ, kStream, kk), 1);
+      hopper::wgmma_commit();
+      hopper::wgmma_wait_all();
+      hopper::fence_regs(adv);
+      hopper::fence_regs(adk);
+    }
+    hopper::mbar_arrive(&m.empty[st]);
+  }
+  tc_store<D>(dk + (int64_t)bh * S * D, adk, kr, S, scale, lane);
+  tc_store<D>(dv + (int64_t)bh * S * D, adv, kr, S, 1.f, lane);
+}
+
+// one block per (batch x head, 128-query tile): dq over the 64-key tiles
+// its queries see; the accumulators' rows are queries, columns keys
+template <int D>
+__global__ void __launch_bounds__(kTcThreads, 1)
+dq_tc(const __grid_constant__ CUtensorMap tq,
+      const __grid_constant__ CUtensorMap tk,
+      const __grid_constant__ CUtensorMap tv,
+      const __grid_constant__ CUtensorMap tdo,
+      const float* __restrict__ vecs, __nv_bfloat16* __restrict__ dq,
+      int S, int window, float scale, float scale_log2) {
+  using C = TcBwd<D>;
+  extern __shared__ uint8_t smem_raw[];
+  const TcSmem m = tc_smem<D>(smem_raw);
+  const int bh = blockIdx.y;
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * kOwn;   // heaviest first
+  const int last_q = min(q0 + kOwn - 1, S - 1);
+  const int kt_end = last_q / kStream + 1;
+  const int kt_begin =
+      (window > 0 && q0 - window + 1 > 0) ? (q0 - window + 1) / kStream : 0;
+  const int ntiles = kt_end - kt_begin;
+
+  const int wg = threadIdx.x / kWG;
+  if (wg == 2) {
+    if (threadIdx.x == 2 * kWG)
+      tc_produce<D>(m, &tq, &tdo, &tk, &tv, q0, kt_begin, ntiles, bh,
+                    nullptr, 0);
+    return;
+  }
+
+  const int t = threadIdx.x % kWG, lane = t % 32;
+  const int qlo = q0 + 64 * wg, qhi = qlo + 63;
+  const int qr[2] = {qlo + 16 * (t / 32) + lane / 4,
+                     qlo + 16 * (t / 32) + lane / 4 + 8};
+  const float* lrow = vecs + bh * vec_stride(S);
+  const int64_t plane = gridDim.y * vec_stride(S);
+  float l2[2], di[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const bool in = qr[h] < S;
+    l2[h] = in ? lrow[qr[h]] : 0.f;
+    di[h] = in ? lrow[plane + qr[h]] : 0.f;
+  }
+  const uint32_t uQ = hopper::smem_u32(m.own);
+  const uint32_t uO = uQ + C::OWN_BYTES;
+
+  float adq[D / 2];
+#pragma unroll
+  for (int j = 0; j < D / 2; ++j) adq[j] = 0.f;
+
+  hopper::mbar_wait(m.ownbar, 0);
+  for (int i = 0; i < ntiles; ++i) {
+    const int st = i % kStages;
+    const int k0 = (kt_begin + i) * kStream;
+    const bool reached = k0 <= qhi &&
+                         (window <= 0 || k0 + kStream - 1 > qlo - window);
+    hopper::mbar_wait(&m.full[st], (i / kStages) & 1);
+    if (reached) {
+      const uint32_t uK = hopper::smem_u32(m.ring + st * 2 * C::STREAM_BYTES);
+      const uint32_t uV = uK + C::STREAM_BYTES;
+      float s[32], dp[32];
+      hopper::wgmma_fence();
+      tc_scores<D>(s, uQ, wg, uK);
+      tc_scores<D>(dp, uO, wg, uV);
+      hopper::wgmma_commit();
+      hopper::wgmma_wait_all();
+      hopper::fence_regs(s);
+      hopper::fence_regs(dp);
+
+      const bool open = k0 + kStream - 1 <= qlo && qhi < S &&
+                        (window <= 0 || k0 > qhi - window);
+#pragma unroll
+      for (int j = 0; j < 32; ++j) {
+        const int h = (j >> 1) & 1;
+        float p = exp2f(s[j] * scale_log2 - l2[h]);
+        if (!open) {
+          const int kp = k0 + 8 * (j >> 2) + 2 * (lane & 3) + (j & 1);
+          const bool ok = qr[h] < S && kp <= qr[h] &&
+                          (window <= 0 || kp > qr[h] - window);
+          p = ok ? p : 0.f;
+        }
+        dp[j] = p * (dp[j] - di[h]);
+      }
+      uint32_t da[4][4];
+      tc_pack(dp, da);
+      hopper::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        hopper::wgmma_rs<D>(adq, da[kk],
+                            hopper::desc_mnmajor(uK, kStream, kk), 1);
+      hopper::wgmma_commit();
+      hopper::wgmma_wait_all();
+      hopper::fence_regs(adq);
+    }
+    hopper::mbar_arrive(&m.empty[st]);
+  }
+  tc_store<D>(dq + (int64_t)bh * S * D, adq, qr, S, scale, lane);
+}
+
+// one warp per row: lse log2 e into plane 0 and D = do . o into plane 1
+// of ``vecs``, rows padded to vec_stride(S) (the padding stays 0)
+template <int D>
+__global__ void __launch_bounds__(kThreads)
+rowvec_tc(const __nv_bfloat16* __restrict__ o,
+          const __nv_bfloat16* __restrict__ dout,
+          const float* __restrict__ lse, float* __restrict__ vecs,
+          int64_t rows, int S) {
+  const int64_t row = (int64_t)blockIdx.x * (kThreads / 32) + threadIdx.x / 32;
+  const int lane = threadIdx.x & 31;
+  if (row >= rows) return;
+  float acc = 0.f;
+  for (int d = lane; d < D; d += 32)
+    acc = fmaf(__bfloat162float(o[row * D + d]),
+               __bfloat162float(dout[row * D + d]), acc);
+#pragma unroll
+  for (int m = 16; m > 0; m >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, m);
+  if (lane == 0) {
+    const int64_t at = row / S * vec_stride(S) + row % S;
+    vecs[at] = lse[row] * kLog2e;
+    vecs[rows / S * vec_stride(S) + at] = acc;
+  }
+}
+
+template <int D>
+cudaError_t launch_tc(const void* q, const void* k, const void* v,
+                      const void* o, const void* dout, const float* lse,
+                      float* vecs, void* dq, void* dk, void* dv, int64_t BH,
+                      int64_t S, int window, cudaStream_t stream) {
+  CUtensorMap mq, mk, mv, mdo;
+  if (!hopper::make_tile_map(&mq, q, BH, S, D) ||
+      !hopper::make_tile_map(&mk, k, BH, S, D) ||
+      !hopper::make_tile_map(&mv, v, BH, S, D) ||
+      !hopper::make_tile_map(&mdo, dout, BH, S, D))
+    return cudaErrorInvalidValue;
+  const size_t smem = TcBwd<D>::SMEM;
+  cudaError_t err = cudaFuncSetAttribute(
+      dkdv_tc<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  err = cudaFuncSetAttribute(
+      dq_tc<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  const int64_t rows = BH * S;
+  const int64_t row_blocks = (rows + kThreads / 32 - 1) / (kThreads / 32);
+  rowvec_tc<D><<<(unsigned)row_blocks, kThreads, 0, stream>>>(
+      (const __nv_bfloat16*)o, (const __nv_bfloat16*)dout, lse, vecs, rows,
+      (int)S);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const float scale = 1.0f / sqrtf((float)D);
+  const dim3 grid((unsigned)((S + kOwn - 1) / kOwn), (unsigned)BH);
+  dkdv_tc<D><<<grid, kTcThreads, smem, stream>>>(
+      mq, mk, mv, mdo, vecs, (__nv_bfloat16*)dk, (__nv_bfloat16*)dv, (int)S,
+      window, scale, scale * kLog2e);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  dq_tc<D><<<grid, kTcThreads, smem, stream>>>(
+      mq, mk, mv, mdo, vecs, (__nv_bfloat16*)dq, (int)S, window, scale,
+      scale * kLog2e);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
-// dtype: 0 = float32, 1 = bf16. window <= 0: no window. Dsum: float32
-// scratch of B*H*S values.
+// dtype: 0 = float32 (CUDA cores), 1 = bf16 (tensor cores; q, k, v, do
+// 16-byte aligned). window <= 0: no window. Dsum: float32 scratch of
+// 2 B*H vec_stride(S) values, zeros (float32 uses its first B*H*S, bf16
+// holds the row vectors there).
 extern "C" int flash_attention_bwd_launch(
     const void* q, const void* k, const void* v, const void* o,
     const void* dout, const void* lse, void* Dsum, void* dq, void* dk,
     void* dv, int64_t BH, int64_t S, int64_t D, int64_t window, int dtype,
     void* stream) {
   if (BH <= 0 || S <= 0) return (int)cudaSuccess;
-  if (BH > 65535 || (S + kB - 1) / kB > 2147483647LL ||
-      window > 2147483647LL || BH * S / (kThreads / 32) > 2147483647LL)
+  if (BH > 65535 || S > 2147483647LL - kOwn || window > 2147483647LL ||
+      BH * S / (kThreads / 32) > 2147483647LL)
     return (int)cudaErrorInvalidValue;
   const int w = window > 0 ? (int)window : 0;
   cudaStream_t st = (cudaStream_t)stream;
@@ -368,11 +784,11 @@ extern "C" int flash_attention_bwd_launch(
     return (int)launch<float, 128>(q, k, v, o, dout, ls, Ds, dq, dk, dv, BH,
                                    S, w, st);
   if (dtype == 1 && D == 64)
-    return (int)launch<__nv_bfloat16, 64>(q, k, v, o, dout, ls, Ds, dq, dk,
-                                          dv, BH, S, w, st);
+    return (int)launch_tc<64>(q, k, v, o, dout, ls, Ds, dq, dk, dv, BH, S, w,
+                              st);
   if (dtype == 1 && D == 128)
-    return (int)launch<__nv_bfloat16, 128>(q, k, v, o, dout, ls, Ds, dq, dk,
-                                           dv, BH, S, w, st);
+    return (int)launch_tc<128>(q, k, v, o, dout, ls, Ds, dq, dk, dv, BH, S,
+                               w, st);
   return (int)cudaErrorInvalidValue;
 }
 

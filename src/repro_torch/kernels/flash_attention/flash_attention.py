@@ -17,13 +17,15 @@ back in the input dtype.
  * ``flash_attention`` launches ``csrc/flash_attention.cu`` for CUDA
    tensors and takes the plain version only for CPU tensors. The kernel
    takes ``D in {64, 128}`` and any S: unlike the TPU kernel
-   (``S % 128 == 0``) it masks the ragged tail itself. One block per
-   (batch x head, 64-query tile) loops over 64-key tiles with the online
-   softmax (running max, normaliser and accumulator in float32 registers),
-   skipping tiles above the causal diagonal and tiles wholly outside the
-   window. It computes on CUDA cores in float32 whatever the input type,
-   so it is bound by operations: ``4 D`` flops per visible (query, key)
-   pair over the card's rate for the input type.
+   (``S % 128 == 0``) it masks the ragged tail itself. In bf16 it runs on
+   the tensor cores: one block per (batch x head, 128-query tile), two
+   warpgroups of 64 rows, K and V streamed through shared memory by TMA
+   (CUDA tensors must start 16-byte aligned), S = Q K^T and O += P V as
+   ``wgmma`` with P rounded to bf16, the online softmax in float32
+   registers. In float32 it runs on CUDA cores, one block per 64-query
+   tile. Both skip tiles above the causal diagonal and tiles wholly
+   outside the window. It is bound by operations: ``4 D`` flops per
+   visible (query, key) pair over the card's rate for the input type.
 
 The gradient (the reference differentiates ``attention_ref``'s jnp ops;
 the port's forward is a kernel, so its backward is one too):
@@ -43,12 +45,14 @@ the port's forward is a kernel, so its backward is one too):
    with it — further than any difference between the kernel and its plain
    version, so both form ``D`` alike.
  * ``flash_attention_bwd`` launches the backward kernels: one pass forms
-   ``D = rowsum(dO * O)``, one block per 64-key tile accumulates ``dK, dV``
-   over the query tiles that see it, one block per 64-query tile
-   accumulates ``dQ`` — a deterministic split with no atomics. It
-   recomputes ``P`` from ``Q, K`` and the logsumexp, keeps the forward's
-   masking (causal, window, the ragged tail past S) and accumulates in
-   float32; it is bound by operations: ``14 D`` flops per visible pair.
+   ``D = rowsum(dO * O)``, one block per key tile accumulates ``dK, dV``
+   over the query tiles that see it, one block per query tile accumulates
+   ``dQ`` — a deterministic split with no atomics. It recomputes ``P``
+   from ``Q, K`` and the logsumexp, keeps the forward's masking (causal,
+   window, the ragged tail past S) and accumulates in float32; in bf16 its
+   products are ``wgmma`` with ``P`` and ``dS`` rounded to bf16. It is
+   bound by operations: ``10 D`` flops per visible pair (it does ``14
+   D``: each pass recomputes ``S`` and ``dO V^T``).
 """
 from __future__ import annotations
 
@@ -198,7 +202,12 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     dq, dk, dv = (torch.empty_like(q) for _ in range(3))
     if B * H * S == 0:
         return dq, dk, dv
-    dsum = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
+    # the rows' D = rowsum(dO O) (float32 reads the first B H S values);
+    # bf16 keeps there lse log2 e and D, rows padded to whole 64-row tiles
+    # for the kernels' 16-byte bulk copies, the padding 0
+    s_pad = -(-S // 64) * 64
+    dsum = torch.zeros(2 * B * H * s_pad, dtype=torch.float32,
+                       device=q.device)
     lib = build.load("flash_attention_bwd", _BWD_SIGNATURES)
     with torch.cuda.device(q.device):
         err = lib.flash_attention_bwd_launch(

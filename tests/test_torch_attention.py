@@ -311,3 +311,18 @@ def test_old_forward_limit_passed_a_late_five_percent_error():
     bad = bad.to(want.dtype)
     assert torch.allclose(bad.float(), want.float(), rtol=2e-2, atol=2e-2)
     assert _row_share(bad, want) > 1.0
+
+
+def test_library_digest_covers_the_included_header(tmp_path, monkeypatch):
+    """The attention sources include ``csrc/hopper.cuh``: an edit to it must
+    name a new library, or a stale one in ``build/kernels`` would load."""
+    from repro_torch.kernels import build
+    for f in build.CSRC.iterdir():
+        (tmp_path / f.name).write_bytes(f.read_bytes())
+    monkeypatch.setattr(build, "CSRC", tmp_path)
+    before = {n: build.library_path(n) for n in build.SOURCES}
+    (tmp_path / "hopper.cuh").write_bytes(
+        (tmp_path / "hopper.cuh").read_bytes() + b"\n// edited\n")
+    after = {n: build.library_path(n) for n in build.SOURCES}
+    changed = {n for n in build.SOURCES if before[n] != after[n]}
+    assert changed == {"flash_attention", "flash_attention_bwd"}
