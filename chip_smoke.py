@@ -326,21 +326,20 @@ def attention_pairs(S: int, window) -> int:
     return window * (window + 1) // 2 + (S - window) * window
 
 
+def grad_scale(torch, want, dtype: str):
+    """want's RMS or GRAD_FLOOR, whichever is larger, and want's RMS."""
+    rms = float(want.square().mean().sqrt())
+    return max(rms, GRAD_FLOOR), rms
+
+
 def attention_scale(torch, want, dtype: str):
     """The scale of K3's element-wise limit for ``want`` (see ATTN_TOL):
-    per row in bf16, want's RMS (floored) in float32. Returns it and want's
-    RMS."""
+    per row in bf16, ``grad_scale`` in float32; and want's RMS."""
+    if dtype != "bfloat16":
+        return grad_scale(torch, want, dtype)
     rms = float(want.square().mean().sqrt())
-    if dtype == "bfloat16":
-        row = want.square().mean(dim=-1, keepdim=True).sqrt()
-        return row.clamp_min(max(ATTN_ROW_FLOOR * rms, ATTN_ABS_FLOOR)), rms
-    return max(rms, GRAD_FLOOR), rms
-
-
-def grad_scale(torch, want, dtype: str):
-    """K4's scale: want's RMS or GRAD_FLOOR, whichever is larger."""
-    rms = float(want.square().mean().sqrt())
-    return max(rms, GRAD_FLOOR), rms
+    row = want.square().mean(dim=-1, keepdim=True).sqrt()
+    return row.clamp_min(max(ATTN_ROW_FLOOR * rms, ATTN_ABS_FLOOR)), rms
 
 
 def limit_record(torch, got, want, tol: float, scale_of, dtype: str) -> dict:
@@ -369,7 +368,7 @@ def check_attention(torch, K3, shape, dtype, window, gen, dev) -> tuple:
         fail(f"flash_attention {shape} {dt} window={window}: differs from "
              f"the plain version by {rec['max_abs_err']} at most, "
              f"{rec['limit_share']} of the limit {ATTN_TOL[dt]} (|want| + "
-             f"row scale; RMS {rec['rms']})")
+             f"scale; RMS {rec['rms']})")
     return (q, k, v, want), {"shape": list(shape), "window": window,
                              "dtype": dt, **rec}
 
