@@ -170,8 +170,8 @@ KERNEL_ROWS = {
 ENGINE_KERNELS = ("maxplus_scan", "lane_sort")
 # the device functions of K3's two sources, as the profiler names them
 K3_FUNCTIONS = ("flash_attention_tc", "flash_attention_kernel",
-                "rowdot_kernel", "dkdv_tc", "dkdv_kernel", "dq_tc",
-                "dq_kernel")
+                "rowdot_kernel", "rowvec_tc", "dkdv_tc", "dkdv_kernel",
+                "dq_tc", "dq_kernel")
 MODEL_KERNELS = ("flash_attention", "ssd_chunk")
 TRAIN_KERNELS = MODEL_KERNELS + ("flash_attention_bwd", "ssd_chunk_bwd")
 
