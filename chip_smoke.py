@@ -59,7 +59,8 @@ kernel (K4) against their plain versions at the shapes of the
 ``serve_interleaved`` forward, K3 again at the train phase's shape and at
 windowed, ragged and D = 128 shapes, their backward kernels at the same
 shapes (K3's also in float32 at the main and the train shapes), and the
-tiled matmul (K5) at the up-projection's shape and a ragged float32 one.
+tiled matmul (K5) at the up-projection's shape and at a ragged and an
+edge shape in both types, its bf16 checks with their per-row share.
 K3 (both ways) and K4's backward are compared element by element, each
 output's share of its limit beside its RMS (``ATTN_TOL``); K3 is timed
 at the main and the train shapes beside SDPA, whose share of the same
@@ -139,9 +140,12 @@ INTERLEAVE_TRAIN_STEPS = 2.5
 # K3's backward is also checked at the shape the train phase gives it
 ATTN_TRAIN_SHAPE = (TRAIN_BS, 32, TRAIN_SEQ, 64)
 # K5: the serving minibatch's MLP up-projection (bs 8 x 2048 tokens,
-# d_model 2048 -> d_ff 8192), and a ragged float32 shape
-MM_SHAPE = (SERVE_BS * SERVE_SEQ, 2048, 8192)          # M, K, N
+# d_model 2048 -> d_ff 8192); a ragged shape, whose rows are not 16-byte
+# multiples; an edge shape whose rows are, with no dimension a multiple of
+# the kernel's tiles (M, K, N)
+MM_SHAPE = (SERVE_BS * SERVE_SEQ, 2048, 8192)
 MM_RAGGED = (1000, 777, 1531)
+MM_EDGES = (1000, 776, 1528)
 
 KERNEL_ROWS = {
     "maxplus_scan": dict(
@@ -614,7 +618,19 @@ def time_ssd_bwd(torch, K4, gen, dev, reps: int) -> dict:
             "max_abs_err": rec["max_abs_err"], "grads": rec["grads"]}
 
 
+def matmul_share(torch, got, want) -> float:
+    """The largest share of ``MM_TOL`` x (|want| + the RMS of want's row)
+    that any element of a bf16 product takes: a per-row view of the
+    ``allclose`` check beside it, as K3 reports its share."""
+    g, w = got.float(), want.float()
+    row = w.square().mean(dim=1, keepdim=True).sqrt()
+    return float(((g - w).abs()
+                  / (MM_TOL["bfloat16"] * (w.abs() + row))).max())
+
+
 def check_matmul(torch, K5, shape, dtype, gen, dev) -> tuple:
+    """K5 against its plain version at ``shape`` (M, K, N): allclose within
+    ``MM_TOL``, and in bf16 the per-row share of the same tolerance."""
     M, K, N = shape
     a = torch.randn((M, K), generator=gen, device=dev).to(dtype)
     b = (torch.randn((K, N), generator=gen, device=dev)
@@ -622,20 +638,26 @@ def check_matmul(torch, K5, shape, dtype, gen, dev) -> tuple:
     got = K5.tiled_matmul(a, b)
     torch.cuda.synchronize()
     want = K5.tiled_matmul_plain(a, b)
-    tol = MM_TOL[str(dtype).split(".")[-1]]
+    dt = str(dtype).split(".")[-1]
+    tol = MM_TOL[dt]
     err = float((got.float() - want.float()).abs().max())
     if not torch.allclose(got.float(), want.float(), rtol=tol, atol=tol):
         fail(f"tiled_matmul {shape} {dtype}: differs from the plain version by "
              f"{err} (tolerance {tol})")
-    return (a, b), err
+    rec = {"shape": list(shape), "dtype": dt, "max_abs_err": err,
+           "allclose": True}
+    if dtype == torch.bfloat16:
+        rec["limit_share"] = matmul_share(torch, got, want)
+    return (a, b), rec
 
 
 def time_matmul(torch, K5, gen, dev, reps: int) -> dict:
     """K5 at the MLP up-projection's shape in bf16 (timed, with
-    ``torch.matmul`` as the library yardstick), then checked at a ragged
-    float32 shape."""
+    ``torch.matmul`` as the library yardstick), then checked at the ragged
+    shape (no dimension a multiple of 8) and at the edge shape (K and N
+    multiples of 8, no dimension a multiple of a tile) in both types."""
     M, K, N = MM_SHAPE
-    (a, b), err = check_matmul(torch, K5, MM_SHAPE, torch.bfloat16, gen, dev)
+    (a, b), rec = check_matmul(torch, K5, MM_SHAPE, torch.bfloat16, gen, dev)
     ms = cuda_ms(torch, lambda: K5.tiled_matmul(a, b), reps)
     plain_ms = cuda_ms(torch, lambda: K5.tiled_matmul_plain(a, b), 2)
     library_ms = cuda_ms(torch, lambda: torch.matmul(a, b), reps)
@@ -643,14 +665,14 @@ def time_matmul(torch, K5, gen, dev, reps: int) -> dict:
     b_ms, by = bound(2.0 * (M * K + K * N + M * N), 2.0 * M * N * K,
                      OPS_PER_S["bfloat16"])
     del a, b
-    _, ragged_err = check_matmul(torch, K5, MM_RAGGED, torch.float32, gen, dev)
+    checks = [check_matmul(torch, K5, shape, dtype, gen, dev)[1]
+              for shape in (MM_RAGGED, MM_EDGES)
+              for dtype in (torch.float32, torch.bfloat16)]
     torch.cuda.empty_cache()
-    return {"shape": list(MM_SHAPE), "dtype": "bfloat16", "kernel_ms": ms,
-            "plain_ms": plain_ms, "library_ms": library_ms,
-            "library": "torch.matmul", "bound_ms": b_ms, "bound_by": by,
-            "max_abs_err": err, "tflops": 2.0 * M * N * K / ms / 1e9,
-            "checks": [{"shape": list(MM_RAGGED), "dtype": "float32",
-                        "max_abs_err": ragged_err}]}
+    return {**rec, "kernel_ms": ms, "plain_ms": plain_ms,
+            "library_ms": library_ms, "library": "torch.matmul",
+            "bound_ms": b_ms, "bound_by": by,
+            "tflops": 2.0 * M * N * K / ms / 1e9, "checks": checks}
 
 
 # ---------------------------------------------------------------------------

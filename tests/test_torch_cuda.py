@@ -337,7 +337,8 @@ def test_cuda_forward_outputs_carry_a_gradient(hopper):
 @pytest.mark.parametrize("M,K,N", [(128, 128, 128), (256, 384, 128),
                                    (128, 256, 512), (100, 37, 53),
                                    (1, 1, 1), (257, 300, 129),
-                                   (512, 2048, 1024)])
+                                   (512, 2048, 1024), (1000, 776, 1528),
+                                   (64, 8, 8)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_cuda_tiled_matmul_matches_plain(hopper, M, K, N, dtype):
     gen = torch.Generator(device=hopper).manual_seed(M + K + N)
