@@ -112,7 +112,10 @@ FP64_OPS_PER_S = 34e12                    # H100 SXM data sheet, float64
 #                                           outside the tensor cores
 OPS_PER_S = {"float64": FP64_OPS_PER_S,
              "float32": 67e12,            # outside the tensor cores
-             "bfloat16": 989e12}          # dense, tensor cores
+             "bfloat16": 989e12,          # dense, tensor cores
+             # float32-accurate products on the tensor cores: split TF32
+             # (hi.hi + hi.lo + lo.hi) does each three times at 495 TFLOP/s
+             "tf32x3": 495e12 / 3}
 # the kernel phase's shapes: the engine's full lane chunk, a report-builder
 # sort chunk, and one row long enough for the sort's global-memory passes
 MAXPLUS_SHAPE = (8192, 8192)
@@ -176,6 +179,9 @@ ENGINE_KERNELS = ("maxplus_scan", "lane_sort")
 K3_FUNCTIONS = ("flash_attention_tc", "flash_attention_kernel",
                 "rowdot_kernel", "rowvec_tc", "dkdv_tc", "dkdv_kernel",
                 "dq_tc", "dq_kernel")
+# and of K4's backward (csrc/ssd_chunk_bwd.cu)
+K4_BWD_FUNCTIONS = ("query_pass", "state_pass", "key_pass",
+                    "finish_dA_kernel", "group_sum_kernel")
 MODEL_KERNELS = ("flash_attention", "ssd_chunk")
 TRAIN_KERNELS = MODEL_KERNELS + ("flash_attention_bwd", "ssd_chunk_bwd")
 
@@ -215,6 +221,15 @@ def bound(nbytes: float, ops: float,
     default)."""
     t_b, t_o = nbytes / HBM_BYTES_PER_S, ops / ops_per_s
     return (1e3 * max(t_b, t_o), "bytes" if t_b >= t_o else "operations")
+
+
+def float32_bound(nbytes: float, ops: float) -> tuple[float, str, float]:
+    """``bound`` for float32-accurate work, which the card does either on
+    the CUDA cores or on the tensor cores in split TF32: the lower of the
+    two, and the CUDA-core figure alone."""
+    cuda_cores = bound(nbytes, ops, OPS_PER_S["float32"])
+    least = min(cuda_cores, bound(nbytes, ops, OPS_PER_S["tf32x3"]))
+    return least[0], least[1], cuda_cores[0]
 
 
 # ---------------------------------------------------------------------------
@@ -465,13 +480,14 @@ def time_ssd(torch, K4, gen, dev, reps: int) -> dict:
     nbytes = 4.0 * (2 * b * nc * l * h * p + 2 * b * nc * l * h
                     + 2 * b * nc * l * n + b * nc * h * n * p)
     ops = 2.0 * b * nc * (tri * n + h * (tri * p + l * n * p))
-    b_ms, by = bound(nbytes, ops, OPS_PER_S["float32"])
+    b_ms, by, b32_ms = float32_bound(nbytes, ops)
     del args
     torch.cuda.empty_cache()
     return {"shape": list(SSD_SHAPE), "dtype": "float32", "kernel_ms": ms,
             "plain_ms": plain_ms, "library_ms": None,
             "library": "none: no single PyTorch call computes the SSD chunk",
-            "bound_ms": b_ms, "bound_by": by, "max_abs_err": err}
+            "bound_ms": b_ms, "bound_by": by, "bound_float32_ms": b32_ms,
+            "tflops": ops / ms / 1e9, "max_abs_err": err}
 
 
 def check_grads(torch, what: str, names, got, want, tol: float,
@@ -598,6 +614,9 @@ def time_ssd_bwd(torch, K4, gen, dev, reps: int) -> dict:
     ms = cuda_ms(torch, lambda: K4.ssd_chunk_bwd(*args, dy, dst), reps)
     plain_ms = cuda_ms(torch, lambda: K4.ssd_chunk_bwd_plain(*args, dy, dst),
                        1)
+    # the kernels' shares of one call
+    prof = profile_device(torch, lambda: K4.ssd_chunk_bwd(*args, dy, dst))
+    split_ms = {e["name"][:60]: e["device_ms"] for e in prof["top"]}
     # x, dy, dA, dt, B, C, dst read once; dx, ddA, ddt, dB, dC written
     # once. Least work: G = C B^T, dC = dG B and dB = dG^T C below the
     # diagonal once per (batch, chunk) (the heads' dG summed first), then
@@ -607,15 +626,17 @@ def time_ssd_bwd(torch, K4, gen, dev, reps: int) -> dict:
     nbytes = 4.0 * (3 * b * nc * l * h * p + 4 * b * nc * l * h
                     + 4 * b * nc * l * n + b * nc * h * n * p)
     ops = 2.0 * b * nc * (3 * tri * n + h * (2 * tri * p + 2 * l * n * p))
-    b_ms, by = bound(nbytes, ops, OPS_PER_S["float32"])
+    b_ms, by, b32_ms = float32_bound(nbytes, ops)
     del args, dy, dst
     torch.cuda.empty_cache()
     return {"shape": list(SSD_SHAPE), "dtype": "float32", "kernel_ms": ms,
             "plain_ms": plain_ms, "library_ms": None,
             "library": "none: no single PyTorch call computes the SSD chunk's "
                        "gradient",
-            "bound_ms": b_ms, "bound_by": by,
-            "max_abs_err": rec["max_abs_err"], "grads": rec["grads"]}
+            "bound_ms": b_ms, "bound_by": by, "bound_float32_ms": b32_ms,
+            "tflops": ops / ms / 1e9, "split_ms": split_ms,
+            "max_abs_err": rec["max_abs_err"],
+            "limit_share": rec["limit_share"], "grads": rec["grads"]}
 
 
 def matmul_share(torch, got, want) -> float:
@@ -629,14 +650,19 @@ def matmul_share(torch, got, want) -> float:
 
 
 def check_matmul(torch, K5, shape, dtype, gen, dev) -> tuple:
-    """K5 against its plain version at ``shape`` (M, K, N): allclose within
-    ``MM_TOL``, and in bf16 the per-row share of the same tolerance."""
+    """K5 against its plain version at ``shape`` (M, K, N), through the
+    route its wrapper picks (recorded): allclose within ``MM_TOL``, and in
+    bf16 the per-row share of the same tolerance."""
     M, K, N = shape
     a = torch.randn((M, K), generator=gen, device=dev).to(dtype)
     b = (torch.randn((K, N), generator=gen, device=dev)
          / math.sqrt(K)).to(dtype)
+    way = K5.route(a, b)
+    before = K5.tiled_matmul.routes[way]
     got = K5.tiled_matmul(a, b)
     torch.cuda.synchronize()
+    if K5.tiled_matmul.routes[way] != before + 1:
+        fail(f"tiled_matmul {shape} {dtype}: did not launch the {way} route")
     want = K5.tiled_matmul_plain(a, b)
     dt = str(dtype).split(".")[-1]
     tol = MM_TOL[dt]
@@ -644,8 +670,8 @@ def check_matmul(torch, K5, shape, dtype, gen, dev) -> tuple:
     if not torch.allclose(got.float(), want.float(), rtol=tol, atol=tol):
         fail(f"tiled_matmul {shape} {dtype}: differs from the plain version by "
              f"{err} (tolerance {tol})")
-    rec = {"shape": list(shape), "dtype": dt, "max_abs_err": err,
-           "allclose": True}
+    rec = {"shape": list(shape), "dtype": dt, "route": way,
+           "max_abs_err": err, "allclose": True}
     if dtype == torch.bfloat16:
         rec["limit_share"] = matmul_share(torch, got, want)
     return (a, b), rec
@@ -1018,8 +1044,9 @@ def profile_device(torch, fn) -> dict:
     that take longer to reduce than the step itself): the device's busy time
     (the sum of kernel time) against the wall, the number of kernels and
     copies it ran, K3's device time and kernels (forward and backward),
-    the kernels with the most device time, and what the profiled call cost
-    in all (``cost_s``, the reduction included)."""
+    K4's backward's device time and kernels, the kernels with the most
+    device time, and what the profiled call cost in all (``cost_s``, the
+    reduction included)."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     t_cost = time.perf_counter()
@@ -1042,11 +1069,15 @@ def profile_device(torch, fn) -> dict:
     rows.sort(key=lambda r: -r[1])
     busy = sum(us for _, us, _ in rows) / 1e6
     k3 = [(us, n) for k, us, n in rows if any(f in k for f in K3_FUNCTIONS)]
+    k4b = [(us, n) for k, us, n in rows
+           if any(f in k for f in K4_BWD_FUNCTIONS)]
     return {"wall_s": wall, "device_busy_s": busy,
             "idle_share": (1.0 - busy / wall) if rows else None,
             "device_ops": sum(n for _, _, n in rows),
             "k3_device_ms": sum(us for us, _ in k3) / 1e3,
             "k3_kernels": sum(n for _, n in k3),
+            "k4_bwd_device_ms": sum(us for us, _ in k4b) / 1e3,
+            "k4_bwd_kernels": sum(n for _, n in k4b),
             "top": [{"name": k[:120], "device_ms": us / 1e3, "count": n}
                     for k, us, n in rows[:15]],
             "cost_s": time.perf_counter() - t_cost}
@@ -1294,12 +1325,14 @@ def phase_tiled_matmul(torch, rt, launches: Launches, seed: int) -> dict:
     x = torch.randn((M, K), generator=gen, device=dev).to(torch.bfloat16)
     w = (torch.randn((K, N), generator=gen, device=dev)
          / math.sqrt(K)).to(torch.bfloat16)
+    routes = dict(OPS.tiled_matmul.routes)
     launches.reset()
     t0 = time.perf_counter()
     y = OPS.tiled_matmul(x, w)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = launches.read("tiled_matmul", ("tiled_matmul",))
+    routes = {k: n - routes[k] for k, n in OPS.tiled_matmul.routes.items()}
     ref = torch.matmul(x, w)
     err = float((y.float() - ref.float()).abs().max())
     tol = MM_TOL["bfloat16"]
@@ -1311,7 +1344,7 @@ def phase_tiled_matmul(torch, rt, launches: Launches, seed: int) -> dict:
     torch.cuda.empty_cache()
     out = {"phase": "tiled_matmul", "shape": [M, K, N], "dtype": "bfloat16",
            "wall_s": wall, "max_abs_err_vs_torch_matmul": err,
-           "launches": counts}
+           "launches": counts, "routes": routes}
     emit(out)
     return out
 

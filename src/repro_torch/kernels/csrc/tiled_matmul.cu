@@ -5,25 +5,38 @@
 //
 // a (M, K), b (K, N), c (M, N), row-major, all bf16 or all float32, any
 // M, N, K (the TPU kernel needs multiples of its 128 blocks; its block_*
-// arguments are TPU tiling and are not part of this function).
+// arguments are TPU tiling and are not part of this function). On the TPU
+// the K axis is the innermost grid axis and the (bm, bn) float32
+// accumulator lives in VMEM across grid steps; here one block owns an
+// output tile and loops over K itself, the accumulator in registers.
 //
-// Design. On the TPU the K axis is the innermost grid axis and the
-// (bm, bn) float32 accumulator lives in VMEM across grid steps. Here one
-// block owns an output tile and loops over K itself, the accumulator in
-// registers.
-//  * bf16: a 128 x 128 tile per block of 8 warps (2 x 4, 64 x 32 each),
-//    K in steps of 32 through shared memory (rows padded by 8 values so
-//    the fragment reads hit distinct banks), tensor cores through
-//    mma.sync.m16n8k16 (bf16 in, float32 accumulate). The next K step's
-//    tile is loaded into registers (16-byte loads where K and N are
-//    multiples of 8) while the tensor cores work on the current one.
-//  * float32: CUDA cores in float32 (no TF32), a 64 x 64 tile per block,
-//    4 x 4 outputs per thread from float4 shared-memory reads.
-// Edges past M, N or K load as zeros and are not stored.
+// Three routes, chosen by the wrapper from dtype, shape and alignment
+// before the launch (tiled_matmul.py::route):
+//  * bf16, TMA (mm_tma_kernel): a and b 16-byte aligned, K and N multiples
+//    of 8, so every row starts on 16 bytes as a tensor map needs. A block
+//    of two consumer warpgroups and one producer warp owns a 128 x 256
+//    output tile, 64 rows per warpgroup. The producer streams 64-deep K
+//    steps of a (128 x 64, K-major) and b (64 x 256, read MN-major through
+//    the transpose bit) with TMA into a ring of 4 stages of 48 KB
+//    (hopper.cuh's layout: 64-column blocks of 128-byte swizzled rows;
+//    boxes past M, N or K arrive as zeros), each stage with a full and an
+//    empty mbarrier. Each consumer issues four wgmma m64n256k16 per stage
+//    and keeps one stage's products in flight while it waits for the
+//    next. 288 threads leave ptxas 224 registers a thread, room for the
+//    128 float32 accumulators, so no setmaxnreg is needed. Blocks run in
+//    bands of 8 M tiles that share one column of b tiles, so that band's
+//    b is read from L2. The epilogue rounds to bf16 in registers and
+//    stores pairs of columns, masked at M and N.
+//  * bf16, mma.sync (mm_bf16_kernel): every other bf16 input (rows that
+//    are not 16-byte multiples). A 128 x 128 tile per block of 8 warps,
+//    K in steps of 32 through shared memory, mma.sync.m16n8k16.
+//  * float32 (mm_f32_kernel): CUDA cores in float32 (no TF32), a 64 x 64
+//    tile per block, 4 x 4 outputs per thread from float4 reads.
 //
 // What bounds it: operations, 2 M N K flops (989 TFLOP/s bf16 on the
-// tensor cores; 67 TFLOP/s float32). wgmma with TMA and a deeper pipeline
-// is later work.
+// tensor cores; 67 TFLOP/s float32). The TMA route's b is re-read once per
+// M tile and a once per N tile, from L2 within a band.
+#include "hopper.cuh"
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -40,12 +53,9 @@ constexpr int kLDB = kBN + 8;
 
 // 8 bf16 values (raw bits) at row `row`, columns [col, col + 8) of a
 // (rows, cols) row-major matrix, zero past its edges
-template <bool VEC>
 __device__ __forceinline__ uint4 load8(const uint16_t* m, int64_t row,
                                        int64_t col, int64_t rows,
                                        int64_t cols) {
-  if (VEC && row < rows && col + 8 <= cols)
-    return *reinterpret_cast<const uint4*>(m + row * cols + col);
   uint16_t v[8];
 #pragma unroll
   for (int u = 0; u < 8; ++u)
@@ -68,7 +78,6 @@ __device__ __forceinline__ void mma_bf16(float c[4], uint32_t a0, uint32_t a1,
       : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
 }
 
-template <bool VEC>
 __global__ void __launch_bounds__(kThreads)
 mm_bf16_kernel(const uint16_t* __restrict__ a, const uint16_t* __restrict__ b,
                __nv_bfloat16* __restrict__ c, int64_t M, int64_t N,
@@ -94,8 +103,8 @@ mm_bf16_kernel(const uint16_t* __restrict__ a, const uint16_t* __restrict__ b,
   auto fetch = [&](int64_t k0) {
 #pragma unroll
     for (int s = 0; s < 2; ++s) {
-      ra[s] = load8<VEC>(a, m0 + ar[s], k0 + ac[s], M, K);
-      rb[s] = load8<VEC>(b, k0 + br[s], n0 + bcol[s], K, N);
+      ra[s] = load8(a, m0 + ar[s], k0 + ac[s], M, K);
+      rb[s] = load8(b, k0 + br[s], n0 + bcol[s], K, N);
     }
   };
   auto stash = [&]() {
@@ -166,6 +175,105 @@ mm_bf16_kernel(const uint16_t* __restrict__ a, const uint16_t* __restrict__ b,
       }
 }
 
+// ---- bf16 through TMA and wgmma -------------------------------------------
+
+constexpr int kWG = 128;                     // threads of a warpgroup
+constexpr int kTmThreads = 2 * kWG + 32;     // two consumers, one producer
+constexpr int kTmBM = 128, kTmBN = 256, kTmBK = 64;
+constexpr int kTmStages = 4;
+constexpr int kGroupM = 8;                   // M tiles in a band
+constexpr int kTmA = kTmBM * kTmBK * 2;      // bytes of one stage's a tile
+constexpr int kTmB = kTmBK * kTmBN * 2;      // and of its b tile
+constexpr int kTmStage = kTmA + kTmB;
+// the ring, then full[] and empty[], and 1024 bytes to align the ring
+constexpr size_t kTmSmem = kTmStages * kTmStage + 16 * kTmStages + 1024;
+
+__global__ void __launch_bounds__(kTmThreads, 1)
+mm_tma_kernel(const __grid_constant__ CUtensorMap ta,
+              const __grid_constant__ CUtensorMap tb,
+              __nv_bfloat16* __restrict__ c, int M, int N, int K) {
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* ring = smem_raw + ((1024 - (hopper::smem_u32(smem_raw) & 1023))
+                              & 1023);
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + kTmStages * kTmStage);
+  uint64_t* empty = full + kTmStages;
+
+  // bands of kGroupM M tiles; inside a band, M tiles vary fastest
+  const int tiles_m = (M + kTmBM - 1) / kTmBM;
+  const int tiles_n = (N + kTmBN - 1) / kTmBN;
+  const int per_band = kGroupM * tiles_n;
+  const int band = blockIdx.x / per_band, in_band = blockIdx.x % per_band;
+  const int band_m = min(tiles_m - band * kGroupM, kGroupM);
+  const int m0 = (band * kGroupM + in_band % band_m) * kTmBM;
+  const int n0 = (in_band / band_m) * kTmBN;
+  const int nk = (K + kTmBK - 1) / kTmBK;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kTmStages; ++s) {
+      hopper::mbar_init(&full[s], 1);
+      hopper::mbar_init(&empty[s], 2 * kWG);
+    }
+    hopper::fence_barrier_init();
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / kWG;
+  if (wg == 2) {                             // the producer warp
+    if (threadIdx.x == 2 * kWG) {
+      for (int i = 0; i < nk; ++i) {
+        const int st = i % kTmStages;
+        if (i >= kTmStages)
+          hopper::mbar_wait(&empty[st], (i / kTmStages - 1) & 1);
+        hopper::mbar_expect_tx(&full[st], kTmStage);
+        uint8_t* sA = ring + st * kTmStage;
+        uint8_t* sB = sA + kTmA;
+        const int k0 = i * kTmBK;
+        for (int rb = 0; rb < kTmBM / hopper::kBox; ++rb)
+          hopper::tma_load(sA + rb * hopper::kBoxBytes, &ta, &full[st], k0,
+                           m0 + rb * hopper::kBox, 0);
+        for (int cb = 0; cb < kTmBN / hopper::kBox; ++cb)
+          hopper::tma_load(sB + cb * hopper::kBoxBytes, &tb, &full[st],
+                           n0 + cb * hopper::kBox, k0, 0);
+      }
+    }
+    return;
+  }
+
+  // a consumer warpgroup: rows m0 + 64 wg .. + 63, all 256 columns
+  float acc[kTmBN / 2];
+#pragma unroll
+  for (int j = 0; j < kTmBN / 2; ++j) acc[j] = 0.f;
+  for (int i = 0; i < nk; ++i) {
+    const int st = i % kTmStages;
+    hopper::mbar_wait(&full[st], (i / kTmStages) & 1);
+    const uint32_t uA = hopper::smem_u32(ring + st * kTmStage);
+    const uint32_t uB = uA + kTmA;
+    hopper::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kTmBK / 16; ++kk)
+      hopper::wgmma_ss_n256_tb(acc, hopper::desc_kmajor(uA, kTmBM, 64 * wg, kk),
+                               hopper::desc_mnmajor(uB, kTmBK, kk), 1);
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<1>();                 // the previous stage is read
+    if (i > 0) hopper::mbar_arrive(&empty[(i - 1) % kTmStages]);
+  }
+  hopper::wgmma_wait_all();
+  hopper::fence_regs(acc);
+
+  // register j: row 16 (t / 32) + (t % 32) / 4 + 8 ((j / 2) % 2), columns
+  // 8 (j / 4) + 2 (t % 4) and + 1
+  const int t = threadIdx.x % kWG;
+  const int row0 = m0 + 64 * wg + 16 * (t / 32) + (t % 32) / 4;
+  const int col0 = n0 + 2 * (t % 4);
+#pragma unroll
+  for (int j = 0; j < kTmBN / 2; j += 2) {
+    const int row = row0 + 8 * ((j / 2) % 2), col = col0 + 8 * (j / 4);
+    if (row < M && col < N)                  // N even: col + 1 < N too
+      *reinterpret_cast<uint32_t*>(c + (int64_t)row * N + col) =
+          hopper::pack_bf16(acc[j], acc[j + 1]);
+  }
+}
+
 // ---- float32 on the CUDA cores --------------------------------------------
 
 constexpr int kFT = 64, kFK = 16, kFLD = kFT + 4;
@@ -217,27 +325,41 @@ mm_f32_kernel(const float* __restrict__ a, const float* __restrict__ b,
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bf16.
+// route: 0 = float32, 1 = bf16 through mma.sync, 2 = bf16 through TMA
+// (a, b 16-byte aligned, K and N multiples of 8; refused otherwise).
 extern "C" int tiled_matmul_launch(const void* a, const void* b, void* c,
                                    int64_t M, int64_t N, int64_t K,
-                                   int dtype, void* stream) {
+                                   int route, void* stream) {
   if (M <= 0 || N <= 0) return (int)cudaSuccess;
   cudaStream_t st = (cudaStream_t)stream;
-  if (dtype == 1) {
+  if (route == 2) {
+    if (K % 8 != 0 || N % 8 != 0 || (uintptr_t)a % 16 != 0 ||
+        (uintptr_t)b % 16 != 0 || M > INT32_MAX || N > INT32_MAX ||
+        K > INT32_MAX)
+      return (int)cudaErrorInvalidValue;
+    const int64_t tiles = ((M + kTmBM - 1) / kTmBM) * ((N + kTmBN - 1) / kTmBN);
+    if (tiles > INT32_MAX) return (int)cudaErrorInvalidValue;
+    CUtensorMap ta, tb;
+    if (!hopper::make_tile_map(&ta, a, 1, M, (int)K) ||
+        !hopper::make_tile_map(&tb, b, 1, K, (int)N))
+      return (int)cudaErrorInvalidValue;
+    cudaError_t err = cudaFuncSetAttribute(
+        mm_tma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)kTmSmem);
+    if (err != cudaSuccess) return (int)err;
+    mm_tma_kernel<<<(unsigned)tiles, kTmThreads, kTmSmem, st>>>(
+        ta, tb, (__nv_bfloat16*)c, (int)M, (int)N, (int)K);
+    return (int)cudaGetLastError();
+  }
+  if (route == 1) {
     if ((M + kBM - 1) / kBM > 65535) return (int)cudaErrorInvalidValue;
     const dim3 grid((unsigned)((N + kBN - 1) / kBN),
                     (unsigned)((M + kBM - 1) / kBM));
-    const bool vec = K % 8 == 0 && N % 8 == 0 &&
-                     (uintptr_t)a % 16 == 0 && (uintptr_t)b % 16 == 0;
-    if (vec)
-      mm_bf16_kernel<true><<<grid, kThreads, 0, st>>>(
-          (const uint16_t*)a, (const uint16_t*)b, (__nv_bfloat16*)c, M, N, K);
-    else
-      mm_bf16_kernel<false><<<grid, kThreads, 0, st>>>(
-          (const uint16_t*)a, (const uint16_t*)b, (__nv_bfloat16*)c, M, N, K);
+    mm_bf16_kernel<<<grid, kThreads, 0, st>>>(
+        (const uint16_t*)a, (const uint16_t*)b, (__nv_bfloat16*)c, M, N, K);
     return (int)cudaGetLastError();
   }
-  if (dtype == 0) {
+  if (route == 0) {
     if ((M + kFT - 1) / kFT > 65535) return (int)cudaErrorInvalidValue;
     const dim3 grid((unsigned)((N + kFT - 1) / kFT),
                     (unsigned)((M + kFT - 1) / kFT));

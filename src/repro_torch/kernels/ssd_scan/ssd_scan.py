@@ -43,12 +43,23 @@ port's forward is a kernel, so its backward is one too):
    (summed in float64 and rounded once, as ``cs`` is formed); ``exp`` is
    again taken only below the diagonal, where above it ``0 * inf`` would
    be a NaN in the gradient.
- * ``ssd_chunk_bwd`` launches the backward kernels: per (batch, chunk,
-   head) one pass over query tiles for this head's ``dC`` and the row
-   terms of ``dcs``, one pass over key tiles for ``dx``, this head's
-   ``dB``, ``ddt`` and the column terms; then a reverse cumulative sum for
-   ``ddA`` and a sum of the heads' ``dB``, ``dC`` partials — deterministic,
-   no atomics, float32 on CUDA cores.
+ * ``ssd_chunk_bwd`` launches the backward kernels. A block owns (batch
+   and chunk, a 64-row tile, a group of 8 heads), so the products that do
+   not depend on the head — ``G = C B^T`` and those of the heads' summed
+   ``dG`` with ``B`` and ``C`` — run once per group, not once per head: a
+   query-tile pass (``dC``, the row terms of ``dcs``, the group's summed
+   ``dG`` per tile pair into scratch), a chunk-state pass, a key-tile pass
+   (``dx``, ``ddt``, the column terms, ``dB``); then a reverse cumulative
+   sum for ``ddA`` and a sum of the groups' ``dB``, ``dC`` partials —
+   deterministic, no atomics. Every product runs on the tensor cores
+   (``mma.sync`` m16n8k8) in split TF32: each float32 operand becomes
+   ``hi = tf32(v)`` and ``lo = tf32(v - hi)``, rounded to nearest, and the
+   float32 accumulator takes ``hi.hi + hi.lo + lo.hi``. Plain TF32 (10
+   mantissa bits) would take ~7x the element-wise limit the kernel is held
+   to (``2e-4 (|want| + max(RMS, 0.1))``); the split stays within float32's
+   rounding there (``tests/test_torch_ssd.py`` emulates both). It is
+   bound by operations: the least work three times over at the TF32
+   rate.
 """
 from __future__ import annotations
 
@@ -64,9 +75,11 @@ MAX_DIM = 128
 _SIGNATURES = {"ssd_chunk_launch": (
     [ctypes.c_void_p] * 7 + [ctypes.c_int64] * 5 + [ctypes.c_void_p],
     ctypes.c_int)}
-_BWD_SIGNATURES = {"ssd_chunk_bwd_launch": (
-    [ctypes.c_void_p] * 13 + [ctypes.c_int64] * 5 + [ctypes.c_void_p],
-    ctypes.c_int)}
+_BWD_SIGNATURES = {
+    "ssd_chunk_bwd_launch": (
+        [ctypes.c_void_p] * 13 + [ctypes.c_int64] * 5 + [ctypes.c_void_p],
+        ctypes.c_int),
+    "ssd_chunk_bwd_scratch": ([ctypes.c_int64] * 5, ctypes.c_int64)}
 
 
 def chunk_cumsum(dA: torch.Tensor) -> torch.Tensor:
@@ -203,9 +216,9 @@ def ssd_chunk_bwd(x: torch.Tensor, dA: torch.Tensor, dt: torch.Tensor,
     dx, ddA, ddt, dB, dC = (torch.empty_like(t) for t in (x, dA, dt, B, C))
     if x.numel() == 0 or n == 0:
         return tuple(t.zero_() for t in (dx, ddA, ddt, dB, dC))
-    scratch = torch.empty(2 * b * nc * h * l * n + 3 * b * nc * l * h,
-                          dtype=torch.float32, device=x.device)
     lib = build.load("ssd_chunk_bwd", _BWD_SIGNATURES)
+    scratch = torch.empty(lib.ssd_chunk_bwd_scratch(b * nc, l, h, p, n),
+                          dtype=torch.float32, device=x.device)
     with torch.cuda.device(x.device):
         err = lib.ssd_chunk_bwd_launch(
             x.data_ptr(), dA.data_ptr(), dt.data_ptr(), B.data_ptr(),

@@ -15,10 +15,21 @@ are not taken.
  * ``tiled_matmul_plain`` is ``a.float() @ b.float()`` cast back, for any
    shape and device (run it with TF32 off for float32 comparisons).
  * ``tiled_matmul`` launches ``csrc/tiled_matmul.cu`` for CUDA tensors and
-   takes the plain version only for CPU tensors, for any M, N, K. bf16
-   runs on the tensor cores through ``mma.sync`` with float32 accumulation
-   (a 128 x 128 output tile per block); float32 runs on CUDA cores in
-   float32, without TF32. It is bound by operations: ``2 M N K`` flops.
+   takes the plain version only for CPU tensors, for any M, N, K, by one
+   of three routes that ``route`` picks from dtype, shape and pointer
+   alignment before the launch (a route is never a retry after a failure):
+
+   - ``"tma"``: bf16 with both pointers 16-byte aligned and K and N
+     multiples of 8, so that every row of ``a`` and ``b`` starts on 16
+     bytes, as a TMA tensor map needs. 128 x 256 output tiles, a 4-stage
+     ring of 64-deep K steps filled by TMA, ``wgmma`` on two consumer
+     warpgroups; boxes past the edges load as zeros.
+   - ``"mma_sync"``: any other bf16 input, through ``mma.sync`` with a
+     128 x 128 tile per block.
+   - ``"float32"``: CUDA cores in float32, without TF32.
+
+   It is bound by operations: ``2 M N K`` flops. ``tiled_matmul.launches``
+   counts launches, ``tiled_matmul.routes`` counts them by route.
 """
 from __future__ import annotations
 
@@ -28,7 +39,9 @@ import torch
 
 from repro_torch.kernels import build
 
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPES = (torch.float32, torch.bfloat16)
+# the launcher's code of each route
+ROUTES = {"float32": 0, "mma_sync": 1, "tma": 2}
 
 _SIGNATURES = {"tiled_matmul_launch": (
     [ctypes.c_void_p] * 3 + [ctypes.c_int64] * 3 + [ctypes.c_int]
@@ -57,11 +70,25 @@ def _check(a: torch.Tensor, b: torch.Tensor) -> None:
         raise ValueError(f"b is on {b.device}, a on {a.device}")
 
 
+def route(a: torch.Tensor, b: torch.Tensor) -> str:
+    """The kernel route for ``a @ b`` (inputs that ``_check`` takes): a
+    pure function of dtype, shape, strides and pointer alignment, on any
+    device. ``"tma"`` needs every row of ``a`` and ``b`` to start on 16
+    bytes: aligned base pointers and row strides (K and N elements) that
+    are multiples of 8 bf16 values."""
+    if a.dtype == torch.float32:
+        return "float32"
+    rows_16 = all(x.stride(0) * x.element_size() % 16 == 0
+                  and x.data_ptr() % 16 == 0 for x in (a, b))
+    return "tma" if rows_16 else "mma_sync"
+
+
 def tiled_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """(M, K) @ (K, N) -> (M, N) in the input dtype, float32-accumulated.
 
-    CUDA tensors launch the hand-written kernel on the current stream (and
-    add one to ``tiled_matmul.launches``); CPU tensors run the plain
+    CUDA tensors launch the hand-written kernel by ``route``'s route on the
+    current stream (and add one to ``tiled_matmul.launches`` and to that
+    route's count in ``tiled_matmul.routes``); CPU tensors run the plain
     version. Anything else raises."""
     _check(a, b)
     if a.device.type == "cpu":
@@ -75,14 +102,17 @@ def tiled_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         return c
     if K == 0:
         return c.zero_()
+    way = route(a, b)
     lib = build.load("tiled_matmul", _SIGNATURES)
     with torch.cuda.device(a.device):
         err = lib.tiled_matmul_launch(
-            a.data_ptr(), b.data_ptr(), c.data_ptr(), M, N, K,
-            _DTYPES[a.dtype], torch.cuda.current_stream().cuda_stream)
-    build.check(lib, err, "tiled_matmul")
+            a.data_ptr(), b.data_ptr(), c.data_ptr(), M, N, K, ROUTES[way],
+            torch.cuda.current_stream().cuda_stream)
+    build.check(lib, err, f"tiled_matmul ({way})")
     tiled_matmul.launches += 1
+    tiled_matmul.routes[way] += 1
     return c
 
 
 tiled_matmul.launches = 0
+tiled_matmul.routes = dict.fromkeys(ROUTES, 0)

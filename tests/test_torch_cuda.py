@@ -21,8 +21,9 @@ chunk meets its plain version within rtol 2e-4, atol 1e-4
 (``tests/test_kernels.py``'s tolerance), its backward element by element
 within 2e-4 (|want| + max(RMS, 0.1)).
 The tiled matmul meets its plain version within ``tests/test_kernels.py``'s
-1e-3 (float32) and 3e-2 (bf16). Float32 comparisons run with TF32 off for
-matrix products and cuDNN.
+1e-3 (float32) and 3e-2 (bf16), by the route its wrapper picks (bf16
+through TMA and wgmma where rows are 16-byte multiples, else mma.sync).
+Float32 comparisons run with TF32 off for matrix products and cuDNN.
 """
 import dataclasses
 
@@ -344,10 +345,12 @@ def test_cuda_tiled_matmul_matches_plain(hopper, M, K, N, dtype):
     gen = torch.Generator(device=hopper).manual_seed(M + K + N)
     a = torch.randn((M, K), generator=gen, device=hopper).to(dtype)
     b = torch.randn((K, N), generator=gen, device=hopper).to(dtype)
-    n0 = K5.tiled_matmul.launches
+    way = K5.route(a, b)
+    n0, r0 = K5.tiled_matmul.launches, K5.tiled_matmul.routes[way]
     got = K5.tiled_matmul(a, b)
     torch.cuda.synchronize()
     assert K5.tiled_matmul.launches == n0 + 1 and got.dtype == dtype
+    assert K5.tiled_matmul.routes[way] == r0 + 1
     tol = 1e-3 if dtype == torch.float32 else 3e-2
     torch.testing.assert_close(got.float(), K5.tiled_matmul_plain(a, b).float(),
                                rtol=tol, atol=tol)

@@ -75,3 +75,24 @@ def test_inputs_the_kernel_refuses_raise():
         K5.tiled_matmul(a, b.to(torch.bfloat16))
     with pytest.raises(ValueError, match="contiguous"):
         K5.tiled_matmul(a, b.T.contiguous().T)
+
+
+
+@pytest.mark.parametrize("m,k,n,offset,dtype,want", [
+    (16384, 2048, 8192, 0, torch.bfloat16, "tma"),   # the up-projection
+    (1000, 776, 1528, 0, torch.bfloat16, "tma"),     # no tile multiples
+    (64, 8, 8, 0, torch.bfloat16, "tma"),
+    (1000, 777, 1531, 0, torch.bfloat16, "mma_sync"),  # rows not 16 B
+    (16, 8, 12, 0, torch.bfloat16, "mma_sync"),      # b's rows: 24 bytes
+    (16, 12, 8, 0, torch.bfloat16, "mma_sync"),      # a's rows: 24 bytes
+    (16, 8, 8, 1, torch.bfloat16, "mma_sync"),       # a's base off 16 B
+    (1000, 776, 1528, 0, torch.float32, "float32"),
+    (1000, 777, 1531, 0, torch.float32, "float32")])
+def test_route_is_a_rule_of_dtype_shape_and_alignment(m, k, n, offset, dtype,
+                                                      want):
+    """The wrapper picks the kernel's route before the launch, from the
+    inputs alone: TMA needs every row of a and b to start on 16 bytes.
+    ``offset`` starts ``a`` that many values into its storage."""
+    a = torch.empty(m * k + offset, dtype=dtype)[offset:].view(m, k)
+    b = torch.empty((k, n), dtype=dtype)
+    assert K5.route(a, b) == want

@@ -222,3 +222,80 @@ def test_ssm_decode_step_matches_the_reference_block():
     for name in ("conv", "ssm"):
         np.testing.assert_allclose(tc[name].numpy(), np.asarray(jc[name]),
                                    **TOL)
+
+
+def _tf32(t):
+    """``t`` rounded to nearest, ties away from zero, at TF32's 10 mantissa
+    bits, as ``cvt.rna.tf32.f32`` rounds it."""
+    return ((t.contiguous().view(torch.int32) + 0x1000) & -0x2000).view(
+        torch.float32)
+
+
+def _tensor_core_bwd(x, dA, dt, B, C, dy, dst, split):
+    """``ssd_chunk_bwd_plain`` with every matrix product taken as the CUDA
+    backward takes it on the tensor cores: operands rounded to TF32 (plain)
+    or split into hi = tf32(v) and lo = tf32(v - hi) with hi.hi + hi.lo +
+    lo.hi summed (``split``); the heads' dG summed before its products with
+    B and C; the element-wise terms in float32."""
+    def mm(spec, a, b):
+        ah, bh = _tf32(a), _tf32(b)
+        terms = [(ah, bh)]
+        if split:
+            terms += [(ah, _tf32(b - bh)), (_tf32(a - ah), bh)]
+        return sum(torch.einsum(spec, u.double(), v.double())
+                   for u, v in terms).float()
+
+    l = x.shape[2]
+    cs = K4.chunk_cumsum(dA)
+    seg = cs[:, :, :, None, :] - cs[:, :, None, :, :]
+    causal = torch.ones(l, l, dtype=torch.bool).tril()[None, None, :, :, None]
+    L = torch.exp(seg.masked_fill(~causal, 0.0)).masked_fill(~causal, 0.0)
+    G = mm("bcin,bcjn->bcij", C, B)[..., None]
+    dtj = dt[:, :, None, :, :]
+    M = G * L * dtj
+    dM = mm("bcihp,bcjhp->bcijh", dy, x) * causal
+    dGs = (dM * L * dtj).sum(dim=-1)
+    E = dM * M
+    dx = mm("bcijh,bcihp->bcjhp", M, dy)
+    dC = mm("bcij,bcjn->bcin", dGs, B)
+    dB = mm("bcij,bcin->bcjn", dGs, C)
+    ddt = (dM * G * L).sum(dim=2)
+    dcs = E.sum(dim=3) - E.sum(dim=2)
+    decay = torch.exp(cs[:, :, -1:, :] - cs)
+    w = decay * dt
+    xd = mm("bcjhp,bchnp->bcjhn", x, dst)
+    bd = mm("bcjn,bchnp->bcjhp", B, dst)
+    dw = torch.einsum("bcjn,bcjhn->bcjh", B, xd)
+    dx = dx + w[..., None] * bd
+    dB = dB + torch.einsum("bcjh,bcjhn->bcjn", w, xd)
+    ddt = ddt + decay * dw
+    dcs = dcs - w * dw
+    dcs[:, :, -1] += (w * dw).sum(dim=2)
+    ddA = torch.flip(torch.cumsum(torch.flip(dcs.double(), [2]), dim=2),
+                     [2]).float()
+    return dx, ddA, ddt, dB, dC
+
+
+@pytest.mark.parametrize("split,lo,hi", [(True, 0.0, 0.1),
+                                         (False, 1.0, float("inf"))])
+def test_split_tf32_products_meet_the_backward_rule(split, lo, hi):
+    """The CUDA backward runs its products on the tensor cores in split
+    TF32 and is held to 2e-4 (|want| + max(RMS, 0.1)) element by element
+    (``tests/test_torch_cuda.py``). At a full-width chunk with |cs| in the
+    hundreds (``scale`` 3), the split's roundings take under 0.1 of that
+    limit; plain TF32's take more than all of it, which is why the kernel
+    splits."""
+    x, dt, A, B, C = _ssd_case(5, b=1, nc=2, l=256, h=4, p=64, n=64)
+    rng = np.random.default_rng(6)
+    dy = rng.standard_normal(x.shape).astype(np.float32)
+    dst = rng.standard_normal((1, 2, 4, 64, 64)).astype(np.float32)
+    args = [torch.from_numpy(a) for a in (x, (dt * A * 3.0).astype(np.float32),
+                                          dt, B, C, dy, dst)]
+    got = _tensor_core_bwd(*args, split=split)
+    want = K4.ssd_chunk_bwd_plain(*args)
+    share = 0.0
+    for g, w in zip(got, want):
+        scale = max(float(w.square().mean().sqrt()), 0.1)
+        share = max(share, float(((g - w).abs()
+                                  / (2e-4 * (w.abs() + scale))).max()))
+    assert lo < share < hi, share
