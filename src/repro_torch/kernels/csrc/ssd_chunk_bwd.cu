@@ -73,8 +73,14 @@ namespace {
 
 constexpr int kT = 64;               // rows per tile (query and key)
 constexpr int kLDT = kT + 4;         // padded row of a 64 x 64 tile
-constexpr int kThreads = 256;        // 8 warps
-constexpr int kGroup = 8;            // heads per block: one per warp's scan
+// 16 warps: the passes' shared memory admits one block per SM, where 8
+// warps left the SM waiting on loads and barriers (PERF.md, PR 15)
+constexpr int kThreads = 512;
+// a warp owns 16 rows and every kCG-th 8-column tile of a 64-row output
+constexpr int kCG = kThreads / 128;
+constexpr int kNT = 8 / kCG;         // its tiles of a 64-wide output
+constexpr int kNTW = 16 / kCG;       // and of one up to 128 wide
+constexpr int kGroup = 8;            // heads per block, one scan a warp
 constexpr int kMaxL = 256;
 constexpr int kMaxDim = 128;
 
@@ -95,11 +101,11 @@ struct View {
 };
 
 // One warp's share of a 64-row product C(64 x N) += A(64 x K) B(K x N), K
-// and N multiples of 8: rows row0 .. row0 + 15 and the 8-column tiles 2 j +
-// half (j < NT) that lie below N, in split TF32.
+// and N multiples of 8: rows row0 .. row0 + 15 and the 8-column tiles
+// kCG j + cg (j < NT) that lie below N, in split TF32.
 template <int NT>
 __device__ __forceinline__ void warp_mma(float (&acc)[NT][4], View A, View B,
-                                         int row0, int half, int K, int N) {
+                                         int row0, int cg, int K, int N) {
   const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
   for (int k = 0; k < K; k += 8) {
     uint32_t ah[4], al[4];
@@ -109,7 +115,7 @@ __device__ __forceinline__ void warp_mma(float (&acc)[NT][4], View A, View B,
     hopper::split_tf32(A.at(row0 + g + 8, k + t + 4), ah[3], al[3]);
 #pragma unroll
     for (int j = 0; j < NT; ++j) {
-      const int col = 8 * (2 * j + half);
+      const int col = 8 * (kCG * j + cg);
       if (col >= N) break;
       uint32_t bh[2], bl[2];
       hopper::split_tf32(B.at(k + t, col + g), bh[0], bl[0]);
@@ -132,11 +138,11 @@ __device__ __forceinline__ void zero(float (&acc)[NT][4]) {
 // the (row, column) of accumulator element e of 8-column tile j, in a tile
 // whose warp rows start at row0
 struct Frag {
-  int row0, half, g, t;
+  int row0, cg, g, t;
   __device__ __forceinline__ Frag() {
     const int w = threadIdx.x >> 5, lane = threadIdx.x & 31;
     row0 = 16 * (w & 3);
-    half = w >> 2;
+    cg = w >> 2;
     g = lane >> 2;
     t = lane & 3;
   }
@@ -144,7 +150,7 @@ struct Frag {
     return row0 + g + 8 * (e >> 1);
   }
   __device__ __forceinline__ int col(int j, int e) const {
-    return 8 * (2 * j + half) + 2 * t + (e & 1);
+    return 8 * (kCG * j + cg) + 2 * t + (e & 1);
   }
 };
 
@@ -229,7 +235,7 @@ __device__ __forceinline__ float column_sum(float v) {
 __host__ __device__ inline int pairs(int nt) { return nt * (nt + 1) / 2; }
 
 __host__ __device__ inline size_t query_smem_floats(const Dims& d, int stages) {
-  return 2 * kGroup * kMaxL + 2 * kGroup * kT + 2 * (size_t)kT * d.ldn +
+  return 2 * kGroup * kMaxL + kCG * kGroup * kT + 2 * (size_t)kT * d.ldn +
          (size_t)kT * kLDT + (size_t)stages * 2 * kT * d.ldp;
 }
 
@@ -244,8 +250,8 @@ query_pass(const float* __restrict__ x, const float* __restrict__ dA,
   extern __shared__ float4 smem4[];
   float* cs = reinterpret_cast<float*>(smem4);  // [kGroup][kMaxL]
   float* dts = cs + kGroup * kMaxL;              // [kGroup][kMaxL]
-  float* rowE = dts + kGroup * kMaxL;            // [2][kGroup][kT]
-  float* Ci = rowE + 2 * kGroup * kT;            // [kT][ldn]
+  float* rowE = dts + kGroup * kMaxL;            // [kCG][kGroup][kT]
+  float* Ci = rowE + kCG * kGroup * kT;            // [kT][ldn]
   float* Bj = Ci + kT * dm.ldn;                  // [kT][ldn]
   float* Dg = Bj + kT * dm.ldn;                  // [kT][kLDT]
   float* ring = Dg + kT * kLDT;                  // stages x (dy, x)
@@ -263,7 +269,7 @@ query_pass(const float* __restrict__ x, const float* __restrict__ dA,
   const int stage = 2 * kT * dm.ldp;
 
   group_prefix(dA, dt, bc, g0, ng, dm, cs, dts);
-  for (int e = threadIdx.x; e < 2 * kGroup * kT; e += kThreads) rowE[e] = 0.f;
+  for (int e = threadIdx.x; e < kCG * kGroup * kT; e += kThreads) rowE[e] = 0.f;
   stage_rows(Ci, C + bc * l * n, i0, l, n, n, dm.np, dm.ldn, false, false);
 
   // step s: key tile s / ng, head s % ng; its dy_i and x_j into the ring
@@ -279,17 +285,17 @@ query_pass(const float* __restrict__ x, const float* __restrict__ dA,
   issue(0);
 
   const Frag f;
-  float dC[8][4];
+  float dC[kNTW][4];
   zero(dC);
   for (int jt = 0; jt <= it; ++jt) {
     const int j0 = jt * kT;
     __syncthreads();                 // the last dC product is done
     stage_rows(Bj, Bb, j0, l, n, n, dm.np, dm.ldn, false, false);
     __syncthreads();
-    float G[4][4], dGs[4][4];
+    float G[kNT][4], dGs[kNT][4];
     zero(G);
     zero(dGs);
-    warp_mma(G, View{Ci, dm.ldn, 1}, View{Bj, 1, dm.ldn}, f.row0, f.half,
+    warp_mma(G, View{Ci, dm.ldn, 1}, View{Bj, 1, dm.ldn}, f.row0, f.cg,
              dm.np, kT);
     for (int hq = 0; hq < ng; ++hq) {
       const int s = jt * ng + hq;
@@ -302,15 +308,15 @@ query_pass(const float* __restrict__ x, const float* __restrict__ dA,
       }
       __syncthreads();
       const float* sdy = ring + (s % stages) * stage;
-      float dM[4][4];
+      float dM[kNT][4];
       zero(dM);
       warp_mma(dM, View{sdy, dm.ldp, 1}, View{sdy + kT * dm.ldp, 1, dm.ldp},
-               f.row0, f.half, dm.pp, kT);
+               f.row0, f.cg, dm.pp, kT);
       const float* csh = cs + hq * kMaxL;
       const float* dth = dts + hq * kMaxL;
       float e2[2] = {0.f, 0.f};      // rows g and g + 8
 #pragma unroll
-      for (int j = 0; j < 4; ++j)
+      for (int j = 0; j < kNT; ++j)
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
           const int i = i0 + f.row(e), jj = j0 + f.col(j, e);
@@ -322,7 +328,7 @@ query_pass(const float* __restrict__ x, const float* __restrict__ dA,
 #pragma unroll
       for (int u = 0; u < 2; ++u) {
         const float v = quad_sum(e2[u]);
-        if (f.t == 0) rowE[(f.half * kGroup + hq) * kT + f.row0 + f.g + 8 * u] += v;
+        if (f.t == 0) rowE[(f.cg * kGroup + hq) * kT + f.row0 + f.g + 8 * u] += v;
       }
       __syncthreads();               // this step's stage is consumed
       if (next && stages == 1) issue(s + 1);
@@ -331,7 +337,7 @@ query_pass(const float* __restrict__ x, const float* __restrict__ dA,
     float* gt = dGt + ((bc * dm.groups + grp) * pairs(dm.nt) + pairs(it) + jt) *
                           (int64_t)(kT * kT);
 #pragma unroll
-    for (int j = 0; j < 4; ++j)
+    for (int j = 0; j < kNT; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int r = f.row(e), c = f.col(j, e);
@@ -339,7 +345,7 @@ query_pass(const float* __restrict__ x, const float* __restrict__ dA,
         gt[c * kT + r] = dGs[j][e];
       }
     __syncthreads();
-    warp_mma(dC, View{Dg, kLDT, 1}, View{Bj, dm.ldn, 1}, f.row0, f.half, kT,
+    warp_mma(dC, View{Dg, kLDT, 1}, View{Bj, dm.ldn, 1}, f.row0, f.cg, kT,
              dm.np);
   }
 
@@ -347,12 +353,15 @@ query_pass(const float* __restrict__ x, const float* __restrict__ dA,
   for (int e = threadIdx.x; e < ng * kT; e += kThreads) {
     const int hq = e / kT, r = e % kT, i = i0 + r;
     if (i < l)
-      dcs_row[(bc * l + i) * h + g0 + hq] =
-          rowE[hq * kT + r] + rowE[(kGroup + hq) * kT + r];
+    {
+      float e2 = 0.f;
+      for (int c = 0; c < kCG; ++c) e2 += rowE[(c * kGroup + hq) * kT + r];
+      dcs_row[(bc * l + i) * h + g0 + hq] = e2;
+    }
   }
   float* out = dCg + (bc * dm.groups + grp) * (int64_t)l * n;
 #pragma unroll
-  for (int j = 0; j < 8; ++j)
+  for (int j = 0; j < kNTW; ++j)
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
       const int i = i0 + f.row(e), c = f.col(j, e);
@@ -361,7 +370,7 @@ query_pass(const float* __restrict__ x, const float* __restrict__ dA,
 }
 
 __host__ __device__ inline size_t state_smem_floats(const Dims& d) {
-  return 2 * kGroup * kMaxL + 2 * kT + (size_t)kT * d.ldn +
+  return 2 * kGroup * kMaxL + kCG * kT + (size_t)kT * d.ldn +
          (size_t)kT * d.ldp + (size_t)d.np * d.ldp;
 }
 
@@ -377,8 +386,8 @@ state_pass(const float* __restrict__ x, const float* __restrict__ dA,
   extern __shared__ float4 smem4[];
   float* cs = reinterpret_cast<float*>(smem4);  // [kGroup][kMaxL]
   float* dts = cs + kGroup * kMaxL;
-  float* dwp = dts + kGroup * kMaxL;             // [2][kT]
-  float* Bj = dwp + 2 * kT;                      // [kT][ldn]
+  float* dwp = dts + kGroup * kMaxL;             // [kCG][kT]
+  float* Bj = dwp + kCG * kT;                    // [kT][ldn]
   float* X = Bj + kT * dm.ldn;                   // [kT][ldp]
   float* DS = X + kT * dm.ldp;                   // [np][ldp]
 
@@ -392,7 +401,7 @@ state_pass(const float* __restrict__ x, const float* __restrict__ dA,
   group_prefix(dA, dt, bc, g0, ng, dm, cs, dts);
   stage_rows(Bj, B + bc * l * n, j0, l, n, n, dm.np, dm.ldn, false, false);
   const Frag f;
-  float dBs[8][4];
+  float dBs[kNTW][4];
   zero(dBs);
   for (int hq = 0; hq < ng; ++hq) {
     const int hh = g0 + hq;
@@ -405,19 +414,19 @@ state_pass(const float* __restrict__ x, const float* __restrict__ dA,
       DS[k * dm.ldp + c] = (k < n && c < p) ? dsb[(int64_t)k * p + c] : 0.f;
     }
     __syncthreads();
-    float xd[8][4], bd[8][4];        // (dst x_j)[k] and (dst^T B_j)[c]
+    float xd[kNTW][4], bd[kNTW][4];        // (dst x_j)[k] and (dst^T B_j)[c]
     zero(xd);
     zero(bd);
-    warp_mma(xd, View{X, dm.ldp, 1}, View{DS, 1, dm.ldp}, f.row0, f.half,
+    warp_mma(xd, View{X, dm.ldp, 1}, View{DS, 1, dm.ldp}, f.row0, f.cg,
              dm.pp, dm.np);
-    warp_mma(bd, View{Bj, dm.ldn, 1}, View{DS, dm.ldp, 1}, f.row0, f.half,
+    warp_mma(bd, View{Bj, dm.ldn, 1}, View{DS, dm.ldp, 1}, f.row0, f.cg,
              dm.np, dm.pp);
     const float* csh = cs + hq * kMaxL;
     const float* dth = dts + hq * kMaxL;
     const float cs_last = csh[l - 1];
     float dw2[2] = {0.f, 0.f};
 #pragma unroll
-    for (int j = 0; j < 8; ++j)
+    for (int j = 0; j < kNTW; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int r = f.row(e), c = f.col(j, e);
@@ -427,10 +436,10 @@ state_pass(const float* __restrict__ x, const float* __restrict__ dA,
 #pragma unroll
     for (int u = 0; u < 2; ++u) {
       const float v = quad_sum(dw2[u]);
-      if (f.t == 0) dwp[f.half * kT + f.row0 + f.g + 8 * u] = v;
+      if (f.t == 0) dwp[f.cg * kT + f.row0 + f.g + 8 * u] = v;
     }
 #pragma unroll
-    for (int j = 0; j < 8; ++j)
+    for (int j = 0; j < kNTW; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int r = f.row(e), c = f.col(j, e), jj = j0 + r;
@@ -444,7 +453,8 @@ state_pass(const float* __restrict__ x, const float* __restrict__ dA,
       const int jj = j0 + threadIdx.x;
       if (jj < l) {
         const float decay = expf(cs_last - csh[jj]), w = decay * dth[jj];
-        const float dw = dwp[threadIdx.x] + dwp[kT + threadIdx.x];
+        float dw = 0.f;
+        for (int c = 0; c < kCG; ++c) dw += dwp[c * kT + threadIdx.x];
         const int64_t o = (bc * l + jj) * h + hh;
         ddt[o] = decay * dw;
         dcs_col[o] = -w * dw;
@@ -454,7 +464,7 @@ state_pass(const float* __restrict__ x, const float* __restrict__ dA,
   }
   float* out = dBg + (bc * dm.groups + grp) * (int64_t)l * n;
 #pragma unroll
-  for (int j = 0; j < 8; ++j)
+  for (int j = 0; j < kNTW; ++j)
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
       const int jj = j0 + f.row(e), c = f.col(j, e);
@@ -506,13 +516,13 @@ key_pass(const float* __restrict__ x, const float* __restrict__ dA,
     __syncthreads();
     stage_rows(ring, Cb, j0 + q * kT, l, n, n, dm.np, dm.ldn, false, false);
     __syncthreads();
-    float G[4][4];
+    float G[kNT][4];
     zero(G);
-    warp_mma(G, View{ring, dm.ldn, 1}, View{P, 1, dm.ldn}, f.row0, f.half,
+    warp_mma(G, View{ring, dm.ldn, 1}, View{P, 1, dm.ldn}, f.row0, f.cg,
              dm.np, kT);
     float* Gq = Gall + q * kT * kLDT;
 #pragma unroll
-    for (int j = 0; j < 4; ++j)
+    for (int j = 0; j < kNT; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) Gq[f.row(e) * kLDT + f.col(j, e)] = G[j][e];
   }
@@ -534,10 +544,10 @@ key_pass(const float* __restrict__ x, const float* __restrict__ dA,
     __syncthreads();                 // the last head's reads of P are done
     stage_rows(P, x + bc * l * hs + (int64_t)hh * p, j0, l, hs, p, dm.pp,
                dm.ldp, false, false);
-    float dxa[8][4], cP[4][2], cE[4][2];
+    float dxa[kNTW][4], cP[kNT][2], cE[kNT][2];
     zero(dxa);
 #pragma unroll
-    for (int j = 0; j < 4; ++j) cP[j][0] = cP[j][1] = cE[j][0] = cE[j][1] = 0.f;
+    for (int j = 0; j < kNT; ++j) cP[j][0] = cP[j][1] = cE[j][0] = cE[j][1] = 0.f;
     for (int q = 0; q < nq; ++q) {
       const int s = hq * nq + q;
       const bool next = s + 1 < steps;
@@ -549,14 +559,14 @@ key_pass(const float* __restrict__ x, const float* __restrict__ dA,
       }
       __syncthreads();
       const float* sdy = ring + (s % stages) * stage;
-      float dM[4][4];
+      float dM[kNT][4];
       zero(dM);
-      warp_mma(dM, View{sdy, dm.ldp, 1}, View{P, 1, dm.ldp}, f.row0, f.half,
+      warp_mma(dM, View{sdy, dm.ldp, 1}, View{P, 1, dm.ldp}, f.row0, f.cg,
                dm.pp, kT);
       const float* Gq = Gall + q * kT * kLDT;
       const int i0 = j0 + q * kT;
 #pragma unroll
-      for (int j = 0; j < 4; ++j)
+      for (int j = 0; j < kNT; ++j)
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
           const int r = f.row(e), c = f.col(j, e);
@@ -569,14 +579,14 @@ key_pass(const float* __restrict__ x, const float* __restrict__ dA,
           Ms[c * kLDT + r] = M;
         }
       __syncthreads();
-      warp_mma(dxa, View{Ms, kLDT, 1}, View{sdy, dm.ldp, 1}, f.row0, f.half,
+      warp_mma(dxa, View{Ms, kLDT, 1}, View{sdy, dm.ldp, 1}, f.row0, f.cg,
                kT, dm.pp);
       __syncthreads();               // Ms and this step's stage are consumed
       if (next && stages == 1) issue(s + 1);
     }
     // column sums: over the warp's rows, then over the 4 row strips
 #pragma unroll
-    for (int j = 0; j < 4; ++j)
+    for (int j = 0; j < kNT; ++j)
 #pragma unroll
       for (int u = 0; u < 2; ++u) {
         const float vp = column_sum(cP[j][u]), ve = column_sum(cE[j][u]);
@@ -594,7 +604,7 @@ key_pass(const float* __restrict__ x, const float* __restrict__ dA,
                     colS[7 * kT + c];
     }
 #pragma unroll
-    for (int j = 0; j < 8; ++j)
+    for (int j = 0; j < kNTW; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int jj = j0 + f.row(e), c = f.col(j, e);
@@ -604,7 +614,7 @@ key_pass(const float* __restrict__ x, const float* __restrict__ dA,
   }
 
   // dB_j += sum_i (sum_h dG_ij)^T C_i, from pass 1's transposed sums
-  float dB[8][4];
+  float dB[kNTW][4];
   zero(dB);
   for (int q = 0; q < nq; ++q) {
     const int it = jt + q;
@@ -615,12 +625,12 @@ key_pass(const float* __restrict__ x, const float* __restrict__ dA,
       Ms[(e / kT) * kLDT + e % kT] = gt[e];
     stage_rows(ring, Cb, it * kT, l, n, n, dm.np, dm.ldn, false, false);
     __syncthreads();
-    warp_mma(dB, View{Ms, kLDT, 1}, View{ring, dm.ldn, 1}, f.row0, f.half,
+    warp_mma(dB, View{Ms, kLDT, 1}, View{ring, dm.ldn, 1}, f.row0, f.cg,
              kT, dm.np);
   }
   float* out = dBg + (bc * dm.groups + grp) * (int64_t)l * n;
 #pragma unroll
-  for (int j = 0; j < 8; ++j)
+  for (int j = 0; j < kNTW; ++j)
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
       const int jj = j0 + f.row(e), c = f.col(j, e);

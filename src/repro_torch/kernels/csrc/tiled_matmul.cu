@@ -45,7 +45,7 @@ namespace {
 
 constexpr int kThreads = 256;
 
-// ---- bf16 on the tensor cores ---------------------------------------------
+// ---- bf16 through mma.sync ------------------------------------------------
 
 constexpr int kBM = 128, kBN = 128, kBK = 32;
 constexpr int kLDA = kBK + 8;        // padded rows, in bf16 values
