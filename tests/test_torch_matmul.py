@@ -6,7 +6,9 @@ kernel in interpret mode at ``tests/test_kernels.py``'s shapes and
 tolerances (1e-3 in float32, 3e-2 in bf16), and to the reference oracle
 (``ref.py::matmul_ref``) at shapes the TPU kernel's 128 blocks do not
 divide, which the port takes. Inputs are made with NumPy from a seed. The
-CUDA kernel is held to the plain version on the card by
+rule by which the wrapper picks a CUDA route (TMA + wgmma, mma.sync or
+float32) is a function of the inputs alone and is pinned here. The CUDA
+kernel is held to the plain version on the card by
 ``tests/test_torch_cuda.py`` and ``chip_smoke.py``.
 """
 import jax.numpy as jnp
