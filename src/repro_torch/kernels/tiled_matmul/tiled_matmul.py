@@ -21,7 +21,8 @@ are not taken.
 
    - ``"tma"``: bf16 with both pointers 16-byte aligned and K and N
      multiples of 8, so that every row of ``a`` and ``b`` starts on 16
-     bytes, as a TMA tensor map needs. 128 x 256 output tiles, a 4-stage
+     bytes, as a TMA tensor map needs (the launcher refuses any other K
+     or N). 128 x 256 output tiles, a 4-stage
      ring of 64-deep K steps filled by TMA, ``wgmma`` on two consumer
      warpgroups; boxes past the edges load as zeros.
    - ``"mma_sync"``: any other bf16 input, through ``mma.sync`` with a
@@ -72,14 +73,16 @@ def _check(a: torch.Tensor, b: torch.Tensor) -> None:
 
 def route(a: torch.Tensor, b: torch.Tensor) -> str:
     """The kernel route for ``a @ b`` (inputs that ``_check`` takes): a
-    pure function of dtype, shape, strides and pointer alignment, on any
-    device. ``"tma"`` needs every row of ``a`` and ``b`` to start on 16
-    bytes: aligned base pointers and row strides (K and N elements) that
-    are multiples of 8 bf16 values."""
+    pure function of dtype, shape and pointer alignment, on any device.
+    ``"tma"`` needs every row of ``a`` and ``b`` to start on 16 bytes: the
+    inputs are contiguous, so aligned base pointers and K and N multiples
+    of 8 bf16 values. A one-row ``a`` counts as contiguous whatever its
+    row stride, so the rule reads the shape, never the strides."""
     if a.dtype == torch.float32:
         return "float32"
-    rows_16 = all(x.stride(0) * x.element_size() % 16 == 0
-                  and x.data_ptr() % 16 == 0 for x in (a, b))
+    K, N = b.shape
+    rows_16 = (K % 8 == 0 and N % 8 == 0
+               and all(x.data_ptr() % 16 == 0 for x in (a, b)))
     return "tma" if rows_16 else "mma_sync"
 
 

@@ -339,11 +339,17 @@ def test_cuda_forward_outputs_carry_a_gradient(hopper):
                                    (128, 256, 512), (100, 37, 53),
                                    (1, 1, 1), (257, 300, 129),
                                    (512, 2048, 1024), (1000, 776, 1528),
-                                   (64, 8, 8)])
+                                   (64, 8, 8), (1, (7, 8), 16)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_cuda_tiled_matmul_matches_plain(hopper, M, K, N, dtype):
+    """A ``K`` of (K, row) slices ``a`` from a buffer of rows ``row``
+    values long: the one-row (1, 7) case has stride (8, 1) and is
+    contiguous, and takes ``mma.sync`` in bf16."""
+    K, row = K if isinstance(K, tuple) else (K, K)
     gen = torch.Generator(device=hopper).manual_seed(M + K + N)
-    a = torch.randn((M, K), generator=gen, device=hopper).to(dtype)
+    a = torch.randn((M + 1, row), generator=gen, device=hopper)
+    a = a.to(dtype)[:M, :K]
+    assert a.is_contiguous()
     b = torch.randn((K, N), generator=gen, device=hopper).to(dtype)
     way = K5.route(a, b)
     n0, r0 = K5.tiled_matmul.launches, K5.tiled_matmul.routes[way]

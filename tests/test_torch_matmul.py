@@ -89,12 +89,18 @@ def test_inputs_the_kernel_refuses_raise():
     (16, 12, 8, 0, torch.bfloat16, "mma_sync"),      # a's rows: 24 bytes
     (16, 8, 8, 1, torch.bfloat16, "mma_sync"),       # a's base off 16 B
     (1000, 776, 1528, 0, torch.float32, "float32"),
-    (1000, 777, 1531, 0, torch.float32, "float32")])
+    (1000, 777, 1531, 0, torch.float32, "float32"),
+    # one row of 7 sliced from a (2, 8) buffer: stride (8, 1), contiguous
+    (1, (7, 8), 16, 0, torch.bfloat16, "mma_sync")])
 def test_route_is_a_rule_of_dtype_shape_and_alignment(m, k, n, offset, dtype,
                                                       want):
     """The wrapper picks the kernel's route before the launch, from the
     inputs alone: TMA needs every row of a and b to start on 16 bytes.
-    ``offset`` starts ``a`` that many values into its storage."""
-    a = torch.empty(m * k + offset, dtype=dtype)[offset:].view(m, k)
+    ``offset`` starts ``a`` that many values into its storage; a ``k`` of
+    (k, row) slices ``a`` from a buffer of rows ``row`` values long."""
+    k, row = k if isinstance(k, tuple) else (k, k)
+    a = torch.empty((m + 1) * row + offset, dtype=dtype)[offset:]
+    a = a.view(m + 1, row)[:m, :k]
+    assert a.is_contiguous()
     b = torch.empty((k, n), dtype=dtype)
     assert K5.route(a, b) == want
