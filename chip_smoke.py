@@ -60,7 +60,10 @@ kernel (K4) against their plain versions at the shapes of the
 windowed, ragged and D = 128 shapes, their backward kernels at the same
 shapes (K3's also in float32 at the main and the train shapes), and the
 tiled matmul (K5) at the up-projection's shape and at a ragged and an
-edge shape in both types, its bf16 checks with their per-row share.
+edge shape in both types, its bf16 checks with their per-row share,
+and K4's forward again at edge shapes (``SSD_CHECKS``: a partial last
+tile, head groups that are not full, a one-row chunk), each check with
+its share of ``SSD_TOL``'s ``allclose`` limit for y and the states.
 K3 (both ways) and K4's backward are compared element by element, each
 output's share of its limit beside its RMS (``ATTN_TOL``); K3 is timed
 at the main and the train shapes beside SDPA, whose share of the same
@@ -135,6 +138,12 @@ ATTN_SHAPE = (SERVE_BS, 32, SERVE_SEQ, 64)
 ATTN_CHECKS = ((1, 32, 1024, 64, 512), (2, 32, 300, 64, None),
                (1, 8, 300, 128, 100))
 SSD_SHAPE = (SERVE_BS, SERVE_SEQ // 256, 256, 64, 64, 64)
+# K4's forward is also checked where a grouped, tiled kernel has edges: a
+# partial last tile with p and n past 64 and not multiples of 8 and a head
+# group that is not full; a full chunk at n = 128 with 11 heads (a full
+# group and a partial one); a one-row chunk with p, n under 8
+SSD_CHECKS = ((1, 1, 100, 5, 100, 128), (1, 2, 256, 11, 64, 128),
+              (2, 1, 1, 3, 8, 4))
 # training: bs 4 x 512 tokens at full width; the cuda-vs-cpu step on a
 # 2-layer full-width copy; the interleaved trace's slack per batch
 TRAIN_BS, TRAIN_SEQ, TRAIN_STEPS = 4, 512, 3
@@ -179,7 +188,8 @@ ENGINE_KERNELS = ("maxplus_scan", "lane_sort")
 K3_FUNCTIONS = ("flash_attention_tc", "flash_attention_kernel",
                 "rowdot_kernel", "rowvec_tc", "dkdv_tc", "dkdv_kernel",
                 "dq_tc", "dq_kernel")
-# and of K4's backward (csrc/ssd_chunk_bwd.cu)
+# and of K4's forward (csrc/ssd_chunk.cu) and backward (ssd_chunk_bwd.cu)
+K4_FUNCTIONS = ("ssd_chunk_kernel",)
 K4_BWD_FUNCTIONS = ("query_pass", "state_pass", "key_pass",
                     "finish_dA_kernel", "group_sum_kernel")
 MODEL_KERNELS = ("flash_attention", "ssd_chunk")
@@ -458,18 +468,37 @@ def ssd_case(torch, shape, gen, dev):
     return x, (dt * A).contiguous(), dt, B, C
 
 
-def time_ssd(torch, K4, gen, dev, reps: int) -> dict:
-    b, nc, l, h, p, n = SSD_SHAPE
-    args = ssd_case(torch, SSD_SHAPE, gen, dev)
+def ssd_share(torch, got, want) -> float:
+    """The largest share of ``SSD_TOL``'s allclose limit, |got - want| /
+    (atol + rtol |want|), that any element takes (at most 1 to pass)."""
+    limit = SSD_TOL["atol"] + SSD_TOL["rtol"] * want.abs()
+    return float(((got - want).abs() / limit).max()) if got.numel() else 0.0
+
+
+def check_ssd(torch, K4, shape, gen, dev) -> tuple:
+    """K4's forward against its plain version at ``shape``: ``allclose``
+    within ``SSD_TOL`` for y and the states, each with its largest share
+    of that limit. Returns the inputs and the record."""
+    args = ssd_case(torch, shape, gen, dev)
     y, st = K4.ssd_chunk(*args)
     torch.cuda.synchronize()
     yp, stp = K4.ssd_chunk_plain(*args)
-    err = max(float((y - yp).abs().max()), float((st - stp).abs().max()))
+    err = {"y": float((y - yp).abs().max()),
+           "st": float((st - stp).abs().max())}
+    share = {"y": ssd_share(torch, y, yp), "st": ssd_share(torch, st, stp)}
     if not (torch.allclose(y, yp, **SSD_TOL)
             and torch.allclose(st, stp, **SSD_TOL)):
-        fail(f"ssd_chunk {SSD_SHAPE}: differs from the plain version by "
-             f"{err} (tolerance {SSD_TOL})")
-    del y, st, yp, stp
+        fail(f"ssd_chunk {shape}: differs from the plain version by {err} "
+             f"at most, {share} of the limit (tolerance {SSD_TOL})")
+    return args, {"shape": list(shape), "max_abs_err": max(err.values()),
+                  "max_abs_err_by_output": err, "limit_share": share}
+
+
+def time_ssd(torch, K4, gen, dev, reps: int) -> dict:
+    """K4's forward at the serve_interleaved forward's shape (checked and
+    timed), then checked at ``SSD_CHECKS``."""
+    b, nc, l, h, p, n = SSD_SHAPE
+    args, rec = check_ssd(torch, K4, SSD_SHAPE, gen, dev)
     ms = cuda_ms(torch, lambda: K4.ssd_chunk(*args), reps)
     plain_ms = cuda_ms(torch, lambda: K4.ssd_chunk_plain(*args), 2)
     # x, dA, dt, B, C read once, y and the states written once; the least
@@ -483,11 +512,15 @@ def time_ssd(torch, K4, gen, dev, reps: int) -> dict:
     b_ms, by, b32_ms = float32_bound(nbytes, ops)
     del args
     torch.cuda.empty_cache()
-    return {"shape": list(SSD_SHAPE), "dtype": "float32", "kernel_ms": ms,
+    checks = []
+    for shape in SSD_CHECKS:
+        _, check = check_ssd(torch, K4, shape, gen, dev)
+        checks.append(check)
+    return {**rec, "dtype": "float32", "kernel_ms": ms,
             "plain_ms": plain_ms, "library_ms": None,
             "library": "none: no single PyTorch call computes the SSD chunk",
             "bound_ms": b_ms, "bound_by": by, "bound_float32_ms": b32_ms,
-            "tflops": ops / ms / 1e9, "max_abs_err": err}
+            "tflops": ops / ms / 1e9, "checks": checks}
 
 
 def check_grads(torch, what: str, names, got, want, tol: float,
@@ -1044,7 +1077,8 @@ def profile_device(torch, fn) -> dict:
     that take longer to reduce than the step itself): the device's busy time
     (the sum of kernel time) against the wall, the number of kernels and
     copies it ran, K3's device time and kernels (forward and backward),
-    K4's backward's device time and kernels, the kernels with the most
+    K4's forward's and backward's device time and kernels, the kernels with
+    the most
     device time, and what the profiled call cost in all (``cost_s``, the
     reduction included)."""
     from torch.profiler import ProfilerActivity, profile
@@ -1069,6 +1103,7 @@ def profile_device(torch, fn) -> dict:
     rows.sort(key=lambda r: -r[1])
     busy = sum(us for _, us, _ in rows) / 1e6
     k3 = [(us, n) for k, us, n in rows if any(f in k for f in K3_FUNCTIONS)]
+    k4 = [(us, n) for k, us, n in rows if any(f in k for f in K4_FUNCTIONS)]
     k4b = [(us, n) for k, us, n in rows
            if any(f in k for f in K4_BWD_FUNCTIONS)]
     return {"wall_s": wall, "device_busy_s": busy,
@@ -1076,6 +1111,8 @@ def profile_device(torch, fn) -> dict:
             "device_ops": sum(n for _, _, n in rows),
             "k3_device_ms": sum(us for us, _ in k3) / 1e3,
             "k3_kernels": sum(n for _, n in k3),
+            "k4_device_ms": sum(us for us, _ in k4) / 1e3,
+            "k4_kernels": sum(n for _, n in k4),
             "k4_bwd_device_ms": sum(us for us, _ in k4b) / 1e3,
             "k4_bwd_kernels": sum(n for _, n in k4b),
             "top": [{"name": k[:120], "device_ms": us / 1e3, "count": n}

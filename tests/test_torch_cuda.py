@@ -218,7 +218,10 @@ def _ssd_inputs(shape, dev, seed):
 @pytest.mark.parametrize("shape", [(2, 2, 256, 8, 64, 64),     # full width
                                    (1, 3, 32, 16, 32, 16),     # reduced
                                    (1, 1, 100, 2, 100, 128),
-                                   (2, 1, 1, 3, 8, 4)])
+                                   (2, 1, 1, 3, 8, 4),
+                                   # h not a multiple of the head group
+                                   (1, 1, 100, 5, 100, 128),
+                                   (1, 2, 256, 11, 64, 128)])
 def test_cuda_ssd_chunk_matches_plain(hopper, shape):
     args = _ssd_inputs(shape, hopper, sum(shape))
     n0 = K4.ssd_chunk.launches
