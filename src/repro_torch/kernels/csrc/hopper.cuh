@@ -1,8 +1,9 @@
 // Hopper (sm_90a) building blocks shared by the tensor-core kernels
 // (flash_attention.cu, flash_attention_bwd.cu, tiled_matmul.cu,
-// ssd_chunk_bwd.cu): mbarriers, TMA tile loads, wgmma shared-memory
-// descriptors and the wgmma instructions those kernels issue, split-TF32
-// mma.sync and cp.async, and the host-side tensor maps.
+// ssd_chunk.cu, ssd_chunk_bwd.cu): mbarriers, TMA tile loads, wgmma
+// shared-memory descriptors and the wgmma instructions those kernels issue,
+// split-TF32 mma.sync, cp.async and named barriers, and the host-side
+// tensor maps.
 //
 // Tile layout: a bf16 tile of R rows (R a multiple of 64) and D columns
 // (D in {64, 128}) sits in shared memory as D / 64 column blocks of R rows
@@ -409,6 +410,14 @@ __device__ __forceinline__ void cp_async_commit() {
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// ---- named barriers ----------------------------------------------------------
+
+// wait until `count` threads (a multiple of 32) have reached barrier `id`
+// (1-15; __syncthreads is barrier 0)
+__device__ __forceinline__ void bar_sync(int id, int count) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
 }
 
 // ---- host -------------------------------------------------------------

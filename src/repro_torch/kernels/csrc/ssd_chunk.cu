@@ -2,29 +2,55 @@
 // kernel repro/kernels/ssd_scan/ssd_scan.py::ssd_chunk (body
 // _ssd_chunk_kernel).
 //
-// Per (batch*chunk bc, head hh), with cs the in-chunk cumulative sum of dA:
-//   y[i, :]  = sum_{j <= i} (C_i . B_j) exp(cs_i - cs_j) dt_j x[j, :]
-//   st[:, :] = sum_j B_j^T exp(cs_{l-1} - cs_j) dt_j x[j, :]
+// Per (batch*chunk bc, head hh), with cs the in-chunk cumulative sum of dA,
+// G_ij = C_i . B_j and L_ij = exp(cs_i - cs_j) for j <= i (0 above):
+//   y[i, :]  = sum_j M_ij x[j, :],   M_ij = G_ij L_ij dt_j
+//   st[:, :] = sum_j B_j^T w_j x[j, :],   w_j = exp(cs_{l-1} - cs_j) dt_j
 // Layouts (row-major, float32): x and y (bc, l, h, p); dA, dt (bc, l, h);
 // B, C (bc, l, n), one SSM group shared by every head; st (bc, h, n, p).
 //
-// Design: one block of 256 threads per (bc, head). It forms cs once in
-// shared memory (a warp scan, accumulated in double so it rounds like a
-// sequential sum), then walks 64-row query tiles i and, for each, the
-// 64-row key tiles j at or below the diagonal: C of tile i and B of tile j
-// are staged transposed, each thread forms 4 x 4 entries of the masked
-// M = (C B^T) o exp(segsum) o dt (exp taken only where j <= i: above the
-// diagonal the segment sum is positive and may overflow), and M times the
-// x tile accumulates 4 rows x p/16 columns of y in registers. A last pass
-// over the key tiles forms the chunk state from B scaled by
-// exp(cs_{l-1} - cs_j) dt_j. The TPU kernel kept the whole chunk in VMEM;
-// here the tiles keep shared memory at ~67 KB for l = 256, p = n = 64
-// (three blocks per SM), and any l <= 256, p, n <= 128 fit.
+// Design. G does not depend on the head, so a block owns (bc, one 64-row
+// tile, a group of kGroup = 8 heads) and forms G once for its group; its
+// 16 warps are 4 teams of 4, each warp one 16-row strip of the tile.
+//  - Query blocks, per (query tile i, group, bc), the heaviest tiles first:
+//    G_ij for each key tile j <= i, the teams sharing the 64 key columns,
+//    kept in shared memory in the mma accumulator's own layout (64 KB for
+//    four key tiles); the diagonal tile only up to each strip's last row.
+//    Then each team takes two of the group's heads: for each key tile, the
+//    warp turns its strip's G fragments into M (mask, exp, dt) in
+//    registers and multiplies by x_j, and writes its rows of y once.
+//  - State blocks, per (64 state rows, group, bc), after the query blocks
+//    of their (bc, group): B of the whole chunk in shared memory, w_j per
+//    head; each team accumulates st = (B o w)^T x over every key tile for
+//    its heads and writes it once. The state is a block of its own rather
+//    than the last query tile's work, so no block does both the longest
+//    y rows and the state; it reads x again (from L2) and B once.
+// Every product is a warp's mma.sync.m16n8k8 in split TF32: each float32
+// operand v is hi = tf32(v) (rounded to nearest, cvt.rna) and lo = tf32(v -
+// hi), and the float32 accumulator takes hi.hi + hi.lo + lo.hi. Plain TF32
+// would miss the 2e-4 / 1e-4 tolerance (tests/test_torch_ssd.py emulates
+// both). wgmma takes TF32 operands only K-major, and M x and (B o w)^T x
+// contract over the tile's rows; mma.sync reads its fragments from shared
+// memory at any index. Within each 8-wide step of a product a thread holds
+// the reduction indices 2t and 2t + 1 (t = lane % 4) of both operands, a
+// permutation of the instruction's t and t + 4 that leaves the sum as it
+// is: G's accumulator fragment is then M's A fragment as it stands, and
+// rows along the reduction load as float2. Row pads keep every fragment
+// load free of bank conflicts (x rows p + 4 wide, C and B rows a multiple
+// of 16 plus 8). Each team streams its x tiles through a cp.async ring of
+// two stages (one where p > 64 leaves no room), synchronising only its
+// own 128 threads (named barriers). The grid runs a (bc, group)'s blocks
+// next to each other, so x_j, read by each query tile at or below it,
+// comes from L2 after its first read. cs is formed per head in float64
+// and rounded once, as chunk_cumsum does; exp is taken only where j <= i
+// (above the diagonal the segment sum is positive and may overflow).
 //
-// What bounds it: float32 operations on CUDA cores (TF32 would miss the
-// 1e-4 tolerance): per head about l^2 (n + p) + 2 l n p flops. C B^T does
-// not depend on the head; computing it once per (batch, chunk) is later
-// work.
+// What bounds it: bytes, 621 MB at the serving shape (8, 8, 256, 64, 64,
+// 64), 0.185 ms at 3.35 TB/s; its least work, 26.1 GFLOP, takes 0.158 ms
+// as split TF32 (three products each at 495 TFLOP/s). The kernel issues
+// more: G once per group (diagonal tiles to each strip's last row), M x
+// per head on half the diagonal tile, the state in full.
+#include "hopper.cuh"
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -32,239 +58,384 @@
 namespace {
 
 constexpr int kT = 64;               // rows per tile (query and key)
-constexpr int kLDT = kT + 4;         // padded row of the transposed B tile
-constexpr int kThreads = 256;        // 16 x 16: rows ty*4.., columns tx*4..
+constexpr int kTeams = 4;            // teams of 4 warps, one strip each
+constexpr int kTeamThreads = 128;
+constexpr int kThreads = kTeams * kTeamThreads;
+constexpr int kGroup = 8;            // heads per block, one scan a warp
 constexpr int kMaxL = 256;
+constexpr int kMaxDim = 128;
+constexpr int kLDS = kT + 4;         // padded row of the state block's B
 
 struct Dims {
   int l, h, p, n;
-  int pg, ng;                        // 64-wide groups of p and of n
+  int pp, np;                        // p and n rounded up to 8
+  int ldx, ldg;                      // padded rows of x and of C, B tiles
+  int nt, groups, ns;                // tiles, head groups, state blocks
 };
 
-__host__ __device__ inline size_t smem_floats(const Dims& d) {
-  return 2 * kMaxL                    // cs, dt
-         + (size_t)d.ng * 64 * kT     // Ct [n][kT], later Bs [kT][ng*64]
-         + (size_t)d.ng * 64 * kLDT   // Bt [n][kLDT]
-         + (size_t)kT * d.pg * 64     // Xs [kT][pg*64]
-         + (size_t)kT * kT;           // Ms [kT][kT]
+// the in-chunk cumsum of dA and dt for the group's heads: warp w scans head
+// g0 + w into cs[w][0, kMaxL) (zeros past l), accumulating in float64 and
+// rounding once
+__device__ void group_prefix(const float* dA, const float* dt, int64_t bc,
+                             int g0, int ng, const Dims& dm, float* cs,
+                             float* dts) {
+  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+  const int l = dm.l, h = dm.h;
+  for (int e = threadIdx.x; e < ng * kMaxL; e += kThreads) {
+    const int hq = e / kMaxL, i = e % kMaxL;
+    dts[e] = i < l ? dt[(bc * l + i) * h + g0 + hq] : 0.f;
+  }
+  if (w >= ng) return;
+  double v[kMaxL / 32];
+  double run = 0.0;
+#pragma unroll
+  for (int u = 0; u < kMaxL / 32; ++u) {
+    const int i = lane * (kMaxL / 32) + u;
+    run += i < l ? (double)dA[(bc * l + i) * h + g0 + w] : 0.0;
+    v[u] = run;
+  }
+  double tot = run;
+#pragma unroll
+  for (int d = 1; d < 32; d <<= 1) {
+    const double o = __shfl_up_sync(0xffffffffu, tot, d);
+    if (lane >= d) tot += o;
+  }
+  const double off = tot - run;
+#pragma unroll
+  for (int u = 0; u < kMaxL / 32; ++u)
+    cs[w * kMaxL + lane * (kMaxL / 32) + u] = (float)(v[u] + off);
 }
 
-__global__ void __launch_bounds__(kThreads)
+// rows [r0, r0 + kT) of a row-major matrix (row stride `stride`) into dst
+// [kT][ld] by cp.async (16-byte copies where `vec`): columns [0, cols) from
+// src, columns [cols, pad) and rows at or past l as zeros. The `nthr`
+// threads numbered `tid` share it; the caller commits, waits and syncs.
+__device__ __forceinline__ void stage_rows(float* dst, const float* src,
+                                           int r0, int l, int64_t stride,
+                                           int cols, int pad, int ld,
+                                           bool vec, int tid, int nthr) {
+  if (vec) {                         // cols and pad multiples of 4
+    const int q = pad / 4;
+    for (int e = tid; e < kT * q; e += nthr) {
+      const int r = e / q, c = 4 * (e % q);
+      float* d = dst + r * ld + c;
+      if (r0 + r < l && c < cols)
+        hopper::cp_async16(d, src + (int64_t)(r0 + r) * stride + c);
+      else
+        *reinterpret_cast<float4*>(d) = make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+    return;
+  }
+  for (int e = tid; e < kT * pad; e += nthr) {
+    const int r = e / pad, c = e % pad;
+    float* d = dst + r * ld + c;
+    if (r0 + r < l && c < cols)
+      hopper::cp_async4(d, src + (int64_t)(r0 + r) * stride + c);
+    else
+      *d = 0.f;
+  }
+}
+
+// acc += A B in split TF32 for one 8-wide reduction step: A's fragment
+// (already split) against the 8-column tiles of B that lie below pp, B
+// read from shared memory rows r and r + 1 (the step's reduction indices
+// 2t and 2t + 1 of this thread) of a [.][ld] tile
+template <int PT>
+__device__ __forceinline__ void mma_rows(float (&acc)[PT][4],
+                                         const uint32_t (&ah)[4],
+                                         const uint32_t (&al)[4],
+                                         const float* X, int r, int ld,
+                                         int pp, int g) {
+#pragma unroll
+  for (int pn = 0; pn < PT; ++pn) {
+    if (8 * pn >= pp) break;
+    uint32_t bh[2], bl[2];
+    hopper::split_tf32(X[r * ld + 8 * pn + g], bh[0], bl[0]);
+    hopper::split_tf32(X[(r + 1) * ld + 8 * pn + g], bh[1], bl[1]);
+    hopper::mma_tf32(acc[pn], al, bh);
+    hopper::mma_tf32(acc[pn], ah, bl);
+    hopper::mma_tf32(acc[pn], ah, bh);
+  }
+}
+
+// one warp's 16 x p accumulator (rows r0 + g and r0 + g + 8 of a 64-row
+// output whose row stride is `stride`) into out; rows past `rows` and
+// columns past p are not written
+template <int PT>
+__device__ __forceinline__ void store_rows(float* out, int64_t stride,
+                                           const float (&acc)[PT][4], int r0,
+                                           int rows, int p, int g, int t) {
+#pragma unroll
+  for (int pn = 0; pn < PT; ++pn) {
+#pragma unroll
+    for (int u = 0; u < 2; ++u) {
+      const int r = r0 + g + 8 * u, c = 8 * pn + 2 * t;
+      if (r >= rows || c >= p) continue;
+      float* o = out + (int64_t)r * stride + c;
+      if (c + 1 < p && (p & 1) == 0) {
+        *reinterpret_cast<float2*>(o) =
+            make_float2(acc[pn][2 * u], acc[pn][2 * u + 1]);
+      } else {
+        o[0] = acc[pn][2 * u];
+        if (c + 1 < p) o[1] = acc[pn][2 * u + 1];
+      }
+    }
+  }
+}
+
+template <int PT>
+__device__ __forceinline__ void zero(float (&acc)[PT][4]) {
+#pragma unroll
+  for (int j = 0; j < PT; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+}
+
+__host__ __device__ inline size_t r1_floats(const Dims& d) {
+  return (size_t)d.nt * kT * kLDS;   // >= G's nt x 4 strips x 8 x 32 x 4
+}
+__host__ __device__ inline size_t ring_floats(const Dims& d, int stages) {
+  const size_t ring = (size_t)kTeams * stages * kT * d.ldx;
+  const size_t staging = 2 * (size_t)kT * d.ldg;   // C_i and B_j
+  return ring > staging ? ring : staging;
+}
+__host__ __device__ inline size_t smem_floats(const Dims& d, int stages) {
+  return 2 * kGroup * kMaxL + r1_floats(d) + ring_floats(d, stages);
+}
+
+// The team loop shared by both kinds of block: steps (head of the team,
+// key tile jt in [0, tiles)), x_j of the step's head through the team's
+// ring; `step(hq, jt, X)` runs the products on the tile at X, and
+// `done(hq)` writes a head's result after its last tile.
+template <typename Step, typename Done>
+__device__ __forceinline__ void team_loop(const float* xb, int ng, int tiles,
+                                          const Dims& dm, float* ring,
+                                          int stages, bool vec_x, Step step,
+                                          Done done) {
+  const int team = threadIdx.x / kTeamThreads;
+  const int tt = threadIdx.x % kTeamThreads;
+  const int nh = ng > team ? (ng - team + kTeams - 1) / kTeams : 0;
+  const int steps = nh * tiles;
+  const int stage = kT * dm.ldx;
+  float* mine = ring + (size_t)team * stages * stage;
+  const int64_t hs = (int64_t)dm.h * dm.p;
+  auto issue = [&](int s) {
+    const int hq = team + kTeams * (s / tiles);
+    stage_rows(mine + (s % stages) * stage, xb + (int64_t)hq * dm.p,
+               (s % tiles) * kT, dm.l, hs, dm.p, dm.pp, dm.ldx, vec_x, tt,
+               kTeamThreads);
+    hopper::cp_async_commit();
+  };
+  if (steps > 0) issue(0);
+  for (int s = 0; s < steps; ++s) {
+    const bool next = s + 1 < steps;
+    if (next && stages == 2) {
+      issue(s + 1);
+      hopper::cp_async_wait<1>();
+    } else {
+      hopper::cp_async_wait<0>();
+    }
+    hopper::bar_sync(1 + team, kTeamThreads);
+    const int hq = team + kTeams * (s / tiles), jt = s % tiles;
+    step(hq, jt, mine + (s % stages) * stage);
+    hopper::bar_sync(1 + team, kTeamThreads);   // this stage is consumed
+    if (next && stages == 1) issue(s + 1);
+    if (jt == tiles - 1) done(hq);
+  }
+}
+
+template <int PT>
+__global__ void __launch_bounds__(kThreads, 1)
 ssd_chunk_kernel(const float* __restrict__ x, const float* __restrict__ dA,
                  const float* __restrict__ dt, const float* __restrict__ B,
                  const float* __restrict__ C, float* __restrict__ y,
-                 float* __restrict__ st, Dims dm) {
+                 float* __restrict__ st, Dims dm, int stages, bool vec_x,
+                 bool vec_bc) {
   extern __shared__ float4 smem4[];
+  float* cs = reinterpret_cast<float*>(smem4);  // [kGroup][kMaxL]
+  float* dts = cs + kGroup * kMaxL;              // dt, or w in state blocks
+  float* R1 = dts + kGroup * kMaxL;              // G fragments, or B
+  float* ring = R1 + r1_floats(dm);              // staging, then x rings
+
   const int l = dm.l, h = dm.h, p = dm.p, n = dm.n;
-  const int LDX = dm.pg * 64, LDB = dm.ng * 64;
-  float* cs = reinterpret_cast<float*>(smem4);
-  float* dts = cs + kMaxL;
-  float* Ct = dts + kMaxL;                       // [LDB][kT]
-  float* Bt = Ct + (size_t)LDB * kT;             // [LDB][kLDT]
-  float* Xs = Bt + (size_t)LDB * kLDT;           // [kT][LDX]
-  float* Ms = Xs + (size_t)kT * LDX;             // [kT][kT]
-  float* Bs = Ct;                                // [kT][LDB], state pass
-
-  const int tid = threadIdx.x;
-  const int ty = tid >> 4, tx = tid & 15;
-  const int lane = tid & 31, warp = tid >> 5;
-  const int hh = blockIdx.x;
-  const int64_t bc = blockIdx.y;
-  const float* xb = x + bc * l * h * p + (int64_t)hh * p;   // row stride h*p
-  float* yb = y + bc * l * h * p + (int64_t)hh * p;
-  const float* Bb = B + bc * l * n;
-  const float* Cb = C + bc * l * n;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int team = warp / 4, s = warp % 4, row0 = 16 * s;
+  const int g = lane >> 2, t = lane & 3;
+  const int grp = blockIdx.y;
+  const int64_t bc = blockIdx.z;
+  const int g0 = grp * kGroup, ng = min(kGroup, h - g0);
   const int64_t hs = (int64_t)h * p;
+  const float* xb = x + bc * l * hs + (int64_t)g0 * p;
+  float4* Gf = reinterpret_cast<float4*>(R1);    // [nt][4 strips][8][32]
+  float acc[PT][4];
+  zero(acc);
 
-  for (int i = tid; i < kMaxL; i += kThreads)
-    dts[i] = i < l ? dt[(bc * l + i) * h + hh] : 0.f;
-  if (warp == 0) {                   // inclusive cumsum of dA, 8 per lane
-    double v[kMaxL / 32];
-    double run = 0.0;
-#pragma unroll
-    for (int u = 0; u < kMaxL / 32; ++u) {
-      const int i = lane * (kMaxL / 32) + u;
-      run += i < l ? (double)dA[(bc * l + i) * h + hh] : 0.0;
-      v[u] = run;
-    }
-    double tot = run;
-#pragma unroll
-    for (int d = 1; d < 32; d <<= 1) {
-      const double t = __shfl_up_sync(0xffffffffu, tot, d);
-      if (lane >= d) tot += t;
-    }
-    const double off = tot - run;
-#pragma unroll
-    for (int u = 0; u < kMaxL / 32; ++u)
-      cs[lane * (kMaxL / 32) + u] = (float)(v[u] + off);
-  }
+  group_prefix(dA, dt, bc, g0, ng, dm, cs, dts);
 
-  const int nt = (l + kT - 1) / kT;
-  for (int it = 0; it < nt; ++it) {
+  if ((int)blockIdx.x < dm.nt) {
+    // ---- query block: y for rows [i0, i0 + 64) of the group's heads ----
+    const int it = dm.nt - 1 - blockIdx.x;      // heaviest tiles first
     const int i0 = it * kT;
-    float acc[4][8];
-#pragma unroll
-    for (int r = 0; r < 4; ++r)
-#pragma unroll
-      for (int c = 0; c < 8; ++c) acc[r][c] = 0.f;
-
-    __syncthreads();                 // cs ready; previous tiles consumed
-    for (int e = tid; e < kT * LDB; e += kThreads) {   // C tile, transposed
-      const int r = e / LDB, k = e % LDB;
-      const int i = i0 + r;
-      Ct[k * kT + r] = (i < l && k < n) ? Cb[(int64_t)i * n + k] : 0.f;
-    }
-
+    const bool rows_here = i0 + row0 < l;       // the strip has live rows
+    float* Cs = ring;                            // [kT][ldg]
+    float* Bs = ring + kT * dm.ldg;              // [kT][ldg]
+    const float* Cb = C + bc * l * n;
+    const float* Bb = B + bc * l * n;
+    stage_rows(Cs, Cb, i0, l, n, n, dm.np, dm.ldg, vec_bc, threadIdx.x,
+               kThreads);
     for (int jt = 0; jt <= it; ++jt) {
-      const int j0 = jt * kT;
+      stage_rows(Bs, Bb, jt * kT, l, n, n, dm.np, dm.ldg, vec_bc,
+                 threadIdx.x, kThreads);
+      hopper::cp_async_commit();
+      hopper::cp_async_wait<0>();
       __syncthreads();
-      for (int e = tid; e < kT * LDB; e += kThreads) { // B tile, transposed
-        const int r = e / LDB, k = e % LDB;
-        const int j = j0 + r;
-        Bt[k * kLDT + r] = (j < l && k < n) ? Bb[(int64_t)j * n + k] : 0.f;
-      }
-      for (int e = tid; e < kT * LDX; e += kThreads) { // x tile
-        const int r = e / LDX, c = e % LDX;
-        const int j = j0 + r;
-        Xs[r * LDX + c] = (j < l && c < p) ? xb[j * hs + c] : 0.f;
-      }
-      __syncthreads();
-
-      float s[4][4];
+      // the team's two 8-column tiles of G_ij for the warp's strip; on the
+      // diagonal only those at or left of the strip's last row
 #pragma unroll
-      for (int r = 0; r < 4; ++r)
-#pragma unroll
-        for (int c = 0; c < 4; ++c) s[r][c] = 0.f;
-      for (int k = 0; k < n; ++k) {
-        const float4 a = *reinterpret_cast<const float4*>(&Ct[k * kT + ty * 4]);
-        const float4 b = *reinterpret_cast<const float4*>(&Bt[k * kLDT + tx * 4]);
-        const float av[4] = {a.x, a.y, a.z, a.w};
-        const float bv[4] = {b.x, b.y, b.z, b.w};
-#pragma unroll
-        for (int r = 0; r < 4; ++r)
-#pragma unroll
-          for (int c = 0; c < 4; ++c) s[r][c] = fmaf(av[r], bv[c], s[r][c]);
-      }
-#pragma unroll
-      for (int r = 0; r < 4; ++r) {
-        const int i = i0 + ty * 4 + r;
-        float mv[4];
-#pragma unroll
-        for (int c = 0; c < 4; ++c) {
-          const int j = j0 + tx * 4 + c;
-          mv[c] = (j <= i && i < l)
-                      ? s[r][c] * expf(cs[i] - cs[j]) * dts[j] : 0.f;
+      for (int u = 0; u < 2; ++u) {
+        const int jn = 2 * team + u;
+        if (!rows_here || (jt == it && jn > 2 * s + 1)) continue;
+        float d[1][4];
+        zero(d);
+        for (int k0 = 0; k0 < dm.np; k0 += 8) {
+          const float* c0 = Cs + (row0 + g) * dm.ldg + k0 + 2 * t;
+          const float2 ca = *reinterpret_cast<const float2*>(c0);
+          const float2 cb = *reinterpret_cast<const float2*>(c0 + 8 * dm.ldg);
+          const float2 bv = *reinterpret_cast<const float2*>(
+              Bs + (8 * jn + g) * dm.ldg + k0 + 2 * t);
+          uint32_t ah[4], al[4], bh[2], bl[2];
+          hopper::split_tf32(ca.x, ah[0], al[0]);
+          hopper::split_tf32(cb.x, ah[1], al[1]);
+          hopper::split_tf32(ca.y, ah[2], al[2]);
+          hopper::split_tf32(cb.y, ah[3], al[3]);
+          hopper::split_tf32(bv.x, bh[0], bl[0]);
+          hopper::split_tf32(bv.y, bh[1], bl[1]);
+          hopper::mma_tf32(d[0], al, bh);
+          hopper::mma_tf32(d[0], ah, bl);
+          hopper::mma_tf32(d[0], ah, bh);
         }
-        *reinterpret_cast<float4*>(&Ms[(ty * 4 + r) * kT + tx * 4]) =
-            make_float4(mv[0], mv[1], mv[2], mv[3]);
+        Gf[((jt * 4 + s) * 8 + jn) * 32 + lane] =
+            make_float4(d[0][0], d[0][1], d[0][2], d[0][3]);
       }
-      __syncthreads();
+      __syncthreads();               // G stored; Bs free for the next tile
+    }
 
-      for (int jj = 0; jj < kT; jj += 4) {
-        float mv[4][4];
-#pragma unroll
-        for (int r = 0; r < 4; ++r) {
-          const float4 m4 =
-              *reinterpret_cast<const float4*>(&Ms[(ty * 4 + r) * kT + jj]);
-          mv[r][0] = m4.x; mv[r][1] = m4.y; mv[r][2] = m4.z; mv[r][3] = m4.w;
-        }
-#pragma unroll
-        for (int u = 0; u < 4; ++u) {
-#pragma unroll
-          for (int g = 0; g < 2; ++g) {
-            if (g >= dm.pg) break;
-            const float4 w = *reinterpret_cast<const float4*>(
-                &Xs[(jj + u) * LDX + g * 64 + tx * 4]);
-#pragma unroll
-            for (int r = 0; r < 4; ++r) {
-              acc[r][g * 4 + 0] = fmaf(mv[r][u], w.x, acc[r][g * 4 + 0]);
-              acc[r][g * 4 + 1] = fmaf(mv[r][u], w.y, acc[r][g * 4 + 1]);
-              acc[r][g * 4 + 2] = fmaf(mv[r][u], w.z, acc[r][g * 4 + 2]);
-              acc[r][g * 4 + 3] = fmaf(mv[r][u], w.w, acc[r][g * 4 + 3]);
-            }
+    // per head of the team: y_i = sum_j M_ij x_j
+    const int i_lo = i0 + row0 + g, i_hi = i_lo + 8;
+    team_loop(
+        xb, ng, it + 1, dm, ring, stages, vec_x,
+        [&](int hq, int jt, const float* X) {
+          if (!rows_here) return;
+          const float* csh = cs + hq * kMaxL;
+          const float* dth = dts + hq * kMaxL;
+          const float ci_lo = csh[i_lo], ci_hi = csh[i_hi < kMaxL ? i_hi : 0];
+          const bool lo_live = i_lo < l, hi_live = i_hi < l;
+          const int steps = jt == it ? 2 * s + 2 : 8;
+          for (int jn = 0; jn < steps; ++jn) {
+            const float4 gv = Gf[((jt * 4 + s) * 8 + jn) * 32 + lane];
+            const int j = jt * kT + 8 * jn + 2 * t;
+            const float2 cj = *reinterpret_cast<const float2*>(csh + j);
+            const float2 dj = *reinterpret_cast<const float2*>(dth + j);
+            // M's A fragment: rows g, g + 8, reduction indices j, j + 1
+            const float m0 = (lo_live && j <= i_lo)
+                                 ? gv.x * expf(ci_lo - cj.x) * dj.x : 0.f;
+            const float m1 = (lo_live && j + 1 <= i_lo)
+                                 ? gv.y * expf(ci_lo - cj.y) * dj.y : 0.f;
+            const float m2 = (hi_live && j <= i_hi)
+                                 ? gv.z * expf(ci_hi - cj.x) * dj.x : 0.f;
+            const float m3 = (hi_live && j + 1 <= i_hi)
+                                 ? gv.w * expf(ci_hi - cj.y) * dj.y : 0.f;
+            uint32_t ah[4], al[4];
+            hopper::split_tf32(m0, ah[0], al[0]);
+            hopper::split_tf32(m2, ah[1], al[1]);
+            hopper::split_tf32(m1, ah[2], al[2]);
+            hopper::split_tf32(m3, ah[3], al[3]);
+            mma_rows(acc, ah, al, X, 8 * jn + 2 * t, dm.ldx, dm.pp, g);
           }
-        }
-      }
-    }
-
-#pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      const int i = i0 + ty * 4 + r;
-      if (i >= l) continue;
-#pragma unroll
-      for (int g = 0; g < 2; ++g)
-#pragma unroll
-        for (int u = 0; u < 4; ++u) {
-          const int c = g * 64 + tx * 4 + u;
-          if (g < dm.pg && c < p) yb[i * hs + c] = acc[r][g * 4 + u];
-        }
-    }
+        },
+        [&](int hq) {
+          store_rows(y + (bc * l + i0) * hs + (int64_t)(g0 + hq) * p, hs,
+                     acc, row0, l - i0, p, g, t);
+          zero(acc);
+        });
+    return;
   }
 
-  // chunk state: st[k, c] = sum_j B[j, k] exp(cs_{l-1} - cs_j) dt_j x[j, c]
-  float sa[2][4][2][4];              // [n group][row][p group][col]
-#pragma unroll
-  for (int a = 0; a < 2; ++a)
-#pragma unroll
-    for (int r = 0; r < 4; ++r)
-#pragma unroll
-      for (int g = 0; g < 2; ++g)
-#pragma unroll
-        for (int u = 0; u < 4; ++u) sa[a][r][g][u] = 0.f;
-  const float cs_last = cs[l - 1];
-  for (int jt = 0; jt < nt; ++jt) {
-    const int j0 = jt * kT;
-    __syncthreads();
-    for (int e = tid; e < kT * LDB; e += kThreads) {
-      const int r = e / LDB, k = e % LDB;
-      const int j = j0 + r;
-      Bs[r * LDB + k] = (j < l && k < n)
-          ? Bb[(int64_t)j * n + k] * (expf(cs_last - cs[j]) * dts[j]) : 0.f;
-    }
-    for (int e = tid; e < kT * LDX; e += kThreads) {
-      const int r = e / LDX, c = e % LDX;
-      const int j = j0 + r;
-      Xs[r * LDX + c] = (j < l && c < p) ? xb[j * hs + c] : 0.f;
-    }
-    __syncthreads();
-    for (int jj = 0; jj < kT; ++jj) {
-#pragma unroll
-      for (int a = 0; a < 2; ++a) {
-        if (a >= dm.ng) break;
-        const float4 b4 =
-            *reinterpret_cast<const float4*>(&Bs[jj * LDB + a * 64 + ty * 4]);
-        const float bv[4] = {b4.x, b4.y, b4.z, b4.w};
-#pragma unroll
-        for (int g = 0; g < 2; ++g) {
-          if (g >= dm.pg) break;
-          const float4 w =
-              *reinterpret_cast<const float4*>(&Xs[jj * LDX + g * 64 + tx * 4]);
-#pragma unroll
-          for (int r = 0; r < 4; ++r) {
-            sa[a][r][g][0] = fmaf(bv[r], w.x, sa[a][r][g][0]);
-            sa[a][r][g][1] = fmaf(bv[r], w.y, sa[a][r][g][1]);
-            sa[a][r][g][2] = fmaf(bv[r], w.z, sa[a][r][g][2]);
-            sa[a][r][g][3] = fmaf(bv[r], w.w, sa[a][r][g][3]);
-          }
-        }
-      }
-    }
+  // ---- state block: st rows [k0, k0 + 64) of the group's heads ----------
+  const int k0 = 64 * (blockIdx.x - dm.nt);
+  const int kc = min(kT, n - k0);               // live state rows here
+  float* Bs = R1;                                // [nt * kT][kLDS]
+  for (int jt = 0; jt < dm.nt; ++jt)
+    stage_rows(Bs + jt * kT * kLDS, B + bc * l * n + k0, jt * kT, l, n, kc,
+               kT, kLDS, vec_bc, threadIdx.x, kThreads);
+  hopper::cp_async_commit();
+  __syncthreads();                   // cs and dt of every head are in
+  for (int e = threadIdx.x; e < ng * kMaxL; e += kThreads) {
+    const int hq = e / kMaxL, j = e % kMaxL;
+    dts[e] = j < l ? expf(cs[hq * kMaxL + l - 1] - cs[e]) * dts[e] : 0.f;
   }
-  float* sb = st + (bc * h + hh) * (int64_t)n * p;
-#pragma unroll
-  for (int a = 0; a < 2; ++a)
-#pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      const int k = a * 64 + ty * 4 + r;
-      if (a >= dm.ng || k >= n) continue;
-#pragma unroll
-      for (int g = 0; g < 2; ++g)
-#pragma unroll
-        for (int u = 0; u < 4; ++u) {
-          const int c = g * 64 + tx * 4 + u;
-          if (g < dm.pg && c < p) sb[(int64_t)k * p + c] = sa[a][r][g][u];
+  hopper::cp_async_wait<0>();
+  __syncthreads();
+  const bool rows_here = row0 < kc;
+  team_loop(
+      xb, ng, dm.nt, dm, ring, stages, vec_x,
+      [&](int hq, int jt, const float* X) {
+        if (!rows_here) return;
+        const float* wh = dts + hq * kMaxL;
+        const int j0 = jt * kT;
+        const int steps = min(8, (l - j0 + 7) / 8);
+        for (int kk = 0; kk < steps; ++kk) {
+          const int r = 8 * kk + 2 * t;          // rows r, r + 1 of the tile
+          const float2 w = *reinterpret_cast<const float2*>(wh + j0 + r);
+          const float* b0 = Bs + (j0 + r) * kLDS + row0 + g;
+          uint32_t ah[4], al[4];
+          hopper::split_tf32(b0[0] * w.x, ah[0], al[0]);
+          hopper::split_tf32(b0[8] * w.x, ah[1], al[1]);
+          hopper::split_tf32(b0[kLDS] * w.y, ah[2], al[2]);
+          hopper::split_tf32(b0[kLDS + 8] * w.y, ah[3], al[3]);
+          mma_rows(acc, ah, al, X, r, dm.ldx, dm.pp, g);
         }
-    }
+      },
+      [&](int hq) {
+        store_rows(st + ((bc * h + g0 + hq) * (int64_t)n + k0) * p, p, acc,
+                   row0, kc, p, g, t);
+        zero(acc);
+      });
+}
+
+Dims make_dims(int64_t l, int64_t h, int64_t p, int64_t n) {
+  Dims d;
+  d.l = (int)l;
+  d.h = (int)h;
+  d.p = (int)p;
+  d.n = (int)n;
+  d.pp = (int)((p + 7) / 8 * 8);
+  d.np = (int)((n + 7) / 8 * 8);
+  d.ldx = d.pp + 4;
+  d.ldg = (d.np + 15) / 16 * 16 + 8;
+  d.nt = (int)((l + kT - 1) / kT);
+  d.groups = (int)((h + kGroup - 1) / kGroup);
+  d.ns = (int)((n + kT - 1) / kT);
+  return d;
+}
+
+constexpr size_t kSmemMax = 232448;  // bytes a block may have on sm_90
+
+template <int PT>
+cudaError_t launch(const float* x, const float* dA, const float* dt,
+                   const float* B, const float* C, float* y, float* st,
+                   int64_t BC, const Dims& dm, int stages, bool vec_x,
+                   bool vec_bc, cudaStream_t stream) {
+  const size_t smem = smem_floats(dm, stages) * sizeof(float);
+  const cudaError_t err = cudaFuncSetAttribute(
+      ssd_chunk_kernel<PT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((unsigned)(dm.nt + dm.ns), (unsigned)dm.groups,
+                  (unsigned)BC);
+  ssd_chunk_kernel<PT><<<grid, kThreads, smem, stream>>>(
+      x, dA, dt, B, C, y, st, dm, stages, vec_x, vec_bc);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -275,20 +446,22 @@ extern "C" int ssd_chunk_launch(const void* x, const void* dA, const void* dt,
                                 int64_t p, int64_t n, void* stream) {
   if (BC <= 0 || l <= 0 || h <= 0 || p <= 0 || n <= 0)
     return (int)cudaSuccess;
-  if (l > kMaxL || p > 128 || n > 128 || BC > 65535 || h > 2147483647LL)
+  if (l > kMaxL || p > kMaxDim || n > kMaxDim || BC > 65535 ||
+      h > 65535LL * kGroup)
     return (int)cudaErrorInvalidValue;
-  Dims dm{(int)l, (int)h, (int)p, (int)n, (int)((p + 63) / 64),
-          (int)((n + 63) / 64)};
-  const size_t smem = smem_floats(dm) * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(
-      ssd_chunk_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid((unsigned)h, (unsigned)BC);
-  ssd_chunk_kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
-      (const float*)x, (const float*)dA, (const float*)dt, (const float*)B,
-      (const float*)C, (float*)y, (float*)st, dm);
-  return (int)cudaGetLastError();
+  const Dims dm = make_dims(l, h, p, n);
+  // two ring stages a team where they fit, else one
+  const int stages = smem_floats(dm, 2) * sizeof(float) <= kSmemMax ? 2 : 1;
+  // 16-byte cp.async: rows of 4-multiples and 16-byte aligned bases
+  const bool vec_x = p % 4 == 0 && (uintptr_t)x % 16 == 0;
+  const bool vec_bc = n % 4 == 0 && (uintptr_t)B % 16 == 0 &&
+                      (uintptr_t)C % 16 == 0;
+  const auto args = [&](auto launcher) {
+    return launcher((const float*)x, (const float*)dA, (const float*)dt,
+                    (const float*)B, (const float*)C, (float*)y, (float*)st,
+                    BC, dm, stages, vec_x, vec_bc, (cudaStream_t)stream);
+  };
+  return (int)(dm.pp <= 64 ? args(launch<8>) : args(launch<16>));
 }
 
 extern "C" const char* error_string(int err) {

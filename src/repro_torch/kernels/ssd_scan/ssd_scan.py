@@ -21,12 +21,18 @@ the chunk states (b, nc, h, n, p), both float32.
    round it once (``chunk_cumsum``).
  * ``ssd_chunk`` launches ``csrc/ssd_chunk.cu`` for CUDA tensors and takes
    the plain version only for CPU tensors. It takes ``l <= 256`` and
-   ``p, n <= 128``. One block per (batch, chunk, head) walks 64-row query
-   tiles and 64-row key tiles below the diagonal through shared memory, in
-   float32 on CUDA cores (TF32 would miss the 1e-4 tolerance). It is bound
-   by operations: the least work is ``C B^T`` once per (batch, chunk)
-   (it does not depend on the head) plus, per head, the masked product
-   with ``x`` and the state product.
+   ``p, n <= 128``. ``C B^T`` does not depend on the head, so a block owns
+   (batch and chunk, a 64-row tile, a group of 8 heads) and forms it once
+   for the group: query blocks keep ``G = C B^T`` of their tile against
+   every key tile at or below it in shared memory, then each of four warp
+   teams turns it into the masked ``M`` for one head at a time in
+   registers and multiplies by the head's ``x`` tiles, which stream
+   through a ``cp.async`` ring; state blocks (64 state rows each) hold the
+   chunk's ``B`` and form ``(B o w)^T x`` per head. Every product runs on
+   the tensor cores (``mma.sync`` m16n8k8) in split TF32, as the backward's
+   do: plain TF32 would miss the 1e-4 tolerance. It is bound by bytes (621
+   MB at the serving shape (8, 8, 256, 64, 64, 64), 0.185 ms; the least
+   work as split TF32 takes 0.158 ms).
 
 The gradient (the reference differentiates ``ssd_chunk_ref``'s jnp ops; the
 port's forward is a kernel, so its backward is one too):

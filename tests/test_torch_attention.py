@@ -315,9 +315,9 @@ def test_old_forward_limit_passed_a_late_five_percent_error():
 
 def test_library_digest_covers_the_included_header(tmp_path, monkeypatch):
     """The tensor-core sources (attention both ways, the tiled matmul, the
-    SSD backward) include ``csrc/hopper.cuh``: an edit to it must name a
-    new library for each, or a stale one in ``build/kernels`` would load;
-    the others keep theirs."""
+    SSD chunk both ways) include ``csrc/hopper.cuh``: an edit to it must
+    name a new library for each, or a stale one in ``build/kernels`` would
+    load; the others keep theirs."""
     from repro_torch.kernels import build
     for f in build.CSRC.iterdir():
         (tmp_path / f.name).write_bytes(f.read_bytes())
@@ -328,4 +328,4 @@ def test_library_digest_covers_the_included_header(tmp_path, monkeypatch):
     after = {n: build.library_path(n) for n in build.SOURCES}
     changed = {n for n in build.SOURCES if before[n] != after[n]}
     assert changed == {"flash_attention", "flash_attention_bwd",
-                       "tiled_matmul", "ssd_chunk_bwd"}
+                       "tiled_matmul", "ssd_chunk", "ssd_chunk_bwd"}

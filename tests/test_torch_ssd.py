@@ -10,9 +10,11 @@ one-step decode) to ``layers.ssm_apply``, all in float32. The plain
 backward (``ssd_chunk_bwd_plain``) is held to ``jax.vjp`` of
 ``ssd_chunk_ref``, and the gradient of ``ops.ssd_scan`` to ``jax.grad`` of
 ``layers.ssd_chunked``, element by element within 2e-4 of |value| plus
-the gradient's RMS. The CUDA backward's arithmetic (every product in
-split TF32 on the tensor cores) is emulated in torch and held to the
-plain backward by the card tests' element-wise rule; plain TF32 fails it.
+the gradient's RMS. The CUDA kernels' arithmetic (every product in
+split TF32 on the tensor cores) is emulated in torch: the forward's held
+to the plain forward by the kernel's ``allclose`` tolerance, the
+backward's to the plain backward by the card tests' element-wise rule;
+plain TF32 fails both.
 Inputs are made with NumPy from a seed and handed to both packages.
 """
 import jax
@@ -300,4 +302,51 @@ def test_split_tf32_products_meet_the_backward_rule(split, lo, hi):
         scale = max(float(w.square().mean().sqrt()), 0.1)
         share = max(share, float(((g - w).abs()
                                   / (2e-4 * (w.abs() + scale))).max()))
+    assert lo < share < hi, share
+
+
+def _tensor_core_fwd(x, dA, dt, B, C, split):
+    """``ssd_chunk_plain`` with every matrix product taken as the CUDA
+    forward takes it on the tensor cores (``C B^T``, ``M x`` and the
+    state's ``(B o w)^T x``): operands rounded to TF32 (plain) or split
+    into hi and lo with hi.hi + hi.lo + lo.hi summed (``split``); the mask,
+    ``exp`` and ``dt`` applied to ``G`` in float32."""
+    def mm(spec, a, b):
+        ah, bh = _tf32(a), _tf32(b)
+        terms = [(ah, bh)]
+        if split:
+            terms += [(ah, _tf32(b - bh)), (_tf32(a - ah), bh)]
+        return sum(torch.einsum(spec, u.double(), v.double())
+                   for u, v in terms).float()
+
+    l = x.shape[2]
+    cs = K4.chunk_cumsum(dA)
+    seg = cs[:, :, :, None, :] - cs[:, :, None, :, :]
+    causal = torch.ones(l, l, dtype=torch.bool).tril()[None, None, :, :, None]
+    L = torch.exp(seg.masked_fill(~causal, 0.0)).masked_fill(~causal, 0.0)
+    G = mm("bcin,bcjn->bcij", C, B)[..., None]
+    M = G * L * dt[:, :, None, :, :]
+    y = mm("bcijh,bcjhp->bcihp", M, x)
+    w = torch.exp(cs[:, :, -1:, :] - cs) * dt
+    states = mm("bcjhn,bcjhp->bchnp", B[:, :, :, None, :] * w[..., None], x)
+    return y, states
+
+
+@pytest.mark.parametrize("split,lo,hi", [(True, 0.0, 0.1),
+                                         (False, 1.0, float("inf"))])
+def test_split_tf32_products_meet_the_forward_tolerance(split, lo, hi):
+    """The CUDA forward runs ``C B^T``, ``M x`` and the state product on
+    the tensor cores in split TF32 and is held to the plain version by
+    ``allclose`` within rtol 2e-4, atol 1e-4 (``tests/test_torch_cuda.py``,
+    ``chip_smoke.py``). At a full-width chunk (l = 256, p = n = 64) with
+    |cs| in the hundreds (``scale`` 3), the split's roundings take under a
+    tenth of that limit, |got - want| / (atol + rtol |want|); plain
+    TF32's take more than all of it, which is why the kernel splits."""
+    x, dt, A, B, C = _ssd_case(7, b=1, nc=2, l=256, h=4, p=64, n=64)
+    args = [torch.from_numpy(a) for a in (x, (dt * A * 3.0).astype(np.float32),
+                                          dt, B, C)]
+    got = _tensor_core_fwd(*args, split=split)
+    want = K4.ssd_chunk_plain(*args)
+    share = max(float(((g - w).abs() / (TOL["atol"] + TOL["rtol"] * w.abs())
+                       ).max()) for g, w in zip(got, want))
     assert lo < share < hi, share
