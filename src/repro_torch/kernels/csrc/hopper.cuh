@@ -379,6 +379,17 @@ __device__ __forceinline__ void split_tf32(float v, uint32_t& hi,
   lo = to_tf32(v - __uint_as_float(hi));
 }
 
+// split_tf32 bit for bit, on the integer units: adding half a TF32 ulp to
+// the magnitude's bits and clearing the 13 it drops rounds to nearest, ties
+// away, as cvt.rna does for finite v. cvt runs at the conversion rate,
+// and a kernel that splits each operand of every product is faster this
+// way (PERF.md, PR 16).
+__device__ __forceinline__ void split_tf32_alu(float v, uint32_t& hi,
+                                               uint32_t& lo) {
+  hi = (__float_as_uint(v) + 0x1000u) & 0xffffe000u;
+  lo = (__float_as_uint(v - __uint_as_float(hi)) + 0x1000u) & 0xffffe000u;
+}
+
 // D(16 x 8) += A(16 x 8) B(8 x 8), tf32 in, float32 accumulate; the PTX
 // ISA's fragments: with g = lane / 4, t = lane % 4, a = {A(g, t), A(g + 8,
 // t), A(g, t + 4), A(g + 8, t + 4)}, b = {B(t, g), B(t + 4, g)}, d =

@@ -13,11 +13,12 @@
 // tile, a group of kGroup = 8 heads) and forms G once for its group; its
 // 16 warps are 4 teams of 4, each warp one 16-row strip of the tile.
 //  - Query blocks, per (query tile i, group, bc), the heaviest tiles first:
-//    G_ij for each key tile j <= i, the teams sharing the 64 key columns,
-//    kept in shared memory in the mma accumulator's own layout (64 KB for
-//    four key tiles); the diagonal tile only up to each strip's last row.
-//    Then each team takes two of the group's heads: for each key tile, the
-//    warp turns its strip's G fragments into M (mask, exp, dt) in
+//    C_i and every key tile B_j, j <= i, arrive together; team tau forms
+//    G_ij of the tau-th key tile for its four strips and keeps it in shared
+//    memory in the mma accumulator's own layout (64 KB for four key
+//    tiles). Then each team takes two of the group's heads: for each key
+//    tile, the warp turns its strip's G fragments into M (exp, dt, and the
+//    mask on the diagonal tile, there only up to the strip's last row) in
 //    registers and multiplies by x_j, and writes its rows of y once.
 //  - State blocks, per (64 state rows, group, bc), after the query blocks
 //    of their (bc, group): B of the whole chunk in shared memory, w_j per
@@ -26,34 +27,41 @@
 //    than the last query tile's work, so no block does both the longest
 //    y rows and the state; it reads x again (from L2) and B once.
 // Every product is a warp's mma.sync.m16n8k8 in split TF32: each float32
-// operand v is hi = tf32(v) (rounded to nearest, cvt.rna) and lo = tf32(v -
-// hi), and the float32 accumulator takes hi.hi + hi.lo + lo.hi. Plain TF32
-// would miss the 2e-4 / 1e-4 tolerance (tests/test_torch_ssd.py emulates
-// both). wgmma takes TF32 operands only K-major, and M x and (B o w)^T x
-// contract over the tile's rows; mma.sync reads its fragments from shared
-// memory at any index. Within each 8-wide step of a product a thread holds
-// the reduction indices 2t and 2t + 1 (t = lane % 4) of both operands, a
-// permutation of the instruction's t and t + 4 that leaves the sum as it
-// is: G's accumulator fragment is then M's A fragment as it stands, and
-// rows along the reduction load as float2. Row pads keep every fragment
-// load free of bank conflicts (x rows p + 4 wide, C and B rows a multiple
-// of 16 plus 8). Each team streams its x tiles through a cp.async ring of
-// two stages (one where p > 64 leaves no room), synchronising only its
-// own 128 threads (named barriers). The grid runs a (bc, group)'s blocks
-// next to each other, so x_j, read by each query tile at or below it,
-// comes from L2 after its first read. cs is formed per head in float64
-// and rounded once, as chunk_cumsum does; exp is taken only where j <= i
-// (above the diagonal the segment sum is positive and may overflow).
+// operand v is hi = tf32(v) and lo = tf32(v - hi), both rounded to nearest
+// as cvt.rna rounds (split_tf32_alu, on the integer units), and the float32
+// accumulator takes hi.hi + hi.lo + lo.hi. Plain TF32 would miss the 2e-4 /
+// 1e-4 tolerance (tests/test_torch_ssd.py emulates both). wgmma takes TF32
+// operands only K-major, and M x and (B o w)^T x contract over the tile's
+// rows; mma.sync reads its fragments from shared memory at any index.
+// Within each 8-wide step of a product a thread holds the reduction
+// indices 2t and 2t + 1 (t = lane % 4) of both operands, a permutation of
+// the instruction's t and t + 4 that leaves the sum as it is: G's
+// accumulator fragment is then M's A fragment as it stands, and rows along
+// the reduction load as float2. Row pads keep every fragment load free of
+// bank conflicts (x rows p + 4 wide, C and B rows a multiple of 16 plus
+// 8). Each team streams its x tiles through a cp.async ring of two stages
+// (one where p > 64 leaves no room), synchronising only its own 128
+// threads (named barriers). The grid runs a (bc, group)'s blocks next to each
+// other, so x_j, read by each query tile at or below it, comes from L2
+// after its first read. cs is formed per head in float64 and rounded
+// once, as chunk_cumsum does; exp is taken only where j <= i (above the
+// diagonal the segment sum is positive and may overflow).
 //
 // What bounds it: bytes, 621 MB at the serving shape (8, 8, 256, 64, 64,
 // 64), 0.185 ms at 3.35 TB/s; its least work, 26.1 GFLOP, takes 0.158 ms
 // as split TF32 (three products each at 495 TFLOP/s). The kernel issues
-// more: G once per group (diagonal tiles to each strip's last row), M x
-// per head on half the diagonal tile, the state in full.
+// more, 42.6 M mma.sync at that shape: G once per group (the diagonal tile
+// whole), M x per head on five eighths of the diagonal tile, the state in
+// full. mma.sync reaches about two thirds of the TF32 rate on this card,
+// and each product carries its operands' splits, exp and fragment loads;
+// one block per SM (225 KB of shared memory) leaves its prologue and the
+// G phase unhidden (PERF.md, PR 16).
 #include "hopper.cuh"
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -136,25 +144,56 @@ __device__ __forceinline__ void stage_rows(float* dst, const float* src,
   }
 }
 
+// stage_rows for a team's 64 x 64 x tile with 16-byte copies: each of the
+// 128 threads copies the same 16 bytes of 8 rows, no division and no
+// column checks
+__device__ __forceinline__ void stage_x64(float* dst, const float* src,
+                                          int r0, int l, int64_t stride,
+                                          int ld, int tt) {
+  const int r = tt >> 4, c = (tt & 15) << 2;
+#pragma unroll
+  for (int u = 0; u < kT / 8; ++u) {
+    const int row = r + 8 * u;
+    float* d = dst + row * ld + c;
+    if (r0 + row < l)
+      hopper::cp_async16(d, src + (int64_t)(r0 + row) * stride + c);
+    else
+      *reinterpret_cast<float4*>(d) = make_float4(0.f, 0.f, 0.f, 0.f);
+  }
+}
+
 // acc += A B in split TF32 for one 8-wide reduction step: A's fragment
-// (already split) against the 8-column tiles of B that lie below pp, B
-// read from shared memory rows r and r + 1 (the step's reduction indices
-// 2t and 2t + 1 of this thread) of a [.][ld] tile
-template <int PT>
+// (already split) against the 8-column tiles of B below pp (all PT of them
+// where kFull), B read from shared memory rows r and r + 1 (the step's
+// reduction indices 2t and 2t + 1 of this thread) of a [.][ld] tile. Up to
+// eight tiles' fragments are split first and their three products issued
+// tile after tile, so that no product waits on the one before it.
+template <int PT, bool kFull>
 __device__ __forceinline__ void mma_rows(float (&acc)[PT][4],
                                          const uint32_t (&ah)[4],
                                          const uint32_t (&al)[4],
                                          const float* X, int r, int ld,
                                          int pp, int g) {
+  constexpr int kChunk = PT < 8 ? PT : 8;
 #pragma unroll
-  for (int pn = 0; pn < PT; ++pn) {
-    if (8 * pn >= pp) break;
-    uint32_t bh[2], bl[2];
-    hopper::split_tf32(X[r * ld + 8 * pn + g], bh[0], bl[0]);
-    hopper::split_tf32(X[(r + 1) * ld + 8 * pn + g], bh[1], bl[1]);
-    hopper::mma_tf32(acc[pn], al, bh);
-    hopper::mma_tf32(acc[pn], ah, bl);
-    hopper::mma_tf32(acc[pn], ah, bh);
+  for (int c0 = 0; c0 < PT; c0 += kChunk) {
+    if (!kFull && 8 * c0 >= pp) break;
+    uint32_t bh[kChunk][2], bl[kChunk][2];
+#pragma unroll
+    for (int u = 0; u < kChunk; ++u) {
+      const int pn = c0 + u;
+      const bool live = kFull || 8 * pn < pp;
+      const float b0 = live ? X[r * ld + 8 * pn + g] : 0.f;
+      const float b1 = live ? X[(r + 1) * ld + 8 * pn + g] : 0.f;
+      hopper::split_tf32_alu(b0, bh[u][0], bl[u][0]);
+      hopper::split_tf32_alu(b1, bh[u][1], bl[u][1]);
+    }
+#pragma unroll
+    for (int u = 0; u < kChunk; ++u) hopper::mma_tf32(acc[c0 + u], al, bh[u]);
+#pragma unroll
+    for (int u = 0; u < kChunk; ++u) hopper::mma_tf32(acc[c0 + u], ah, bl[u]);
+#pragma unroll
+    for (int u = 0; u < kChunk; ++u) hopper::mma_tf32(acc[c0 + u], ah, bh[u]);
   }
 }
 
@@ -196,7 +235,7 @@ __host__ __device__ inline size_t r1_floats(const Dims& d) {
 }
 __host__ __device__ inline size_t ring_floats(const Dims& d, int stages) {
   const size_t ring = (size_t)kTeams * stages * kT * d.ldx;
-  const size_t staging = 2 * (size_t)kT * d.ldg;   // C_i and B_j
+  const size_t staging = 3 * (size_t)kT * d.ldg;   // C_i and >= two B_j
   return ring > staging ? ring : staging;
 }
 __host__ __device__ inline size_t smem_floats(const Dims& d, int stages) {
@@ -205,9 +244,12 @@ __host__ __device__ inline size_t smem_floats(const Dims& d, int stages) {
 
 // The team loop shared by both kinds of block: steps (head of the team,
 // key tile jt in [0, tiles)), x_j of the step's head through the team's
-// ring; `step(hq, jt, X)` runs the products on the tile at X, and
-// `done(hq)` writes a head's result after its last tile.
-template <typename Step, typename Done>
+// buffer; `step(hq, jt, X)` runs the products on the tile at X, and
+// `done(hq)` writes a head's result after its last tile. The tiles come
+// through a ring of `stages` tiles; each warp splits what it reads (one
+// split per team and tile, shared through shared memory, measured slower:
+// PERF.md, PR 16).
+template <bool kFull, typename Step, typename Done>
 __device__ __forceinline__ void team_loop(const float* xb, int ng, int tiles,
                                           const Dims& dm, float* ring,
                                           int stages, bool vec_x, Step step,
@@ -221,9 +263,13 @@ __device__ __forceinline__ void team_loop(const float* xb, int ng, int tiles,
   const int64_t hs = (int64_t)dm.h * dm.p;
   auto issue = [&](int s) {
     const int hq = team + kTeams * (s / tiles);
-    stage_rows(mine + (s % stages) * stage, xb + (int64_t)hq * dm.p,
-               (s % tiles) * kT, dm.l, hs, dm.p, dm.pp, dm.ldx, vec_x, tt,
-               kTeamThreads);
+    float* dst = mine + (s % stages) * stage;
+    if (kFull && vec_x)
+      stage_x64(dst, xb + (int64_t)hq * dm.p, (s % tiles) * kT, dm.l, hs,
+                dm.ldx, tt);
+    else
+      stage_rows(dst, xb + (int64_t)hq * dm.p, (s % tiles) * kT, dm.l, hs,
+                 dm.p, dm.pp, dm.ldx, vec_x, tt, kTeamThreads);
     hopper::cp_async_commit();
   };
   if (steps > 0) issue(0);
@@ -238,13 +284,13 @@ __device__ __forceinline__ void team_loop(const float* xb, int ng, int tiles,
     hopper::bar_sync(1 + team, kTeamThreads);
     const int hq = team + kTeams * (s / tiles), jt = s % tiles;
     step(hq, jt, mine + (s % stages) * stage);
-    hopper::bar_sync(1 + team, kTeamThreads);   // this stage is consumed
+    hopper::bar_sync(1 + team, kTeamThreads);   // this tile is consumed
     if (next && stages == 1) issue(s + 1);
     if (jt == tiles - 1) done(hq);
   }
 }
 
-template <int PT>
+template <int PT, bool kFull>
 __global__ void __launch_bounds__(kThreads, 1)
 ssd_chunk_kernel(const float* __restrict__ x, const float* __restrict__ dA,
                  const float* __restrict__ dt, const float* __restrict__ B,
@@ -277,81 +323,104 @@ ssd_chunk_kernel(const float* __restrict__ x, const float* __restrict__ dA,
     const int it = dm.nt - 1 - blockIdx.x;      // heaviest tiles first
     const int i0 = it * kT;
     const bool rows_here = i0 + row0 < l;       // the strip has live rows
+    // G_ij for the key tiles j <= i: C_i and as many B_j as the staging
+    // area holds (every tile at the serving shape) arrive together; team
+    // tau forms G of the round's tau-th tile for the warp's strip, all 8
+    // column tiles at once (on the diagonal those past the strip's last row
+    // are formed and never read)
     float* Cs = ring;                            // [kT][ldg]
-    float* Bs = ring + kT * dm.ldg;              // [kT][ldg]
-    const float* Cb = C + bc * l * n;
+    float* Bslots = ring + kT * dm.ldg;          // [slots][kT][ldg]
+    const int slots = min(kTeams, (int)(ring_floats(dm, stages) /
+                                        ((size_t)kT * dm.ldg)) - 1);
     const float* Bb = B + bc * l * n;
-    stage_rows(Cs, Cb, i0, l, n, n, dm.np, dm.ldg, vec_bc, threadIdx.x,
-               kThreads);
-    for (int jt = 0; jt <= it; ++jt) {
-      stage_rows(Bs, Bb, jt * kT, l, n, n, dm.np, dm.ldg, vec_bc,
-                 threadIdx.x, kThreads);
+    stage_rows(Cs, C + bc * l * n, i0, l, n, n, dm.np, dm.ldg, vec_bc,
+               threadIdx.x, kThreads);
+    for (int r0 = 0; r0 <= it; r0 += slots) {
+      const int cnt = min(slots, it + 1 - r0);
+      for (int u = 0; u < cnt; ++u)
+        stage_rows(Bslots + u * kT * dm.ldg, Bb, (r0 + u) * kT, l, n, n,
+                   dm.np, dm.ldg, vec_bc, threadIdx.x, kThreads);
       hopper::cp_async_commit();
       hopper::cp_async_wait<0>();
       __syncthreads();
-      // the team's two 8-column tiles of G_ij for the warp's strip; on the
-      // diagonal only those at or left of the strip's last row
-#pragma unroll
-      for (int u = 0; u < 2; ++u) {
-        const int jn = 2 * team + u;
-        if (!rows_here || (jt == it && jn > 2 * s + 1)) continue;
-        float d[1][4];
+      if (team < cnt && rows_here) {
+        const int jt = r0 + team;
+        const float* Bs = Bslots + team * kT * dm.ldg;
+        float d[8][4];
         zero(d);
         for (int k0 = 0; k0 < dm.np; k0 += 8) {
           const float* c0 = Cs + (row0 + g) * dm.ldg + k0 + 2 * t;
           const float2 ca = *reinterpret_cast<const float2*>(c0);
           const float2 cb = *reinterpret_cast<const float2*>(c0 + 8 * dm.ldg);
-          const float2 bv = *reinterpret_cast<const float2*>(
-              Bs + (8 * jn + g) * dm.ldg + k0 + 2 * t);
-          uint32_t ah[4], al[4], bh[2], bl[2];
-          hopper::split_tf32(ca.x, ah[0], al[0]);
-          hopper::split_tf32(cb.x, ah[1], al[1]);
-          hopper::split_tf32(ca.y, ah[2], al[2]);
-          hopper::split_tf32(cb.y, ah[3], al[3]);
-          hopper::split_tf32(bv.x, bh[0], bl[0]);
-          hopper::split_tf32(bv.y, bh[1], bl[1]);
-          hopper::mma_tf32(d[0], al, bh);
-          hopper::mma_tf32(d[0], ah, bl);
-          hopper::mma_tf32(d[0], ah, bh);
+          uint32_t ah[4], al[4], bh[8][2], bl[8][2];
+          hopper::split_tf32_alu(ca.x, ah[0], al[0]);
+          hopper::split_tf32_alu(cb.x, ah[1], al[1]);
+          hopper::split_tf32_alu(ca.y, ah[2], al[2]);
+          hopper::split_tf32_alu(cb.y, ah[3], al[3]);
+#pragma unroll
+          for (int jn = 0; jn < 8; ++jn) {
+            const float2 bv = *reinterpret_cast<const float2*>(
+                Bs + (8 * jn + g) * dm.ldg + k0 + 2 * t);
+            hopper::split_tf32_alu(bv.x, bh[jn][0], bl[jn][0]);
+            hopper::split_tf32_alu(bv.y, bh[jn][1], bl[jn][1]);
+          }
+#pragma unroll
+          for (int jn = 0; jn < 8; ++jn) hopper::mma_tf32(d[jn], al, bh[jn]);
+#pragma unroll
+          for (int jn = 0; jn < 8; ++jn) hopper::mma_tf32(d[jn], ah, bl[jn]);
+#pragma unroll
+          for (int jn = 0; jn < 8; ++jn) hopper::mma_tf32(d[jn], ah, bh[jn]);
         }
-        Gf[((jt * 4 + s) * 8 + jn) * 32 + lane] =
-            make_float4(d[0][0], d[0][1], d[0][2], d[0][3]);
+#pragma unroll
+        for (int jn = 0; jn < 8; ++jn)
+          Gf[((jt * 4 + s) * 8 + jn) * 32 + lane] =
+              make_float4(d[jn][0], d[jn][1], d[jn][2], d[jn][3]);
       }
-      __syncthreads();               // G stored; Bs free for the next tile
+      __syncthreads();               // G stored; the slots are free
     }
 
     // per head of the team: y_i = sum_j M_ij x_j
     const int i_lo = i0 + row0 + g, i_hi = i_lo + 8;
-    team_loop(
+    team_loop<kFull>(
         xb, ng, it + 1, dm, ring, stages, vec_x,
         [&](int hq, int jt, const float* X) {
           if (!rows_here) return;
           const float* csh = cs + hq * kMaxL;
           const float* dth = dts + hq * kMaxL;
-          const float ci_lo = csh[i_lo], ci_hi = csh[i_hi < kMaxL ? i_hi : 0];
+          const float ci_lo = csh[i_lo], ci_hi = csh[i_hi];
           const bool lo_live = i_lo < l, hi_live = i_hi < l;
-          const int steps = jt == it ? 2 * s + 2 : 8;
-          for (int jn = 0; jn < steps; ++jn) {
-            const float4 gv = Gf[((jt * 4 + s) * 8 + jn) * 32 + lane];
-            const int j = jt * kT + 8 * jn + 2 * t;
-            const float2 cj = *reinterpret_cast<const float2*>(csh + j);
-            const float2 dj = *reinterpret_cast<const float2*>(dth + j);
-            // M's A fragment: rows g, g + 8, reduction indices j, j + 1
-            const float m0 = (lo_live && j <= i_lo)
-                                 ? gv.x * expf(ci_lo - cj.x) * dj.x : 0.f;
-            const float m1 = (lo_live && j + 1 <= i_lo)
-                                 ? gv.y * expf(ci_lo - cj.y) * dj.y : 0.f;
-            const float m2 = (hi_live && j <= i_hi)
-                                 ? gv.z * expf(ci_hi - cj.x) * dj.x : 0.f;
-            const float m3 = (hi_live && j + 1 <= i_hi)
-                                 ? gv.w * expf(ci_hi - cj.y) * dj.y : 0.f;
-            uint32_t ah[4], al[4];
-            hopper::split_tf32(m0, ah[0], al[0]);
-            hopper::split_tf32(m2, ah[1], al[1]);
-            hopper::split_tf32(m1, ah[2], al[2]);
-            hopper::split_tf32(m3, ah[3], al[3]);
-            mma_rows(acc, ah, al, X, 8 * jn + 2 * t, dm.ldx, dm.pp, g);
-          }
+          // M's A fragment for the step's key columns j, j + 1 and the rows
+          // g, g + 8: below the diagonal tile every pair is live (rows past
+          // l have G = 0 there, as C's rows past l are zeros)
+          auto ksteps = [&](auto diag) {
+            constexpr bool kDiag = decltype(diag)::value;
+            const int steps = kDiag ? 2 * s + 2 : 8;
+            for (int jn = 0; jn < steps; ++jn) {
+              const float4 gv = Gf[((jt * 4 + s) * 8 + jn) * 32 + lane];
+              const int j = jt * kT + 8 * jn + 2 * t;
+              const float2 cj = *reinterpret_cast<const float2*>(csh + j);
+              const float2 dj = *reinterpret_cast<const float2*>(dth + j);
+              float m0 = gv.x * expf(ci_lo - cj.x) * dj.x;
+              float m1 = gv.y * expf(ci_lo - cj.y) * dj.y;
+              float m2 = gv.z * expf(ci_hi - cj.x) * dj.x;
+              float m3 = gv.w * expf(ci_hi - cj.y) * dj.y;
+              if (kDiag) {   // exp's argument is positive above it
+                m0 = (lo_live && j <= i_lo) ? m0 : 0.f;
+                m1 = (lo_live && j + 1 <= i_lo) ? m1 : 0.f;
+                m2 = (hi_live && j <= i_hi) ? m2 : 0.f;
+                m3 = (hi_live && j + 1 <= i_hi) ? m3 : 0.f;
+              }
+              uint32_t ah[4], al[4];
+              hopper::split_tf32_alu(m0, ah[0], al[0]);
+              hopper::split_tf32_alu(m2, ah[1], al[1]);
+              hopper::split_tf32_alu(m1, ah[2], al[2]);
+              hopper::split_tf32_alu(m3, ah[3], al[3]);
+              mma_rows<PT, kFull>(acc, ah, al, X, 8 * jn + 2 * t, dm.ldx,
+                                  dm.pp, g);
+            }
+          };
+          if (jt == it) ksteps(std::true_type{});
+          else ksteps(std::false_type{});
         },
         [&](int hq) {
           store_rows(y + (bc * l + i0) * hs + (int64_t)(g0 + hq) * p, hs,
@@ -377,7 +446,7 @@ ssd_chunk_kernel(const float* __restrict__ x, const float* __restrict__ dA,
   hopper::cp_async_wait<0>();
   __syncthreads();
   const bool rows_here = row0 < kc;
-  team_loop(
+  team_loop<kFull>(
       xb, ng, dm.nt, dm, ring, stages, vec_x,
       [&](int hq, int jt, const float* X) {
         if (!rows_here) return;
@@ -389,11 +458,11 @@ ssd_chunk_kernel(const float* __restrict__ x, const float* __restrict__ dA,
           const float2 w = *reinterpret_cast<const float2*>(wh + j0 + r);
           const float* b0 = Bs + (j0 + r) * kLDS + row0 + g;
           uint32_t ah[4], al[4];
-          hopper::split_tf32(b0[0] * w.x, ah[0], al[0]);
-          hopper::split_tf32(b0[8] * w.x, ah[1], al[1]);
-          hopper::split_tf32(b0[kLDS] * w.y, ah[2], al[2]);
-          hopper::split_tf32(b0[kLDS + 8] * w.y, ah[3], al[3]);
-          mma_rows(acc, ah, al, X, r, dm.ldx, dm.pp, g);
+          hopper::split_tf32_alu(b0[0] * w.x, ah[0], al[0]);
+          hopper::split_tf32_alu(b0[8] * w.x, ah[1], al[1]);
+          hopper::split_tf32_alu(b0[kLDS] * w.y, ah[2], al[2]);
+          hopper::split_tf32_alu(b0[kLDS + 8] * w.y, ah[3], al[3]);
+          mma_rows<PT, kFull>(acc, ah, al, X, r, dm.ldx, dm.pp, g);
         }
       },
       [&](int hq) {
@@ -421,19 +490,19 @@ Dims make_dims(int64_t l, int64_t h, int64_t p, int64_t n) {
 
 constexpr size_t kSmemMax = 232448;  // bytes a block may have on sm_90
 
-template <int PT>
+template <int PT, bool kFull>
 cudaError_t launch(const float* x, const float* dA, const float* dt,
                    const float* B, const float* C, float* y, float* st,
                    int64_t BC, const Dims& dm, int stages, bool vec_x,
                    bool vec_bc, cudaStream_t stream) {
   const size_t smem = smem_floats(dm, stages) * sizeof(float);
   const cudaError_t err = cudaFuncSetAttribute(
-      ssd_chunk_kernel<PT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      ssd_chunk_kernel<PT, kFull>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((unsigned)(dm.nt + dm.ns), (unsigned)dm.groups,
                   (unsigned)BC);
-  ssd_chunk_kernel<PT><<<grid, kThreads, smem, stream>>>(
+  ssd_chunk_kernel<PT, kFull><<<grid, kThreads, smem, stream>>>(
       x, dA, dt, B, C, y, st, dm, stages, vec_x, vec_bc);
   return cudaGetLastError();
 }
@@ -461,7 +530,9 @@ extern "C" int ssd_chunk_launch(const void* x, const void* dA, const void* dt,
                     (const float*)B, (const float*)C, (float*)y, (float*)st,
                     BC, dm, stages, vec_x, vec_bc, (cudaStream_t)stream);
   };
-  return (int)(dm.pp <= 64 ? args(launch<8>) : args(launch<16>));
+  // p = 64 (every model's head dim) without column checks; any other p
+  // with them
+  return (int)(dm.pp == 64 ? args(launch<8, true>) : args(launch<16, false>));
 }
 
 extern "C" const char* error_string(int err) {
