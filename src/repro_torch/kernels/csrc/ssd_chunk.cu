@@ -530,9 +530,9 @@ extern "C" int ssd_chunk_launch(const void* x, const void* dA, const void* dt,
                     (const float*)B, (const float*)C, (float*)y, (float*)st,
                     BC, dm, stages, vec_x, vec_bc, (cudaStream_t)stream);
   };
-  // p = 64 (every model's head dim) without column checks; any other p
-  // with them
-  return (int)(dm.pp == 64 ? args(launch<8, true>) : args(launch<16, false>));
+  // p = 64 (the model's head dim) without column checks; any other p,
+  // whose x rows end inside a tile, with them
+  return (int)(p == 64 ? args(launch<8, true>) : args(launch<16, false>));
 }
 
 extern "C" const char* error_string(int err) {
