@@ -383,7 +383,7 @@ __device__ __forceinline__ void split_tf32(float v, uint32_t& hi,
 // the magnitude's bits and clearing the 13 it drops rounds to nearest, ties
 // away, as cvt.rna does for finite v. cvt runs at the conversion rate,
 // and a kernel that splits each operand of every product is faster this
-// way (PERF.md, PR 16).
+// way (PERF.md, the SSD chunk's forward).
 __device__ __forceinline__ void split_tf32_alu(float v, uint32_t& hi,
                                                uint32_t& lo) {
   hi = (__float_as_uint(v) + 0x1000u) & 0xffffe000u;

@@ -25,7 +25,10 @@
 //    head; each team accumulates st = (B o w)^T x over every key tile for
 //    its heads and writes it once. The state is a block of its own rather
 //    than the last query tile's work, so no block does both the longest
-//    y rows and the state; it reads x again (from L2) and B once.
+//    y rows and the state. It costs a second read of x (268 MB at the
+//    serving shape, mostly from L2) and of B (33.5 MB over the groups,
+//    4.2 MB of it from device memory); the query blocks read x_j once per
+//    query tile at or below it, 2.5 times in all.
 // Every product is a warp's mma.sync.m16n8k8 in split TF32: each float32
 // operand v is hi = tf32(v) and lo = tf32(v - hi), both rounded to nearest
 // as cvt.rna rounds (split_tf32_alu, on the integer units), and the float32
@@ -55,7 +58,7 @@
 // full. mma.sync reaches about two thirds of the TF32 rate on this card,
 // and each product carries its operands' splits, exp and fragment loads;
 // one block per SM (225 KB of shared memory) leaves its prologue and the
-// G phase unhidden (PERF.md, PR 16).
+// G phase unhidden (PERF.md).
 #include "hopper.cuh"
 #include <cuda_runtime.h>
 #include <math.h>
@@ -248,7 +251,7 @@ __host__ __device__ inline size_t smem_floats(const Dims& d, int stages) {
 // `done(hq)` writes a head's result after its last tile. The tiles come
 // through a ring of `stages` tiles; each warp splits what it reads (one
 // split per team and tile, shared through shared memory, measured slower:
-// PERF.md, PR 16).
+// PERF.md).
 template <bool kFull, typename Step, typename Done>
 __device__ __forceinline__ void team_loop(const float* xb, int ng, int tiles,
                                           const Dims& dm, float* ring,
