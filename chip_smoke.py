@@ -63,7 +63,8 @@ tiled matmul (K5) at the up-projection's shape and at a ragged and an
 edge shape in both types, its bf16 checks with their per-row share,
 and K4's forward again at edge shapes (``SSD_CHECKS``: a partial last
 tile, head groups that are not full, a one-row chunk), each check with
-its share of ``SSD_TOL``'s ``allclose`` limit for y and the states.
+its share of ``SSD_TOL``'s ``allclose`` limit for y and the states (at
+``SSD_SHAPE`` the largest over ``SSD_DRAWS`` input draws).
 K3 (both ways) and K4's backward are compared element by element, each
 output's share of its limit beside its RMS (``ATTN_TOL``); K3 is timed
 at the main and the train shapes beside SDPA, whose share of the same
@@ -144,6 +145,9 @@ SSD_SHAPE = (SERVE_BS, SERVE_SEQ // 256, 256, 64, 64, 64)
 # group and a partial one); a one-row chunk with p, n under 8
 SSD_CHECKS = ((1, 1, 100, 5, 100, 128), (1, 2, 256, 11, 64, 128),
               (2, 1, 1, 3, 8, 4))
+# K4's forward at SSD_SHAPE on this many input draws: its share of the
+# limit varies with the inputs, and the largest is reported
+SSD_DRAWS = 4
 # training: bs 4 x 512 tokens at full width; the cuda-vs-cpu step on a
 # 2-layer full-width copy; the interleaved trace's slack per batch
 TRAIN_BS, TRAIN_SEQ, TRAIN_STEPS = 4, 512, 3
@@ -495,8 +499,9 @@ def check_ssd(torch, K4, shape, gen, dev) -> tuple:
 
 
 def time_ssd(torch, K4, gen, dev, reps: int) -> dict:
-    """K4's forward at the serve_interleaved forward's shape (checked and
-    timed), then checked at ``SSD_CHECKS``."""
+    """K4's forward at the serve_interleaved forward's shape (checked on
+    ``SSD_DRAWS`` draws, the first timed; the largest share is the
+    record's), then checked at ``SSD_CHECKS``."""
     b, nc, l, h, p, n = SSD_SHAPE
     args, rec = check_ssd(torch, K4, SSD_SHAPE, gen, dev)
     ms = cuda_ms(torch, lambda: K4.ssd_chunk(*args), reps)
@@ -511,6 +516,14 @@ def time_ssd(torch, K4, gen, dev, reps: int) -> dict:
     ops = 2.0 * b * nc * (tri * n + h * (tri * p + l * n * p))
     b_ms, by, b32_ms = float32_bound(nbytes, ops)
     del args
+    torch.cuda.empty_cache()
+    draws = [rec] + [check_ssd(torch, K4, SSD_SHAPE, gen, dev)[1]
+                     for _ in range(SSD_DRAWS - 1)]
+    shares = [d["limit_share"] for d in draws]
+    for key in ("limit_share", "max_abs_err_by_output"):
+        rec[key] = {k: max(d[key][k] for d in draws) for k in ("y", "st")}
+    rec["max_abs_err"] = max(d["max_abs_err"] for d in draws)
+    rec["limit_share_draws"] = shares
     torch.cuda.empty_cache()
     checks = []
     for shape in SSD_CHECKS:

@@ -365,11 +365,13 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2],
 
 // v rounded to nearest (ties away) at TF32's 10 mantissa bits: the 32-bit
 // register a tf32 mma.sync operand takes. Raw float32 bits would be
-// truncated by the instruction instead.
+// truncated by the instruction instead. Adding half a TF32 ulp to the
+// magnitude's bits and clearing the 13 it drops gives cvt.rna.tf32.f32's
+// bits for finite v on the integer units; cvt runs at the conversion rate,
+// and a kernel that splits each operand of every product is faster this
+// way (PERF.md, the SSD chunk's forward).
 __device__ __forceinline__ uint32_t to_tf32(float v) {
-  uint32_t r;
-  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(v));
-  return r;
+  return (__float_as_uint(v) + 0x1000u) & 0xffffe000u;
 }
 
 // v = hi + lo to about 21 bits: hi = tf32(v), lo = tf32(v - hi)
@@ -377,17 +379,6 @@ __device__ __forceinline__ void split_tf32(float v, uint32_t& hi,
                                            uint32_t& lo) {
   hi = to_tf32(v);
   lo = to_tf32(v - __uint_as_float(hi));
-}
-
-// split_tf32 bit for bit, on the integer units: adding half a TF32 ulp to
-// the magnitude's bits and clearing the 13 it drops rounds to nearest, ties
-// away, as cvt.rna does for finite v. cvt runs at the conversion rate,
-// and a kernel that splits each operand of every product is faster this
-// way (PERF.md, the SSD chunk's forward).
-__device__ __forceinline__ void split_tf32_alu(float v, uint32_t& hi,
-                                               uint32_t& lo) {
-  hi = (__float_as_uint(v) + 0x1000u) & 0xffffe000u;
-  lo = (__float_as_uint(v - __uint_as_float(hi)) + 0x1000u) & 0xffffe000u;
 }
 
 // D(16 x 8) += A(16 x 8) B(8 x 8), tf32 in, float32 accumulate; the PTX

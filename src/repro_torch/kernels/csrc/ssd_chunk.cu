@@ -31,7 +31,7 @@
 //    query tile at or below it, 2.5 times in all.
 // Every product is a warp's mma.sync.m16n8k8 in split TF32: each float32
 // operand v is hi = tf32(v) and lo = tf32(v - hi), both rounded to nearest
-// as cvt.rna rounds (split_tf32_alu, on the integer units), and the float32
+// as cvt.rna rounds (split_tf32, on the integer units), and the float32
 // accumulator takes hi.hi + hi.lo + lo.hi. Plain TF32 would miss the 2e-4 /
 // 1e-4 tolerance (tests/test_torch_ssd.py emulates both). wgmma takes TF32
 // operands only K-major, and M x and (B o w)^T x contract over the tile's
@@ -42,13 +42,14 @@
 // accumulator fragment is then M's A fragment as it stands, and rows along
 // the reduction load as float2. Row pads keep every fragment load free of
 // bank conflicts (x rows p + 4 wide, C and B rows a multiple of 16 plus
-// 8). Each team streams its x tiles through a cp.async ring of two stages
-// (one where p > 64 leaves no room), synchronising only its own 128
-// threads (named barriers). The grid runs a (bc, group)'s blocks next to each
-// other, so x_j, read by each query tile at or below it, comes from L2
-// after its first read. cs is formed per head in float64 and rounded
-// once, as chunk_cumsum does; exp is taken only where j <= i (above the
-// diagonal the segment sum is positive and may overflow).
+// 8). Each team streams its x tiles through a one-tile cp.async buffer,
+// synchronising only its own 128 threads (named barriers): the SM's other
+// three teams hide a team's load (two stages ran no faster, PERF.md). The
+// grid runs a (bc, group)'s blocks next to each other, so x_j, read by each
+// query tile at or below it, comes from L2 after its first read. cs is
+// formed per head in float64 and rounded once, as chunk_cumsum does. Above
+// the diagonal the segment sum is positive and may overflow, so there exp
+// takes -inf and gives 0.
 //
 // What bounds it: bytes, 621 MB at the serving shape (8, 8, 256, 64, 64,
 // 64), 0.185 ms at 3.35 TB/s; its least work, 26.1 GFLOP, takes 0.158 ms
@@ -57,8 +58,8 @@
 // whole), M x per head on five eighths of the diagonal tile, the state in
 // full. mma.sync reaches about two thirds of the TF32 rate on this card,
 // and each product carries its operands' splits, exp and fragment loads;
-// one block per SM (225 KB of shared memory) leaves its prologue and the
-// G phase unhidden (PERF.md).
+// one block per SM (512 threads at 113 registers; 178 KB of shared memory
+// at that shape) leaves its prologue and the G phase unhidden (PERF.md).
 #include "hopper.cuh"
 #include <cuda_runtime.h>
 #include <math.h>
@@ -82,6 +83,7 @@ struct Dims {
   int pp, np;                        // p and n rounded up to 8
   int ldx, ldg;                      // padded rows of x and of C, B tiles
   int nt, groups, ns;                // tiles, head groups, state blocks
+  int slots;                         // B tiles staged at once for G
 };
 
 // the in-chunk cumsum of dA and dt for the group's heads: warp w scans head
@@ -188,8 +190,8 @@ __device__ __forceinline__ void mma_rows(float (&acc)[PT][4],
       const bool live = kFull || 8 * pn < pp;
       const float b0 = live ? X[r * ld + 8 * pn + g] : 0.f;
       const float b1 = live ? X[(r + 1) * ld + 8 * pn + g] : 0.f;
-      hopper::split_tf32_alu(b0, bh[u][0], bl[u][0]);
-      hopper::split_tf32_alu(b1, bh[u][1], bl[u][1]);
+      hopper::split_tf32(b0, bh[u][0], bl[u][0]);
+      hopper::split_tf32(b1, bh[u][1], bl[u][1]);
     }
 #pragma unroll
     for (int u = 0; u < kChunk; ++u) hopper::mma_tf32(acc[c0 + u], al, bh[u]);
@@ -236,59 +238,51 @@ __device__ __forceinline__ void zero(float (&acc)[PT][4]) {
 __host__ __device__ inline size_t r1_floats(const Dims& d) {
   return (size_t)d.nt * kT * kLDS;   // >= G's nt x 4 strips x 8 x 32 x 4
 }
-__host__ __device__ inline size_t ring_floats(const Dims& d, int stages) {
-  const size_t ring = (size_t)kTeams * stages * kT * d.ldx;
-  const size_t staging = 3 * (size_t)kT * d.ldg;   // C_i and >= two B_j
+// the team buffers of x tiles, or C_i and dm.slots B_j while G is formed
+__host__ __device__ inline size_t ring_floats(const Dims& d) {
+  const size_t ring = (size_t)kTeams * kT * d.ldx;
+  const size_t staging = (size_t)(1 + d.slots) * kT * d.ldg;
   return ring > staging ? ring : staging;
 }
-__host__ __device__ inline size_t smem_floats(const Dims& d, int stages) {
-  return 2 * kGroup * kMaxL + r1_floats(d) + ring_floats(d, stages);
+__host__ __device__ inline size_t smem_floats(const Dims& d) {
+  return 2 * kGroup * kMaxL + r1_floats(d) + ring_floats(d);
 }
 
 // The team loop shared by both kinds of block: steps (head of the team,
 // key tile jt in [0, tiles)), x_j of the step's head through the team's
 // buffer; `step(hq, jt, X)` runs the products on the tile at X, and
-// `done(hq)` writes a head's result after its last tile. The tiles come
-// through a ring of `stages` tiles; each warp splits what it reads (one
-// split per team and tile, shared through shared memory, measured slower:
-// PERF.md).
+// `done(hq)` writes a head's result after its last tile. The next tile's
+// copy is issued once the team has consumed this one; each warp splits
+// what it reads (one split per team and tile, shared through shared
+// memory, measured slower: PERF.md).
 template <bool kFull, typename Step, typename Done>
 __device__ __forceinline__ void team_loop(const float* xb, int ng, int tiles,
                                           const Dims& dm, float* ring,
-                                          int stages, bool vec_x, Step step,
-                                          Done done) {
+                                          bool vec_x, Step step, Done done) {
   const int team = threadIdx.x / kTeamThreads;
   const int tt = threadIdx.x % kTeamThreads;
   const int nh = ng > team ? (ng - team + kTeams - 1) / kTeams : 0;
   const int steps = nh * tiles;
-  const int stage = kT * dm.ldx;
-  float* mine = ring + (size_t)team * stages * stage;
+  float* mine = ring + (size_t)team * kT * dm.ldx;
   const int64_t hs = (int64_t)dm.h * dm.p;
   auto issue = [&](int s) {
     const int hq = team + kTeams * (s / tiles);
-    float* dst = mine + (s % stages) * stage;
     if (kFull && vec_x)
-      stage_x64(dst, xb + (int64_t)hq * dm.p, (s % tiles) * kT, dm.l, hs,
+      stage_x64(mine, xb + (int64_t)hq * dm.p, (s % tiles) * kT, dm.l, hs,
                 dm.ldx, tt);
     else
-      stage_rows(dst, xb + (int64_t)hq * dm.p, (s % tiles) * kT, dm.l, hs,
+      stage_rows(mine, xb + (int64_t)hq * dm.p, (s % tiles) * kT, dm.l, hs,
                  dm.p, dm.pp, dm.ldx, vec_x, tt, kTeamThreads);
     hopper::cp_async_commit();
   };
   if (steps > 0) issue(0);
   for (int s = 0; s < steps; ++s) {
-    const bool next = s + 1 < steps;
-    if (next && stages == 2) {
-      issue(s + 1);
-      hopper::cp_async_wait<1>();
-    } else {
-      hopper::cp_async_wait<0>();
-    }
+    hopper::cp_async_wait<0>();
     hopper::bar_sync(1 + team, kTeamThreads);
     const int hq = team + kTeams * (s / tiles), jt = s % tiles;
-    step(hq, jt, mine + (s % stages) * stage);
+    step(hq, jt, mine);
     hopper::bar_sync(1 + team, kTeamThreads);   // this tile is consumed
-    if (next && stages == 1) issue(s + 1);
+    if (s + 1 < steps) issue(s + 1);
     if (jt == tiles - 1) done(hq);
   }
 }
@@ -298,13 +292,12 @@ __global__ void __launch_bounds__(kThreads, 1)
 ssd_chunk_kernel(const float* __restrict__ x, const float* __restrict__ dA,
                  const float* __restrict__ dt, const float* __restrict__ B,
                  const float* __restrict__ C, float* __restrict__ y,
-                 float* __restrict__ st, Dims dm, int stages, bool vec_x,
-                 bool vec_bc) {
+                 float* __restrict__ st, Dims dm, bool vec_x, bool vec_bc) {
   extern __shared__ float4 smem4[];
   float* cs = reinterpret_cast<float*>(smem4);  // [kGroup][kMaxL]
   float* dts = cs + kGroup * kMaxL;              // dt, or w in state blocks
   float* R1 = dts + kGroup * kMaxL;              // G fragments, or B
-  float* ring = R1 + r1_floats(dm);              // staging, then x rings
+  float* ring = R1 + r1_floats(dm);              // staging, then x tiles
 
   const int l = dm.l, h = dm.h, p = dm.p, n = dm.n;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
@@ -326,15 +319,14 @@ ssd_chunk_kernel(const float* __restrict__ x, const float* __restrict__ dA,
     const int it = dm.nt - 1 - blockIdx.x;      // heaviest tiles first
     const int i0 = it * kT;
     const bool rows_here = i0 + row0 < l;       // the strip has live rows
-    // G_ij for the key tiles j <= i: C_i and as many B_j as the staging
-    // area holds (every tile at the serving shape) arrive together; team
+    // G_ij for the key tiles j <= i: C_i and dm.slots B_j (every tile
+    // where n <= 64, as at the serving shape) arrive together; team
     // tau forms G of the round's tau-th tile for the warp's strip, all 8
     // column tiles at once (on the diagonal those past the strip's last row
     // are formed and never read)
     float* Cs = ring;                            // [kT][ldg]
     float* Bslots = ring + kT * dm.ldg;          // [slots][kT][ldg]
-    const int slots = min(kTeams, (int)(ring_floats(dm, stages) /
-                                        ((size_t)kT * dm.ldg)) - 1);
+    const int slots = dm.slots;
     const float* Bb = B + bc * l * n;
     stage_rows(Cs, C + bc * l * n, i0, l, n, n, dm.np, dm.ldg, vec_bc,
                threadIdx.x, kThreads);
@@ -356,16 +348,16 @@ ssd_chunk_kernel(const float* __restrict__ x, const float* __restrict__ dA,
           const float2 ca = *reinterpret_cast<const float2*>(c0);
           const float2 cb = *reinterpret_cast<const float2*>(c0 + 8 * dm.ldg);
           uint32_t ah[4], al[4], bh[8][2], bl[8][2];
-          hopper::split_tf32_alu(ca.x, ah[0], al[0]);
-          hopper::split_tf32_alu(cb.x, ah[1], al[1]);
-          hopper::split_tf32_alu(ca.y, ah[2], al[2]);
-          hopper::split_tf32_alu(cb.y, ah[3], al[3]);
+          hopper::split_tf32(ca.x, ah[0], al[0]);
+          hopper::split_tf32(cb.x, ah[1], al[1]);
+          hopper::split_tf32(ca.y, ah[2], al[2]);
+          hopper::split_tf32(cb.y, ah[3], al[3]);
 #pragma unroll
           for (int jn = 0; jn < 8; ++jn) {
             const float2 bv = *reinterpret_cast<const float2*>(
                 Bs + (8 * jn + g) * dm.ldg + k0 + 2 * t);
-            hopper::split_tf32_alu(bv.x, bh[jn][0], bl[jn][0]);
-            hopper::split_tf32_alu(bv.y, bh[jn][1], bl[jn][1]);
+            hopper::split_tf32(bv.x, bh[jn][0], bl[jn][0]);
+            hopper::split_tf32(bv.y, bh[jn][1], bl[jn][1]);
           }
 #pragma unroll
           for (int jn = 0; jn < 8; ++jn) hopper::mma_tf32(d[jn], al, bh[jn]);
@@ -385,7 +377,7 @@ ssd_chunk_kernel(const float* __restrict__ x, const float* __restrict__ dA,
     // per head of the team: y_i = sum_j M_ij x_j
     const int i_lo = i0 + row0 + g, i_hi = i_lo + 8;
     team_loop<kFull>(
-        xb, ng, it + 1, dm, ring, stages, vec_x,
+        xb, ng, it + 1, dm, ring, vec_x,
         [&](int hq, int jt, const float* X) {
           if (!rows_here) return;
           const float* csh = cs + hq * kMaxL;
@@ -403,21 +395,23 @@ ssd_chunk_kernel(const float* __restrict__ x, const float* __restrict__ dA,
               const int j = jt * kT + 8 * jn + 2 * t;
               const float2 cj = *reinterpret_cast<const float2*>(csh + j);
               const float2 dj = *reinterpret_cast<const float2*>(dth + j);
-              float m0 = gv.x * expf(ci_lo - cj.x) * dj.x;
-              float m1 = gv.y * expf(ci_lo - cj.y) * dj.y;
-              float m2 = gv.z * expf(ci_hi - cj.x) * dj.x;
-              float m3 = gv.w * expf(ci_hi - cj.y) * dj.y;
-              if (kDiag) {   // exp's argument is positive above it
-                m0 = (lo_live && j <= i_lo) ? m0 : 0.f;
-                m1 = (lo_live && j + 1 <= i_lo) ? m1 : 0.f;
-                m2 = (hi_live && j <= i_hi) ? m2 : 0.f;
-                m3 = (hi_live && j + 1 <= i_hi) ? m3 : 0.f;
+              float a0 = ci_lo - cj.x, a1 = ci_lo - cj.y;
+              float a2 = ci_hi - cj.x, a3 = ci_hi - cj.y;
+              if (kDiag) {   // above it exp's argument is positive: -inf
+                a0 = (lo_live && j <= i_lo) ? a0 : -INFINITY;
+                a1 = (lo_live && j + 1 <= i_lo) ? a1 : -INFINITY;
+                a2 = (hi_live && j <= i_hi) ? a2 : -INFINITY;
+                a3 = (hi_live && j + 1 <= i_hi) ? a3 : -INFINITY;
               }
+              const float m0 = gv.x * expf(a0) * dj.x;
+              const float m1 = gv.y * expf(a1) * dj.y;
+              const float m2 = gv.z * expf(a2) * dj.x;
+              const float m3 = gv.w * expf(a3) * dj.y;
               uint32_t ah[4], al[4];
-              hopper::split_tf32_alu(m0, ah[0], al[0]);
-              hopper::split_tf32_alu(m2, ah[1], al[1]);
-              hopper::split_tf32_alu(m1, ah[2], al[2]);
-              hopper::split_tf32_alu(m3, ah[3], al[3]);
+              hopper::split_tf32(m0, ah[0], al[0]);
+              hopper::split_tf32(m2, ah[1], al[1]);
+              hopper::split_tf32(m1, ah[2], al[2]);
+              hopper::split_tf32(m3, ah[3], al[3]);
               mma_rows<PT, kFull>(acc, ah, al, X, 8 * jn + 2 * t, dm.ldx,
                                   dm.pp, g);
             }
@@ -450,7 +444,7 @@ ssd_chunk_kernel(const float* __restrict__ x, const float* __restrict__ dA,
   __syncthreads();
   const bool rows_here = row0 < kc;
   team_loop<kFull>(
-      xb, ng, dm.nt, dm, ring, stages, vec_x,
+      xb, ng, dm.nt, dm, ring, vec_x,
       [&](int hq, int jt, const float* X) {
         if (!rows_here) return;
         const float* wh = dts + hq * kMaxL;
@@ -461,10 +455,10 @@ ssd_chunk_kernel(const float* __restrict__ x, const float* __restrict__ dA,
           const float2 w = *reinterpret_cast<const float2*>(wh + j0 + r);
           const float* b0 = Bs + (j0 + r) * kLDS + row0 + g;
           uint32_t ah[4], al[4];
-          hopper::split_tf32_alu(b0[0] * w.x, ah[0], al[0]);
-          hopper::split_tf32_alu(b0[8] * w.x, ah[1], al[1]);
-          hopper::split_tf32_alu(b0[kLDS] * w.y, ah[2], al[2]);
-          hopper::split_tf32_alu(b0[kLDS + 8] * w.y, ah[3], al[3]);
+          hopper::split_tf32(b0[0] * w.x, ah[0], al[0]);
+          hopper::split_tf32(b0[8] * w.x, ah[1], al[1]);
+          hopper::split_tf32(b0[kLDS] * w.y, ah[2], al[2]);
+          hopper::split_tf32(b0[kLDS + 8] * w.y, ah[3], al[3]);
           mma_rows<PT, kFull>(acc, ah, al, X, r, dm.ldx, dm.pp, g);
         }
       },
@@ -474,6 +468,8 @@ ssd_chunk_kernel(const float* __restrict__ x, const float* __restrict__ dA,
         zero(acc);
       });
 }
+
+constexpr size_t kSmemMax = 232448;  // bytes a block may have on sm_90
 
 Dims make_dims(int64_t l, int64_t h, int64_t p, int64_t n) {
   Dims d;
@@ -488,17 +484,21 @@ Dims make_dims(int64_t l, int64_t h, int64_t p, int64_t n) {
   d.nt = (int)((l + kT - 1) / kT);
   d.groups = (int)((h + kGroup - 1) / kGroup);
   d.ns = (int)((n + kT - 1) / kT);
+  // as many B tiles beside C_i as shared memory holds, up to one a team
+  // (three at n = 128)
+  const size_t tile = (size_t)kT * d.ldg;
+  const size_t free = kSmemMax / sizeof(float) - 2 * kGroup * kMaxL -
+                      r1_floats(d) - tile;
+  d.slots = (int)(free / tile < kTeams ? free / tile : kTeams);
   return d;
 }
-
-constexpr size_t kSmemMax = 232448;  // bytes a block may have on sm_90
 
 template <int PT, bool kFull>
 cudaError_t launch(const float* x, const float* dA, const float* dt,
                    const float* B, const float* C, float* y, float* st,
-                   int64_t BC, const Dims& dm, int stages, bool vec_x,
-                   bool vec_bc, cudaStream_t stream) {
-  const size_t smem = smem_floats(dm, stages) * sizeof(float);
+                   int64_t BC, const Dims& dm, bool vec_x, bool vec_bc,
+                   cudaStream_t stream) {
+  const size_t smem = smem_floats(dm) * sizeof(float);
   const cudaError_t err = cudaFuncSetAttribute(
       ssd_chunk_kernel<PT, kFull>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
@@ -506,7 +506,7 @@ cudaError_t launch(const float* x, const float* dA, const float* dt,
   const dim3 grid((unsigned)(dm.nt + dm.ns), (unsigned)dm.groups,
                   (unsigned)BC);
   ssd_chunk_kernel<PT, kFull><<<grid, kThreads, smem, stream>>>(
-      x, dA, dt, B, C, y, st, dm, stages, vec_x, vec_bc);
+      x, dA, dt, B, C, y, st, dm, vec_x, vec_bc);
   return cudaGetLastError();
 }
 
@@ -522,8 +522,6 @@ extern "C" int ssd_chunk_launch(const void* x, const void* dA, const void* dt,
       h > 65535LL * kGroup)
     return (int)cudaErrorInvalidValue;
   const Dims dm = make_dims(l, h, p, n);
-  // two ring stages a team where they fit, else one
-  const int stages = smem_floats(dm, 2) * sizeof(float) <= kSmemMax ? 2 : 1;
   // 16-byte cp.async: rows of 4-multiples and 16-byte aligned bases
   const bool vec_x = p % 4 == 0 && (uintptr_t)x % 16 == 0;
   const bool vec_bc = n % 4 == 0 && (uintptr_t)B % 16 == 0 &&
@@ -531,7 +529,7 @@ extern "C" int ssd_chunk_launch(const void* x, const void* dA, const void* dt,
   const auto args = [&](auto launcher) {
     return launcher((const float*)x, (const float*)dA, (const float*)dt,
                     (const float*)B, (const float*)C, (float*)y, (float*)st,
-                    BC, dm, stages, vec_x, vec_bc, (cudaStream_t)stream);
+                    BC, dm, vec_x, vec_bc, (cudaStream_t)stream);
   };
   // p = 64 (the model's head dim) without column checks; any other p,
   // whose x rows end inside a tile, with them

@@ -339,9 +339,12 @@ def test_split_tf32_products_meet_the_forward_tolerance(split, lo, hi):
     the tensor cores in split TF32 and is held to the plain version by
     ``allclose`` within rtol 2e-4, atol 1e-4 (``tests/test_torch_cuda.py``,
     ``chip_smoke.py``). At a full-width chunk (l = 256, p = n = 64) with
-    |cs| in the hundreds (``scale`` 3), the split's roundings take under a
-    tenth of that limit, |got - want| / (atol + rtol |want|); plain
-    TF32's take more than all of it, which is why the kernel splits."""
+    |cs| in the hundreds (``scale`` 3), the operands' split roundings take
+    under a tenth of that limit, |got - want| / (atol + rtol |want|);
+    plain TF32's take more than all of it, which is why the kernel splits.
+    The emulation sums the products in float64, so it leaves out the
+    tensor cores' float32 accumulation, which is what sets the kernel's
+    own share (0.14-0.38 of the limit at the serving shape, PERF.md)."""
     x, dt, A, B, C = _ssd_case(7, b=1, nc=2, l=256, h=4, p=64, n=64)
     args = [torch.from_numpy(a) for a in (x, (dt * A * 3.0).astype(np.float32),
                                           dt, B, C)]
