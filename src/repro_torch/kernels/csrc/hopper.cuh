@@ -369,7 +369,7 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2],
 // magnitude's bits and clearing the 13 it drops gives cvt.rna.tf32.f32's
 // bits for finite v on the integer units; cvt runs at the conversion rate,
 // and a kernel that splits each operand of every product is faster this
-// way (PERF.md, the SSD chunk's forward).
+// way (PERF.md, the SSD chunk both ways).
 __device__ __forceinline__ uint32_t to_tf32(float v) {
   return (__float_as_uint(v) + 0x1000u) & 0xffffe000u;
 }

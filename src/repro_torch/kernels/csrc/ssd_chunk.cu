@@ -44,7 +44,7 @@
 // bank conflicts (x rows p + 4 wide, C and B rows a multiple of 16 plus
 // 8). Each team streams its x tiles through a one-tile cp.async buffer,
 // synchronising only its own 128 threads (named barriers): the SM's other
-// three teams hide a team's load (two stages ran no faster, PERF.md). The
+// three teams hide a team's load (a second stage ran slower, PERF.md). The
 // grid runs a (bc, group)'s blocks next to each other, so x_j, read by each
 // query tile at or below it, comes from L2 after its first read. cs is
 // formed per head in float64 and rounded once, as chunk_cumsum does. Above
