@@ -11,9 +11,10 @@ each and stopping with a traceback at the first failure:
     raw on a line of its own) and the kernels' build time.
  2. ``kernels``: each kernel against its plain PyTorch version on the card
     at the engine's full shapes — the max-plus scan at 8192 lanes x 8192
-    events, the lane sort at 512 x 8192 and at 1 x 32768 (its global-pass
-    path) — with times, the bytes-over-bandwidth bound and the one-call
-    library yardstick where PyTorch has one.
+    events, the lane sort at 512 x 8192, at 1 x 32768 (its global-pass
+    path) and at the sweeps' sort chunks, 577 x 7263 and 34663 x 121 —
+    with times, the bytes-over-bandwidth bound and the one-call library
+    yardstick where PyTorch has one.
  3. ``execute``: the README quickstart (GMD concurrent plan for mobilenet,
     executed over a 120 s Poisson trace) on ``backend="cuda"`` and again on
     ``"cpu"``, compared to the engine tolerance.
@@ -120,10 +121,15 @@ OPS_PER_S = {"float64": FP64_OPS_PER_S,
              # float32-accurate products on the tensor cores: split TF32
              # (hi.hi + hi.lo + lo.hi) does each three times at 495 TFLOP/s
              "tf32x3": 495e12 / 3}
-# the kernel phase's shapes: the engine's full lane chunk, a report-builder
-# sort chunk, and one row long enough for the sort's global-memory passes
+# the kernel phase's shapes: the engine's full lane chunk; for the sort, a
+# report-builder sort chunk, one row long enough for the sort's
+# global-memory passes, and the sort chunks the two sweep phases really
+# give (_sort_chunks over their latencies): 2,205 lanes of 7,263 requests
+# in chunks of up to 577 rows, 100k lanes of 121 in chunks of up to 34,663
 MAXPLUS_SHAPE = (8192, 8192)
-SORT_SHAPES = ((512, 8192), (1, 32768))
+SORT_SHAPES = {"lane_sort": (512, 8192), "lane_sort_global_pass": (1, 32768),
+               "lane_sort_sweep_chunk": (577, 7263),
+               "lane_sort_sweep_100k_chunk": (34663, 121)}
 # the sweep: one 120 s Poisson trace at 60 req/s over the whole default
 # space, then bench_interleave_engine.py's 100k-lane point
 SWEEP_TRACE = (60.0, 120.0, 0)            # rate, duration, seed
@@ -779,19 +785,18 @@ def phase_kernels(torch, K1, K2, K3, K4, K5, seed: int) -> dict:
     args, valid = maxplus_case(torch, *MAXPLUS_SHAPE, gen, dev)
     k1 = time_maxplus(torch, K1, args, valid, reps=10)
     del args, valid
-    mat, bud = sort_case(torch, *SORT_SHAPES[0], gen, dev)
-    k2 = time_sort(torch, K2, mat, bud, reps=20)
-    mat, bud = sort_case(torch, *SORT_SHAPES[1], gen, dev)
-    k2_global = time_sort(torch, K2, mat, bud, reps=20)
-    del mat, bud
+    k2 = {}
+    for key, shape in SORT_SHAPES.items():
+        mat, bud = sort_case(torch, *shape, gen, dev)
+        k2[key] = time_sort(torch, K2, mat, bud, reps=20)
+        del mat, bud
     torch.cuda.empty_cache()
     k3 = time_attention(torch, K3, gen, dev, reps=10)
     k4 = time_ssd(torch, K4, gen, dev, reps=10)
     k3b = time_attention_bwd(torch, K3, gen, dev, reps=5)
     k4b = time_ssd_bwd(torch, K4, gen, dev, reps=5)
     k5 = time_matmul(torch, K5, gen, dev, reps=10)
-    out = {"phase": "kernels", "maxplus_scan": k1, "lane_sort": k2,
-           "lane_sort_global_pass": k2_global,
+    out = {"phase": "kernels", "maxplus_scan": k1, **k2,
            "maxplus_scan_library": "no single PyTorch call computes the "
                                    "max-plus recurrence with fills",
            "flash_attention": k3, "ssd_chunk": k4,

@@ -107,12 +107,23 @@ def test_cuda_maxplus_matches_plain(hopper, seed, lanes, kmax):
     assert np.all(np.abs(f - fp) <= 2)
 
 
-@pytest.mark.parametrize("lanes,reqs", [(1, 1), (9, 17), (33, 64),
-                                        (5, 16384), (2, 16385),
-                                        (1, 40000), (3, 70000)])
-def test_cuda_lane_sort_equals_plain(hopper, lanes, reqs):
+@pytest.mark.parametrize("lanes,reqs,kind", [
+    (1, 1, "ragged"), (9, 17, "ragged"), (33, 64, "ragged"),
+    (37, 121, "ragged"), (3, 256, "ragged"), (3, 257, "ragged"),
+    (4, 7263, "ragged"), (5, 16384, "ragged"), (2, 16384, "ragged"),
+    (2, 16385, "ragged"), (1, 40000, "ragged"), (3, 70000, "ragged"),
+    (6, 500, "ties"), (3, 300, "all_inf")])
+def test_cuda_lane_sort_equals_plain(hopper, lanes, reqs, kind):
+    """Ragged +inf-padded rows; "ties": every value one of 8 numbers;
+    "all_inf": the first lane has no entry (all +inf)."""
     rng = np.random.default_rng(lanes * reqs)
-    mat = torch.tensor(_sort_case(rng, lanes, reqs), device=hopper)
+    if kind == "ties":
+        mat = rng.choice(rng.uniform(1e-4, 10.0, 8), (lanes, reqs))
+    else:
+        mat = _sort_case(rng, lanes, reqs)
+    if kind == "all_inf":
+        mat[0] = np.inf
+    mat = torch.tensor(mat, device=hopper)
     budgets = torch.tensor(rng.uniform(0.1, 5.0, lanes), device=hopper)
     n0 = lane_sort.launches
     srt, viol = lane_sort(mat, budgets)
