@@ -316,15 +316,22 @@ def check_maxplus(torch, K1, args, valid, what: str) -> float:
     return float(diff.max()) if diff.numel() else 0.0
 
 
-def check_sort(torch, K2, mat, budgets, what: str) -> float:
+def check_sort(torch, K2, mat, budgets, what: str) -> str:
+    """Hold the lane sort to its plain version (equal values and counts);
+    returns the route its launch took, read from ``lane_sort.routes``."""
+    before = dict(K2.lane_sort.routes)
     srt, viol = K2.lane_sort(mat, budgets)
     torch.cuda.synchronize()
+    taken = [r for r, n in K2.lane_sort.routes.items() if n != before[r]]
+    if taken != [K2.route(mat.shape[1])]:
+        fail(f"{what}: lane_sort took routes {taken}, the rule says "
+             f"{K2.route(mat.shape[1])}")
     srt_p, viol_p = K2.lane_sort_plain(mat, budgets)
     if not torch.equal(srt, srt_p):
         fail(f"{what}: lane_sort values differ from torch.sort")
     if not torch.equal(viol, viol_p):
         fail(f"{what}: lane_sort violation counts differ")
-    return 0.0
+    return taken[0]
 
 
 def time_maxplus(torch, K1, args, valid, reps: int) -> dict:
@@ -345,7 +352,7 @@ def time_maxplus(torch, K1, args, valid, reps: int) -> dict:
 
 def time_sort(torch, K2, mat, budgets, reps: int) -> dict:
     L, R = mat.shape
-    err = check_sort(torch, K2, mat, budgets, f"{L}x{R}")
+    way = check_sort(torch, K2, mat, budgets, f"{L}x{R}")
     ms = cuda_ms(torch, lambda: K2.lane_sort(mat, budgets), reps)
     plain_ms = cuda_ms(torch, lambda: K2.lane_sort_plain(mat, budgets), reps)
     library_ms = cuda_ms(torch, lambda: torch.sort(mat, dim=1), reps)
@@ -353,9 +360,9 @@ def time_sort(torch, K2, mat, budgets, reps: int) -> dict:
     # a comparison sort needs at least R log2 R comparisons per row
     r_log = max(1.0, math.log2(max(R, 1)))
     b_ms, by = bound(16.0 * L * R + 12.0 * L, L * R * r_log)
-    return {"shape": [L, R], "kernel_ms": ms, "plain_ms": plain_ms,
-            "library_ms": library_ms, "bound_ms": b_ms, "bound_by": by,
-            "max_abs_err": err}
+    return {"shape": [L, R], "route": way, "kernel_ms": ms,
+            "plain_ms": plain_ms, "library_ms": library_ms, "bound_ms": b_ms,
+            "bound_by": by, "max_abs_err": 0.0}
 
 
 def attention_pairs(S: int, window) -> int:

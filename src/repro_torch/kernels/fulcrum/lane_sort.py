@@ -16,11 +16,22 @@ equality, never tolerance.
  * ``lane_sort_plain`` is ``torch.sort`` plus the masked count.
  * ``lane_sort`` launches ``csrc/lane_sort.cu`` for CUDA tensors and takes
    the plain version only for CPU tensors. Its kernel is a bitonic network
-   per row: in shared memory for rows of up to 2^14 values (one block per
-   row), and with a global-memory pass for every stage of distance
-   >= 2^14 beyond that, so rows up to the engine's 4M-element sort chunks
-   never leave the kernel. It is bound by bytes: 16 B per element (read
-   once, written once) on the shared-memory path.
+   per row over R padded to a power of two, Rp, by one of three routes
+   that ``route`` picks from R alone before the launch:
+
+   - ``"warp"``, Rp <= 32 E = 512 (E = 16 doubles a thread): one warp per
+     row, the row in registers, every stage in the thread or through warp
+     shuffles; no shared memory and no barrier.
+   - ``"block"``, 512 < Rp <= 16384: one block of Rp / E threads per row,
+     the row in registers; only the stages of distance >= 512 go through
+     shared memory, one round trip (two barriers) for each merge size.
+   - ``"global"``, Rp > 16384: a global-memory pass for every stage of
+     distance >= 16384 and shared-memory sorts of 16384-value pieces, so
+     rows up to the engine's 4M-element sort chunks never leave the kernel.
+
+   It is bound by bytes, 16 B per element (read once, written once), on
+   the warp and block routes. ``lane_sort.launches`` counts launches,
+   ``lane_sort.routes`` counts them by route.
 """
 from __future__ import annotations
 
@@ -35,7 +46,21 @@ _SIGNATURES = {
     "lane_sort_launch": (
         [ctypes.c_void_p] * 5 + [ctypes.c_int64] * 2 + [ctypes.c_void_p],
         ctypes.c_int),
-    "lane_sort_work_width": ([ctypes.c_int64], ctypes.c_int64)}
+    "lane_sort_work_width": ([ctypes.c_int64], ctypes.c_int64),
+    "lane_sort_route": ([ctypes.c_int64], ctypes.c_int)}
+# the routes in the order of the launcher's codes (lane_sort_route)
+ROUTES = ("warp", "block", "global")
+E = 16                        # doubles a thread holds in registers
+WARP_MAX, BLOCK_MAX = 32 * E, 16384
+
+
+def route(R: int) -> str:
+    """The kernel route for rows of ``R`` values: ``"warp"`` when R padded
+    to a power of two is at most ``WARP_MAX``, ``"block"`` up to
+    ``BLOCK_MAX``, else ``"global"``. The launcher applies the same rule."""
+    Rp = 1 << max(int(R) - 1, 0).bit_length()
+    return "warp" if Rp <= WARP_MAX else "block" if Rp <= BLOCK_MAX \
+        else "global"
 
 
 def lane_sort_plain(mat: torch.Tensor, budgets: Optional[torch.Tensor] = None):
@@ -69,9 +94,10 @@ def lane_sort(mat: torch.Tensor, budgets: Optional[torch.Tensor] = None):
     """Rows of ``mat`` sorted ascending, or ``(sorted, counts)`` when
     ``budgets`` is given.
 
-    CUDA tensors launch the hand-written kernel on the current stream (and
-    add one to ``lane_sort.launches``); CPU tensors run the plain version.
-    Anything else raises."""
+    CUDA tensors launch the hand-written kernel by ``route``'s route on the
+    current stream (and add one to ``lane_sort.launches`` and to that
+    route's count in ``lane_sort.routes``); CPU tensors run the plain
+    version. Anything else raises."""
     _check(mat, budgets)
     if mat.device.type == "cpu":
         return lane_sort_plain(mat, budgets)
@@ -84,8 +110,9 @@ def lane_sort(mat: torch.Tensor, budgets: Optional[torch.Tensor] = None):
     if budgets is not None:
         counts = torch.empty(L, dtype=torch.int32, device=mat.device)
     if L and R:
+        way = route(R)
         lib = build.load("lane_sort", _SIGNATURES)
-        width = lib.lane_sort_work_width(R)       # rows too long for smem
+        width = lib.lane_sort_work_width(R)  # scratch, global route only
         work = torch.empty((L, width), dtype=torch.float64,
                            device=mat.device) if width else None
         with torch.cuda.device(mat.device):
@@ -94,11 +121,13 @@ def lane_sort(mat: torch.Tensor, budgets: Optional[torch.Tensor] = None):
                 out.data_ptr(), None if counts is None else counts.data_ptr(),
                 None if work is None else work.data_ptr(), L, R,
                 torch.cuda.current_stream().cuda_stream)
-        build.check(lib, err, "lane_sort")
+        build.check(lib, err, f"lane_sort ({way})")
         lane_sort.launches += 1
+        lane_sort.routes[way] += 1
     elif counts is not None:
         counts.zero_()                 # no entries, so nothing is over
     return out if counts is None else (out, counts)
 
 
 lane_sort.launches = 0
+lane_sort.routes = dict.fromkeys(ROUTES, 0)

@@ -36,6 +36,8 @@ from repro_torch.configs import base as TC
 from repro_torch.core import simulate as S
 from repro_torch.core.device_model import INFER_WORKLOADS, TRAIN_WORKLOADS
 from repro_torch.core.powermode import PowerModeSpace
+from repro_torch.kernels import build
+from repro_torch.kernels.fulcrum import lane_sort as K2
 from repro_torch.kernels.fulcrum.lane_sort import lane_sort, lane_sort_plain
 from repro_torch.kernels.fulcrum.maxplus_scan import (maxplus_scan,
                                                       maxplus_scan_plain)
@@ -125,13 +127,20 @@ def test_cuda_lane_sort_equals_plain(hopper, lanes, reqs, kind):
         mat[0] = np.inf
     mat = torch.tensor(mat, device=hopper)
     budgets = torch.tensor(rng.uniform(0.1, 5.0, lanes), device=hopper)
-    n0 = lane_sort.launches
+    n0, r0 = lane_sort.launches, lane_sort.routes[K2.route(reqs)]
     srt, viol = lane_sort(mat, budgets)
     torch.cuda.synchronize()
     assert lane_sort.launches == n0 + 1
+    assert lane_sort.routes[K2.route(reqs)] == r0 + 1
     srt_p, viol_p = lane_sort_plain(mat, budgets)
     assert torch.equal(srt, srt_p) and torch.equal(viol, viol_p)
     assert torch.equal(lane_sort(mat), srt_p)
+
+
+def test_cuda_lane_sort_launcher_takes_the_wrappers_route(hopper):
+    lib = build.load("lane_sort", K2._SIGNATURES)
+    for R in (1, 31, 121, 512, 513, 7263, 16384, 16385, 4 << 20):
+        assert K2.ROUTES[lib.lane_sort_route(R)] == K2.route(R)
 
 
 def test_cuda_wrappers_raise_on_inputs_the_kernels_do_not_take(hopper):

@@ -23,6 +23,7 @@ from repro.kernels.fulcrum.maxplus_scan import maxplus_scan as pallas_maxplus
 from repro.kernels.fulcrum.ref import (lane_sort_ref, lane_violations_ref,
                                        maxplus_scan_ref)
 from repro_torch.kernels.fulcrum.lane_sort import lane_sort
+from repro_torch.kernels.fulcrum.lane_sort import route as lane_sort_route
 from repro_torch.kernels.fulcrum.maxplus_scan import (maxplus_scan,
                                                       maxplus_scan_plain)
 
@@ -203,3 +204,14 @@ def test_lane_sort_wrapper_rejects_what_the_kernel_does_not_take():
     n0 = lane_sort.launches
     lane_sort(m)
     assert lane_sort.launches == n0
+
+
+@pytest.mark.parametrize("R,way", [
+    (1, "warp"), (121, "warp"), (512, "warp"), (513, "block"),
+    (7263, "block"), (16384, "block"), (16385, "global"),
+    (4 << 20, "global")])
+def test_lane_sort_route_is_a_rule_of_the_row_length(R, way):
+    """Rows padded to at most 32 E = 512 values (E = 16 doubles a thread)
+    take one warp each, up to 16384 one block each, longer rows the global
+    passes."""
+    assert lane_sort_route(R) == way
