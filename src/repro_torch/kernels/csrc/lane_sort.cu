@@ -209,7 +209,7 @@ __host__ __device__ constexpr int slot(int i) {
 // kWarpBits .. kWarpBits + w - 1 swap places (W = 2^w warps), so distances
 // >= 32 kE become register and lane distances.
 template <int W>
-__host__ __device__ constexpr int trade(int p) {
+__device__ constexpr int trade(int p) {
   return (p & ~((W - 1) | ((W - 1) << kWarpBits))) |
          ((p & (W - 1)) << kWarpBits) | ((p >> kWarpBits) & (W - 1));
 }
