@@ -19,25 +19,45 @@ each and stopping with a traceback at the first failure:
     executed over a 120 s Poisson trace) on ``backend="cuda"`` and again on
     ``"cpu"``, compared to the engine tolerance.
  4. ``serve_dynamic``: the README's open-loop dynamic case, the same way.
- 5. ``sweep``: ``simulate_batch`` over every (power mode x inference
+ 5. ``serve_closed_loop``: the closed loop of ``serve_dynamic`` (resnet50,
+    40 W, 0.1 s, 30 s windows): the README's case on uniform arrivals, then
+    three burst cases on Poisson arrivals (45 / 60 / 180 / 50 req/s) that
+    shed, defer with a cap, and degrade the plan with mid-window splits. On
+    ``"cuda"`` and on ``"cpu"``: the same decisions per window, latencies
+    to the engine tolerance; fails unless the shed case sheds and the
+    degrade-bs case splits. Per window: the plan, splits, shed / deferred /
+    carried counts, goodput, p95, the latency error and the wall; then the
+    shed case once under ``torch.profiler`` (K1 / K2 device time against
+    the host's).
+ 6. ``multi_tenant``: the README's 3 tenants + resnet18 training through
+    ``execute_multi_tenant``, multi-tenant ``serve_dynamic`` open and
+    closed (shedding), one tenant against the pair path (bitwise), and the
+    10,000-lane point of ``benchmarks/bench_multi_tenant.py``'s lane
+    scaling (2 tenants, ``(pm, bss)`` cycling), each on ``"cuda"`` against
+    ``"cpu"``; K1 and K2 timed against their plain versions at that
+    batch's own chunk shapes.
+ 7. ``sweep``: ``simulate_batch`` over every (power mode x inference
     minibatch size) of the default space (2,205 lanes, 120 s at 60 req/s),
     then the 100k-lane point of ``benchmarks/bench_interleave_engine.py``;
     both checked against the CPU backend, with each kernel timed and checked
     against its plain version on the card at the sweep's own shapes.
 
- 6. ``generate``: ``GenerationServer`` on zamba2-1.2b at full width (38
+ 8. ``generate``: ``GenerationServer`` on zamba2-1.2b at full width (38
     layers) serving bs 4, a 512-token prompt and 32 greedy tokens on the
     card: wall, prefill and per-token decode times, and the attention and
     SSD kernels' launches per prefill (one per attention site, one per
     Mamba2 layer). Then a copy cut to 2 layers (still full width) in
     float32 compute, run on ``"cuda"`` and on ``"cpu"``: logits within
     1e-3 and 8 greedy tokens equal.
- 7. ``serve_interleaved``: ``ManagedInterleaveRuntime`` (no trainer) over
+ 9. ``serve_interleaved``: ``ManagedInterleaveRuntime`` (no trainer) over
     ``BatchInferenceServer(zamba2-1.2b, seq_len 2048, bs 8)`` and a uniform
     trace at 80% of the measured minibatch rate for 5 s: p50 / p99 latency
     and the kernels' launches per minibatch; then one minibatch under
-    ``torch.profiler`` (device busy time, idle share, top kernels).
- 8. ``train``: ``Trainer`` on zamba2-1.2b at full width and depth (remat on,
+    ``torch.profiler`` (device busy time, idle share, top kernels). Then the
+    runtime's admission gate: the same server behind
+    ``AdmissionPolicy("shed").gate`` on a uniform 5 s trace at 150% of the
+    minibatch rate, which must shed exactly the engine mask's count.
+10. ``train``: ``Trainer`` on zamba2-1.2b at full width and depth (remat on,
     float32 params, bf16 compute, AdamW) for a few steps of bs 4 x 512
     tokens: ms per step, tokens/s, first and last loss (finite), peak
     memory and every kernel's launches per step (forward, remat's second
@@ -45,13 +65,13 @@ each and stopping with a traceback at the first failure:
     2-layer full-width float32 copy takes one step on ``"cuda"`` and on
     ``"cpu"`` from the same params and batch: losses within 1e-4, every
     gradient leaf within 1e-3 of its largest |g|.
- 9. ``serve_train_interleaved``: the runtime with that ``Trainer`` (warm
+11. ``serve_train_interleaved``: the runtime with that ``Trainer`` (warm
     from the train phase) and the ``serve_interleaved`` server on a uniform
     5 s trace whose batch period is the minibatch time plus 2.5 training
     steps: trained minibatches (at least one), p50 / p99 latency with and
     without the trainer, and the largest overrun of a training step past
     its predicted end.
-10. ``tiled_matmul``: the ``kernels.ops.tiled_matmul`` entry point on the
+12. ``tiled_matmul``: the ``kernels.ops.tiled_matmul`` entry point on the
     serving minibatch's MLP up-projection, (16384, 2048) x (2048, 8192)
     bf16, against ``torch.matmul``.
 
@@ -134,6 +154,35 @@ SORT_SHAPES = {"lane_sort": (512, 8192), "lane_sort_global_pass": (1, 32768),
 # space, then bench_interleave_engine.py's 100k-lane point
 SWEEP_TRACE = (60.0, 120.0, 0)            # rate, duration, seed
 BIG_LANES, BIG_TRACE = 100_000, (32.0, 4.0, 7)
+# the closed loop: resnet50 at 40 W with a 0.1 s budget over 30 s windows;
+# the README's case, then three burst cases on Poisson arrivals (seed 0)
+CLOSED_LOOP = ("resnet50", 40.0, 0.1, 30.0)
+_BURST = dict(rate_estimator="ewma", rate_margin=1.5, feedback=True,
+              carry_backlog=True, burst_quantile=0.95, split_backlog=64,
+              mode_switch_s=0.5)
+CLOSED_LOOP_CASES = {
+    "readme": ([45.0, 60.0, 115.0, 50.0], "uniform",
+               dict(rate_estimator="ewma", rate_margin=1.5, feedback=True,
+                    carry_backlog=True, mode_switch_s=0.5)),
+    "shed": ([45.0, 60.0, 180.0, 50.0], "poisson",
+             dict(_BURST, admission="shed")),
+    "defer": ([45.0, 60.0, 180.0, 50.0], "poisson",
+              dict(_BURST, admission="defer", defer_cap=500)),
+    "degrade-bs": ([45.0, 60.0, 180.0, 50.0], "poisson",
+                   dict(rate_estimator="ewma", carry_backlog=True,
+                        split_backlog=64, admission="degrade-bs")),
+}
+# multi-tenant: the README's three tenants under 45 W with resnet18
+# training; serve_dynamic over three 30 s windows of per-stream rates; the
+# 10,000-lane point of bench_multi_tenant.py's lane scaling
+MT_RATE_WINDOWS = [[40.0, 60.0, 20.0], [60.0, 90.0, 30.0],
+                   [40.0, 60.0, 20.0]]
+MT_LANES = 10_000
+MT_LANE_TRACES = ((20.0, 4.0, 11), (12.0, 4.0, 13))   # rate, duration, seed
+MT_BS_CYCLE = ([4, 8], [8, 16], [16, 4], [32, 8])
+# the runtime's admission gate: a uniform trace at this multiple of the
+# server's minibatch rate, for this long, against a budget of 2 minibatches
+GATE_LOAD, GATE_DURATION = 1.5, 5.0
 # the model phases: zamba2-1.2b at full width
 ARCH = "zamba2-1.2b"
 GEN_BS, GEN_PROMPT, GEN_STEPS = 4, 512, 32
@@ -202,6 +251,10 @@ K3_FUNCTIONS = ("flash_attention_tc", "flash_attention_kernel",
 K4_FUNCTIONS = ("ssd_chunk_kernel",)
 K4_BWD_FUNCTIONS = ("query_pass", "state_pass", "key_pass",
                     "finish_dA_kernel", "group_sum_kernel")
+# and of the engine's K1 (csrc/maxplus_scan.cu) and K2 (csrc/lane_sort.cu)
+K1_FUNCTIONS = ("maxplus_scan_kernel",)
+K2_FUNCTIONS = ("sort_rows_warp", "sort_rows_block", "sort_pieces",
+                "merge_pieces", "merge_global", "count_over")
 MODEL_KERNELS = ("flash_attention", "ssd_chunk")
 TRAIN_KERNELS = MODEL_KERNELS + ("flash_attention_bwd", "ssd_chunk_bwd")
 
@@ -911,6 +964,305 @@ def phase_serve_dynamic(torch, np, rt, launches: Launches) -> dict:
     return out
 
 
+def compare_windows(np, ref, got, what: str) -> list:
+    """Two serving runs of the same inputs, ``ref`` on cpu and ``got`` on
+    cuda: per window the same plan, replanning, splits, shed / deferred /
+    carried / offered counts, estimated rate and mode-switch charge;
+    latencies within ENG_TOL (per tenant), training minibatches within +-2
+    and goodput within one offered request. Returns each window's max
+    |Δlatency|."""
+    keys = ("solution", "replanned", "splits", "shed_requests",
+            "deferred_requests", "carried_requests", "offered_requests",
+            "estimated_rate", "mode_switch_s")
+    errs = []
+    for i, (a, b) in enumerate(zip(ref, got)):
+        for k in keys:
+            if getattr(a, k) != getattr(b, k):
+                fail(f"{what}: window {i} {k} is {getattr(b, k)} on cuda, "
+                     f"{getattr(a, k)} on cpu")
+        if abs(a.goodput - b.goodput) * max(1, a.offered_requests) > 1:
+            fail(f"{what}: window {i} goodput differs by more than one "
+                 f"request")
+        if (a.report is None) != (b.report is None):
+            fail(f"{what}: window {i} served on one backend only")
+        errs.append(0.0 if a.report is None
+                    else compare_multi(np, a.report, b.report,
+                                       f"{what} window {i}"))
+    if len(ref) != len(got):
+        fail(f"{what}: {len(got)} windows on cuda, {len(ref)} on cpu")
+    return errs
+
+
+def compare_multi(np, ref, got, what: str) -> float:
+    """One report, or one multi-tenant report tenant by tenant, from cpu
+    and cuda: latencies within ENG_TOL, training within +-2, a report's
+    sorted cache (where the report builder filled it) equal to its sorted
+    latencies. Returns the max |Δlatency|."""
+    pairs = list(zip(ref.streams, got.streams)) \
+        if hasattr(ref, "streams") else [(ref, got)]
+    if hasattr(ref, "streams") and len(ref.streams) != len(got.streams):
+        fail(f"{what}: tenant counts differ")
+    worst = 0.0
+    for j, (a, b) in enumerate(pairs):
+        la = np.asarray(a.latencies, np.float64)
+        lb = np.asarray(b.latencies, np.float64)
+        if la.shape != lb.shape or not np.allclose(lb, la, **ENG_TOL):
+            fail(f"{what}: tenant {j} latencies differ beyond {ENG_TOL}")
+        if la.size:
+            worst = max(worst, float(np.abs(lb - la).max()))
+        if b._sorted is not None and not np.array_equal(b._sorted,
+                                                        np.sort(lb)):
+            fail(f"{what}: tenant {j} report cache is not its sorted "
+                 f"latencies")
+    if abs(ref.train_minibatches - got.train_minibatches) > 2:
+        fail(f"{what}: trained {got.train_minibatches} vs "
+             f"{ref.train_minibatches}")
+    return worst
+
+
+def add_counts(total: dict, counts: dict) -> dict:
+    return {k: total.get(k, 0) + n for k, n in counts.items()}
+
+
+def timed_windows(f) -> list:
+    """Wall milliseconds of each call of this Fulcrum's closed-loop window
+    step, in window order."""
+    ms, step = [], f._closed_loop_window
+
+    def timed(*args, **kwargs):
+        t0 = time.perf_counter()
+        out = step(*args, **kwargs)
+        ms.append(1e3 * (time.perf_counter() - t0))
+        return out
+
+    f._closed_loop_window = timed
+    return ms
+
+
+def window_records(windows, errs, ms=None) -> list:
+    """What each window planned, shed, deferred, carried and served."""
+    out = []
+    for i, w in enumerate(windows):
+        sol, rep = w.solution, w.report
+        rec = {"rate": w.rate, "estimated_rate": w.estimated_rate,
+               "plan": None if sol is None else
+               {"pm": str(sol.pm), "bs": getattr(sol, "bss", None) or sol.bs,
+                "tau_tr": sol.tau_tr},
+               "replanned": w.replanned, "splits": w.splits,
+               "offered": w.offered_requests, "shed": w.shed_requests,
+               "deferred": w.deferred_requests,
+               "carried": w.carried_requests, "goodput": w.goodput,
+               "max_abs_latency_err_s": errs[i]}
+        if rep is not None:
+            rec["p95_latency_s"] = (rep.worst_latency_quantile(0.95)
+                                    if hasattr(rep, "streams")
+                                    else rep.latency_quantile(0.95))
+            rec["train_minibatches"] = rep.train_minibatches
+        if ms is not None:
+            rec["wall_ms"] = ms[i]
+        out.append(rec)
+    return out
+
+
+def phase_serve_closed_loop(torch, np, rt, launches: Launches) -> dict:
+    """The single-stream closed loop on cuda against cpu, case by case,
+    then the shed case under the profiler."""
+    CC, Fulcrum = rt["CC"], rt["Fulcrum"]
+    name, power, budget, window = CLOSED_LOOP
+    w = rt["INFER"][name]
+
+    def serve(case, backend, f=None):
+        rates, arrivals, kw = CLOSED_LOOP_CASES[case]
+        f = f or Fulcrum(rt["DeviceModel"]())
+        return f.serve_dynamic(w, power, budget, rates, strategy="gmd",
+                               window_duration=window, arrivals=arrivals,
+                               seed=0, controller=CC.ControllerConfig(**kw),
+                               backend=backend)
+
+    cases, total = {}, {}
+    for case in CLOSED_LOOP_CASES:
+        f = Fulcrum(rt["DeviceModel"]())
+        ms = timed_windows(f)
+        launches.reset()
+        t0 = time.perf_counter()
+        got = serve(case, "cuda", f)
+        wall = time.perf_counter() - t0
+        counts = launches.read(f"serve_closed_loop/{case}")
+        total = add_counts(total, counts)
+        t0 = time.perf_counter()
+        ref = serve(case, "cpu")
+        cpu_wall = time.perf_counter() - t0
+        errs = compare_windows(np, ref, got, f"serve_closed_loop/{case}")
+        cases[case] = {"arrivals": CLOSED_LOOP_CASES[case][1],
+                       "wall_s": wall, "cpu_backend_wall_s": cpu_wall,
+                       "launches": counts,
+                       "max_abs_latency_err_s": max(errs),
+                       "windows": window_records(got, errs, ms)}
+    if sum(w["shed"] for w in cases["shed"]["windows"]) < 1:
+        fail("serve_closed_loop: the shed case shed no request")
+    if sum(w["splits"] for w in cases["degrade-bs"]["windows"]) < 1:
+        fail("serve_closed_loop: the degrade-bs case split no window")
+    profile = profile_device(torch, lambda: serve("shed", "cuda"))
+    out = {"phase": "serve_closed_loop", "workload": name,
+           "power_budget_w": power, "latency_budget_s": budget,
+           "window_s": window, "cases": cases, "launches": total,
+           "profile_shed": {k: profile[k] for k in (
+               "wall_s", "device_busy_s", "idle_share", "device_ops",
+               "k1_device_ms", "k1_kernels", "k2_device_ms", "k2_kernels",
+               "cost_s")}}
+    emit(out)
+    return out
+
+
+def lane_scaling_args(rt, lanes: int) -> tuple:
+    """bench_multi_tenant.py's lane scaling at ``lanes`` lanes: every lane
+    the 2-stream (mobilenet + lstm) scenario over two short Poisson traces,
+    mobilenet training, (power mode, per-stream bs) cycling."""
+    S, INFER = rt["S"], rt["INFER"]
+    modes = rt["PowerModeSpace"]().all_modes()
+    traces = [S.ArrivalTrace.poisson(r, d, seed=sd)
+              for r, d, sd in MT_LANE_TRACES]
+    return (rt["DeviceModel"](), rt["TRAIN"]["mobilenet"],
+            [[INFER["mobilenet"], INFER["lstm"]]] * lanes,
+            [modes[(7 * i) % len(modes)] for i in range(lanes)],
+            [list(MT_BS_CYCLE[i % len(MT_BS_CYCLE)]) for i in range(lanes)],
+            [traces] * lanes)
+
+
+def lane_scaling_kernels(torch, np, rt, args, reports) -> dict:
+    """K1 at each engine chunk of the lane-scaling batch and K2 at each of
+    its sort chunks, re-made from the batch's inputs, each checked against
+    its plain version on the card and timed."""
+    S, K1, K2 = rt["S"], rt["K1"], rt["K2"]
+    dev = torch.device("cuda")
+    n = len(args[3])
+    lanes = S._multi_lane_events(*args, [None] * n)
+    readies = [ln[2] for ln in lanes]
+    execs = [ln[3] for ln in lanes]
+    k_pad = S._pow2(max(r.size for r in readies))
+    k1 = []
+    for s, e, lanes_pad in S._lane_chunks(n):
+        host = S._chunk_inputs(readies, execs,
+                               np.array([ln[1][0] for ln in lanes]),
+                               np.full(n, np.inf),
+                               np.array([ln[6] for ln in lanes]), s, e,
+                               lanes_pad, k_pad)
+        kargs = [torch.from_numpy(x).to(dev) for x in host]
+        k1.append(time_maxplus(torch, K1, kargs, torch.isfinite(kargs[0]),
+                               reps=10))
+    lats = [np.asarray(r.latencies, np.float64)
+            for mt in reports for r in mt.streams]
+    k2 = []
+    for i, j in S._sort_chunks([a.size for a in lats]):
+        mat = torch.from_numpy(S._pad_rows(lats[i:j])).to(dev)
+        budgets = torch.full((j - i,), 0.5, dtype=torch.float64, device=dev)
+        k2.append(time_sort(torch, K2, mat, budgets, reps=10))
+    torch.cuda.empty_cache()
+    return {"maxplus_scan_chunks": k1, "lane_sort_chunks": k2}
+
+
+def phase_multi_tenant(torch, np, rt, launches: Launches) -> dict:
+    """The multi-tenant engine and serving loops on cuda against cpu."""
+    P, S, CC, Fulcrum = rt["P"], rt["S"], rt["CC"], rt["Fulcrum"]
+    INFER, w_tr = rt["INFER"], rt["TRAIN"]["resnet18"]
+    specs = (P.StreamSpec(40.0, 0.8, INFER["mobilenet"]),
+             P.StreamSpec(60.0, 0.5, INFER["lstm"]),
+             P.StreamSpec(20.0, 1.5, INFER["resnet50"]))
+    prob = P.MultiTenantProblem(45.0, specs)
+    budgets = [sp.latency_budget for sp in specs]
+    f = Fulcrum(rt["DeviceModel"]())
+    plan = f.solve_multi_tenant(w_tr, prob, "gmd")
+    if plan is None:
+        fail("multi_tenant: GMD found no plan for the README's 3 tenants")
+    out = {"phase": "multi_tenant"}
+    total = {}
+
+    def on_card(what, fn):
+        nonlocal total
+        launches.reset()
+        t0 = time.perf_counter()
+        res = fn("cuda")
+        wall = time.perf_counter() - t0
+        counts = launches.read(f"multi_tenant/{what}")
+        total = add_counts(total, counts)
+        t0 = time.perf_counter()
+        ref = fn("cpu")
+        return res, ref, {"wall_s": wall,
+                          "cpu_backend_wall_s": time.perf_counter() - t0,
+                          "launches": counts}
+
+    got, ref, rec = on_card("execute", lambda b: f.execute_multi_tenant(
+        plan, prob, w_tr, duration=60.0, arrivals="poisson", backend=b))
+    rec["max_abs_latency_err_s"] = compare_multi(np, ref, got,
+                                                 "multi_tenant/execute")
+    out["execute"] = {"plan": {"pm": str(plan.solution.pm),
+                               "bss": list(plan.solution.bss),
+                               "tau_tr": plan.solution.tau_tr},
+                      "requests": [len(r.trace) for r in got.streams],
+                      "violation_rates": got.violation_rates(budgets),
+                      "p95_latency_s": [r.latency_quantile(0.95)
+                                        for r in got.streams],
+                      "train_minibatches": got.train_minibatches, **rec}
+
+    closed = CC.ControllerConfig(
+        rate_estimator="ewma", rate_margin=1.5, feedback=True,
+        carry_backlog=True, burst_quantile=0.95, mode_switch_s=0.5,
+        admission="shed")
+    for loop, cfg in (("serve_open", None), ("serve_shed", closed)):
+        got, ref, rec = on_card(loop, lambda b: Fulcrum(
+            rt["DeviceModel"]()).serve_dynamic(
+                specs, 45.0, None, MT_RATE_WINDOWS, "gmd",
+                window_duration=30.0, arrivals="poisson", seed=0, w_tr=w_tr,
+                controller=cfg, backend=b))
+        errs = compare_windows(np, ref, got, f"multi_tenant/{loop}")
+        out[loop] = {**rec, "max_abs_latency_err_s": max(errs),
+                     "windows": window_records(got, errs)}
+    if sum(w["shed"] for w in out["serve_shed"]["windows"]) < 1:
+        fail("multi_tenant: the closed loop shed no request")
+
+    # one tenant hands K1 the pair path's inputs: the same bits on the card
+    pm = rt["PowerModeSpace"]().maxn()
+    trace = S.ArrivalTrace.poisson(60.0, 120.0, seed=0)
+    launches.reset()
+    pair = S.simulate(f.device, w_tr, INFER["mobilenet"], pm, 4, trace,
+                      tau_cap=2, backend="cuda")
+    one = S.simulate_multi_tenant(f.device, w_tr, [INFER["mobilenet"]], pm,
+                                  [4], [trace], tau_cap=2, backend="cuda")
+    counts = launches.read("multi_tenant/one_tenant")
+    total = add_counts(total, counts)
+    rep = one.streams[0]
+    if not (np.asarray(rep.latencies).tobytes()
+            == np.asarray(pair.latencies).tobytes()
+            and rep.sorted_latencies.tobytes()
+            == pair.sorted_latencies.tobytes()
+            and one.train_minibatches == pair.train_minibatches):
+        fail("multi_tenant: one tenant differs from the pair path on cuda")
+    out["one_tenant_bitwise"] = {"requests": len(trace), "launches": counts,
+                                 "train_minibatches": one.train_minibatches}
+
+    args = lane_scaling_args(rt, MT_LANES)
+    # fill the device model's (workload, mode, bs) timing cache first, so
+    # that neither timed run pays for it
+    S.simulate_multi_tenant_batch(*args, backend="cpu")
+    torch.cuda.reset_peak_memory_stats()
+    got, ref, rec = on_card("lanes_10k", lambda b:
+                            S.simulate_multi_tenant_batch(*args, backend=b))
+    peak = torch.cuda.max_memory_allocated()
+    worst = max(compare_multi(np, a, b, f"multi_tenant/lanes_10k lane {i}")
+                for i, (a, b) in enumerate(zip(ref, got)))
+    out["lanes_10k"] = {
+        "lanes": MT_LANES, "streams": 2,
+        "requests_per_lane": sum(len(t) for t in args[5][0]),
+        "engine_chunks": len(S._lane_chunks(MT_LANES)),
+        "configs_per_s": MT_LANES / rec["wall_s"],
+        "cpu_backend_configs_per_s": MT_LANES / rec["cpu_backend_wall_s"],
+        "max_abs_latency_err_s": worst, "max_memory_allocated_bytes": peak,
+        **rec, "kernels": lane_scaling_kernels(torch, np, rt, args, got)}
+    out["launches"] = total
+    emit(out)
+    return out
+
+
 def sweep_kernels(torch, np, rt, lanes, reports) -> dict:
     """The sweep's own work, re-made stage by stage from its inputs: the
     host's per-lane event prep and padding of the engine's first chunk, the
@@ -1102,10 +1454,9 @@ def profile_device(torch, fn) -> dict:
     that take longer to reduce than the step itself): the device's busy time
     (the sum of kernel time) against the wall, the number of kernels and
     copies it ran, K3's device time and kernels (forward and backward),
-    K4's forward's and backward's device time and kernels, the kernels with
-    the most
-    device time, and what the profiled call cost in all (``cost_s``, the
-    reduction included)."""
+    K4's forward's and backward's, K1's and K2's, the kernels with the
+    most device time, and what the profiled call cost in all (``cost_s``,
+    the reduction included)."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     t_cost = time.perf_counter()
@@ -1131,6 +1482,8 @@ def profile_device(torch, fn) -> dict:
     k4 = [(us, n) for k, us, n in rows if any(f in k for f in K4_FUNCTIONS)]
     k4b = [(us, n) for k, us, n in rows
            if any(f in k for f in K4_BWD_FUNCTIONS)]
+    k1 = [(us, n) for k, us, n in rows if any(f in k for f in K1_FUNCTIONS)]
+    k2 = [(us, n) for k, us, n in rows if any(f in k for f in K2_FUNCTIONS)]
     return {"wall_s": wall, "device_busy_s": busy,
             "idle_share": (1.0 - busy / wall) if rows else None,
             "device_ops": sum(n for _, _, n in rows),
@@ -1140,6 +1493,10 @@ def profile_device(torch, fn) -> dict:
             "k4_kernels": sum(n for _, n in k4),
             "k4_bwd_device_ms": sum(us for us, _ in k4b) / 1e3,
             "k4_bwd_kernels": sum(n for _, n in k4b),
+            "k1_device_ms": sum(us for us, _ in k1) / 1e3,
+            "k1_kernels": sum(n for _, n in k1),
+            "k2_device_ms": sum(us for us, _ in k2) / 1e3,
+            "k2_kernels": sum(n for _, n in k2),
             "top": [{"name": k[:120], "device_ms": us / 1e3, "count": n}
                     for k, us, n in rows[:15]],
             "cost_s": time.perf_counter() - t_cost}
@@ -1179,6 +1536,7 @@ def phase_serve_interleaved(torch, np, rt, launches: Launches,
         fail("serve_interleaved: logits are not finite of the right shape")
     del logits
     profile = profile_device(torch, srv.infer)
+    gate = runtime_gate(np, rt, srv, t_mb)
     del srv
     torch.cuda.empty_cache()
     out = {"phase": "serve_interleaved", "arch": ARCH, "seq_len": SERVE_SEQ,
@@ -1189,9 +1547,45 @@ def phase_serve_interleaved(torch, np, rt, launches: Launches,
            "p99_latency_s": rep.latency_quantile(0.99),
            "violation_rate": rep.violation_rate(2 * t_mb),
            "max_memory_allocated_bytes": peak, "launches": counts,
-           "profile": profile}
+           "profile": profile, "admission_gate": gate}
     emit(out)
     return out
+
+
+def runtime_gate(np, rt, srv, t_mb: float) -> dict:
+    """The runtime behind ``AdmissionPolicy("shed").gate`` with the
+    measured minibatch time as the service time, on a uniform trace at
+    GATE_LOAD x the minibatch rate: it must shed exactly the engine mask's
+    count for the same inputs. The admitted tail is recorded beside the
+    budget, not held to it: the card's minibatch times vary around the
+    measured one."""
+    CC, IR, S = rt["CC"], rt["IR"], rt["S"]
+    budget = 2 * t_mb
+    rate = GATE_LOAD * SERVE_BS / t_mb
+    trace = S.ArrivalTrace.uniform(rate, GATE_DURATION)
+    policy = CC.AdmissionPolicy("shed")
+    want = int(np.count_nonzero(~policy.admit(trace.times, budget, SERVE_BS,
+                                              t_mb, 0.0)))
+    runtime = IR.ManagedInterleaveRuntime(
+        None, srv, IR.InterleaveConfig(rate, SERVE_BS, latency_budget=budget,
+                                       duration=GATE_DURATION),
+        trace=trace, admission=policy.gate(SERVE_BS, t_mb, budget))
+    t0 = time.perf_counter()
+    rep = runtime.run()
+    wall = time.perf_counter() - t0
+    if want < 1 or rep.shed_requests != want:
+        fail(f"serve_interleaved: the gate shed {rep.shed_requests}, the "
+             f"engine mask {want}")
+    admitted = len(trace) - want
+    if len(rep.latencies) != admitted // SERVE_BS * SERVE_BS:
+        fail(f"serve_interleaved: the gated runtime served "
+             f"{len(rep.latencies)} of {admitted} admitted requests")
+    return {"load": GATE_LOAD, "rate": rate, "budget_s": budget,
+            "offered": len(trace), "shed": rep.shed_requests,
+            "engine_mask_shed": want, "served": len(rep.latencies),
+            "wall_s": wall, "p50_latency_s": rep.latency_quantile(0.5),
+            "p99_latency_s": rep.latency_quantile(0.99),
+            "violation_rate": rep.violation_rate(budget)}
 
 
 def train_parity(torch, np, rt, cfg, seed: int) -> dict:
@@ -1435,6 +1829,7 @@ def main() -> int:
     import repro_torch.kernels.tiled_matmul.tiled_matmul as K5
     from repro_torch import tree as T
     from repro_torch.configs import base as C
+    from repro_torch.core import controller as CC
     from repro_torch.core import problem as P
     from repro_torch.core import simulate as S
     from repro_torch.core.device_model import (DeviceModel, INFER_WORKLOADS,
@@ -1453,7 +1848,7 @@ def main() -> int:
     rt = dict(P=P, S=S, K1=K1, K2=K2, Fulcrum=Fulcrum, DeviceModel=DeviceModel,
               PowerModeSpace=PowerModeSpace, TRAIN=TRAIN_WORKLOADS,
               INFER=INFER_WORKLOADS, C=C, SV=SV, IR=IR, TL=TL, A=A, ST=ST,
-              T=T, M=M, D=D, OPS=OPS)
+              T=T, M=M, D=D, OPS=OPS, CC=CC)
 
     device = phase_device(torch, build)
     kern = phase_kernels(torch, K1, K2, K3, K4, K5, args.seed)
@@ -1465,7 +1860,10 @@ def main() -> int:
                          "ssd_chunk_bwd": K4.ssd_chunk_bwd,
                          "tiled_matmul": K5.tiled_matmul})
     paths = {"execute": phase_execute(torch, np, rt, launches),
-             "serve_dynamic": phase_serve_dynamic(torch, np, rt, launches)}
+             "serve_dynamic": phase_serve_dynamic(torch, np, rt, launches),
+             "serve_closed_loop": phase_serve_closed_loop(torch, np, rt,
+                                                          launches),
+             "multi_tenant": phase_multi_tenant(torch, np, rt, launches)}
     sweep = phase_sweep(torch, np, rt, launches)
     paths["sweep"] = sweep["full_space"]
     paths["sweep_100k"] = sweep["lanes_100k"]

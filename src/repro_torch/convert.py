@@ -14,7 +14,7 @@ identical inputs through here.
 """
 from __future__ import annotations
 
-from typing import Any, Mapping
+from typing import Any, Mapping, Optional
 
 import numpy as np
 import torch
@@ -35,15 +35,23 @@ def power_mode(fields: Mapping) -> PowerMode:
     return PowerMode(**{k: int(v) for k, v in dict(fields).items()})
 
 
-def arrival_trace(times: np.ndarray, duration: float,
-                  kind: str = "uniform") -> ArrivalTrace:
-    """An arrival trace over the given float64 timestamps (copied)."""
-    return ArrivalTrace(np.array(times, np.float64), float(duration), kind)
+def arrival_trace(times: np.ndarray, duration: float, kind: str = "uniform",
+                  stream_ids: Optional[np.ndarray] = None,
+                  n_streams: Optional[int] = None) -> ArrivalTrace:
+    """An arrival trace over the given float64 timestamps (copied); a
+    merged multi-tenant trace also carries each request's stream id and
+    the stream count."""
+    ids = None if stream_ids is None else np.array(stream_ids, np.int64)
+    return ArrivalTrace(np.array(times, np.float64), float(duration), kind,
+                        ids, None if n_streams is None else int(n_streams))
 
 
-def queue_state(pending: np.ndarray, clock: float = 0.0) -> QueueState:
-    """A window-boundary queue state: pending arrival times and the clock."""
-    return QueueState(np.array(pending, np.float64), float(clock))
+def queue_state(pending: np.ndarray, clock: float = 0.0,
+                stream_ids: Optional[np.ndarray] = None) -> QueueState:
+    """A window-boundary queue state: pending arrival times, the clock and,
+    for a multi-tenant window, each pending request's stream id."""
+    ids = None if stream_ids is None else np.array(stream_ids, np.int64)
+    return QueueState(np.array(pending, np.float64), float(clock), ids)
 
 
 def _tensors(tree: Any, device) -> Any:

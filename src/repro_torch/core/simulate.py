@@ -1,6 +1,7 @@
 """Trace-driven execution engine on PyTorch (paper §3 Fig. 2, §5.4).
 
-Counterpart of ``repro.core.simulate``'s single-stream parts:
+Counterpart of ``repro.core.simulate`` (all but its scalar reference
+loops):
 
  * ``ArrivalTrace``, ``QueueState``, ``ExecutionReport`` and the host
    helpers are the reference's, copied (the port imports nothing from
@@ -16,6 +17,10 @@ Counterpart of ``repro.core.simulate``'s single-stream parts:
    sort chunks of at most ``_SORT_CHUNK_ELEMS`` padded elements and sorts
    each with one launch of the ``lane_sort`` kernel, filling every report's
    quantile / violation-rate cache.
+ * The multi-tenant engine (``simulate_multi_tenant[_batch]``) merges each
+   lane's per-stream batch-ready events on the host into one event axis
+   with a per-event service time and runs them through the same
+   ``maxplus_scan`` launches; lanes may have different tenant counts.
  * The native and streams approaches stay seeded NumPy models, as in the
    reference.
 
@@ -285,6 +290,25 @@ def _latencies(completions: np.ndarray, times: np.ndarray,
     return np.repeat(completions, bs) - times[:completions.size * bs]
 
 
+def first_backlog_crossing(times: np.ndarray, completions: np.ndarray,
+                           bs: int, threshold: int) -> Optional[int]:
+    """Index of the first arrival at which the backlog — requests arrived
+    but not yet completed, counting the arriving request itself — exceeds
+    ``threshold``, given the run's batch completion times (each completion
+    retires one ``bs``-sized minibatch); ``None`` when it never crosses.
+    ``times`` is the run's *effective* arrival vector (carried pending
+    requests first). The closed loop splits a window at the returned
+    arrival's timestamp (``ArrivalTrace.clip`` + ``QueueState`` chaining)."""
+    times = np.asarray(times, np.float64)
+    if times.size == 0:
+        return None
+    comps = np.asarray(completions, np.float64)
+    done = int(bs) * np.searchsorted(comps, times, side="right")
+    backlog = np.arange(1, times.size + 1) - done
+    idx = np.flatnonzero(backlog > int(threshold))
+    return int(idx[0]) if idx.size else None
+
+
 def _time_power(device: DeviceModel, w: WorkloadProfile, pm: PowerMode,
                 bs: Optional[int]) -> tuple[float, float]:
     """Device timings memoized on the device instance (they are pure
@@ -545,6 +569,205 @@ def batch_ready_events(arrivals: Sequence[Sequence[float]],
             events.append((arr[k * b + b - 1], j, k * b))
     events.sort()
     return events
+
+
+# ---------------------------------------------------------------------------
+# multi-tenant managed interleaving: N inference streams + training fill
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class MultiTenantReport:
+    """Per-tenant execution reports plus the shared training/power account
+    of one N-stream managed run."""
+    streams: list                     # one ExecutionReport per tenant
+    train_minibatches: int
+    duration: float
+    power: float
+    trace: Optional[ArrivalTrace] = None   # the merged trace that was run
+    queue_state: Optional[QueueState] = dataclasses.field(  # end-of-window
+        default=None, repr=False, compare=False)            # engine state
+    # graceful-degradation accounting across all tenants, filled by the
+    # serving loops and the runtime's admission gate
+    shed_requests: int = 0
+    deferred_requests: int = 0
+    goodput: Optional[float] = None
+    # the training job's time-weighted share of the device power; each
+    # tenant's share is on its stream report, and together they sum to
+    # ``power`` (0 everywhere for an idle window)
+    train_attributed_power: Optional[float] = None
+
+    @property
+    def train_throughput(self) -> float:
+        return self.train_minibatches / self.duration
+
+    def worst_latency_quantile(self, q: float) -> float:
+        return max((r.latency_quantile(q) for r in self.streams), default=0.0)
+
+    def violation_rates(self, budgets: Sequence[float]) -> list:
+        return [r.violation_rate(b) for r, b in zip(self.streams, budgets)]
+
+
+def _carry_stream_traces(traces: Sequence[ArrivalTrace],
+                         carry_in: Optional[QueueState],
+                         ) -> tuple[list[ArrivalTrace], float]:
+    """Per-stream effective traces of a multi-tenant window: each stream's
+    carried pending requests re-enter ahead of its window arrivals."""
+    if carry_in is None:
+        return list(traces), 0.0
+    out = []
+    for j, tr in enumerate(traces):
+        pend = carry_in.pending_for(j)
+        times = tr.times if pend.size == 0 \
+            else np.concatenate([pend, tr.times])
+        out.append(ArrivalTrace(times, tr.duration, tr.kind))
+    return out, float(carry_in.clock)
+
+
+def _multi_tenant_state(times_by_stream: Sequence[np.ndarray],
+                        bss: Sequence[int], completions: np.ndarray,
+                        clock: float) -> QueueState:
+    """End-of-window queue state of an N-stream run: each stream's trailing
+    partial minibatch, merged back into (time, stream) order."""
+    pend = [t[(t.size // int(b)) * int(b):]
+            for t, b in zip(times_by_stream, bss)]
+    times = np.concatenate(pend) if pend else np.empty(0)
+    ids = np.concatenate([np.full(p.size, j, np.int64)
+                          for j, p in enumerate(pend)]) \
+        if pend else np.empty(0, np.int64)
+    order = np.argsort(times, kind="stable")
+    out_clock = float(completions[-1]) if completions.size else clock
+    return QueueState(times[order], out_clock, ids[order])
+
+
+def _merge_events(traces: Sequence[ArrivalTrace], bss: Sequence[int],
+                  t_ins: Sequence[float]):
+    """Batch-ready events of all streams merged into device order: a stable
+    sort on ready time, ties by stream index. Returns (ready, exec_t,
+    stream_of_event); ``exec_t`` is the per-event service time the
+    ``maxplus_scan`` kernel reads."""
+    readies = [_batch_ready(tr.times, int(b)) for tr, b in zip(traces, bss)]
+    ready = np.concatenate(readies) if readies else np.empty(0)
+    sid = np.concatenate([np.full(r.size, j, np.int64)
+                          for j, r in enumerate(readies)]) \
+        if readies else np.empty(0, np.int64)
+    order = np.argsort(ready, kind="stable")
+    ready, sid = ready[order], sid[order]
+    exec_t = np.asarray(t_ins, np.float64)[sid] if ready.size \
+        else np.empty(0)
+    return ready, exec_t, sid
+
+
+def _multi_lane_events(device: DeviceModel, w_tr: Optional[WorkloadProfile],
+                       stream_workloads: Sequence[Sequence[WorkloadProfile]],
+                       pms: Sequence[PowerMode], bsss: Sequence[Sequence[int]],
+                       tracess: Sequence[Sequence[ArrivalTrace]],
+                       carries: Sequence[Optional[QueueState]]) -> list:
+    """Per-lane host inputs of the multi-tenant engine: one ``(tps, ttr,
+    ready, exec_t, sid, eff, clock)`` per lane — the streams' inference and
+    training (time, power), the merged event vectors with each event's
+    stream, the effective per-stream traces and the start clock."""
+    lanes = []
+    for ws, pm, bss, traces, ci in zip(stream_workloads, pms, bsss, tracess,
+                                       carries):
+        if not (len(ws) == len(bss) == len(traces)):
+            raise ValueError("stream workloads / batch sizes / traces "
+                             "must align")
+        tps = [_time_power(device, w, pm, int(b)) for w, b in zip(ws, bss)]
+        ttr = _time_power(device, w_tr, pm, None) if w_tr else (np.inf, 0.0)
+        eff, clock = _carry_stream_traces(traces, ci)
+        ready, exec_t, sid = _merge_events(eff, bss, [t for t, _ in tps])
+        lanes.append((tps, ttr, ready, exec_t, sid, eff, clock))
+    return lanes
+
+
+def simulate_multi_tenant(device: DeviceModel,
+                          w_tr: Optional[WorkloadProfile],
+                          stream_workloads: Sequence[WorkloadProfile],
+                          pm: PowerMode, bss: Sequence[int],
+                          traces: Sequence[ArrivalTrace],
+                          tau_cap: Optional[int] = None,
+                          backend: Optional[str] = None,
+                          carry_in: Optional[QueueState] = None,
+                          ) -> MultiTenantReport:
+    """N-stream managed interleaving on one device: the streams' minibatches
+    are served in ready order (one DNN at a time) and training fills the
+    remaining slack. Runs as a one-lane ``simulate_multi_tenant_batch`` on
+    ``backend``. With one stream the kernel gets exactly the pair engine's
+    inputs, so the result equals ``simulate``'s bitwise on either backend.
+    ``carry_in`` resumes from a previous window's per-stream queue state."""
+    n = len(stream_workloads)
+    if not (len(bss) == len(traces) == n):
+        raise ValueError("stream workloads / batch sizes / traces must align")
+    return simulate_multi_tenant_batch(
+        device, w_tr, [stream_workloads], [pm], [bss], [traces],
+        tau_caps=[tau_cap], carry_ins=[carry_in], backend=backend)[0]
+
+
+def simulate_multi_tenant_batch(
+        device: DeviceModel, w_tr: Optional[WorkloadProfile],
+        stream_workloads: Sequence[Sequence[WorkloadProfile]],
+        pms: Sequence[PowerMode], bsss: Sequence[Sequence[int]],
+        tracess: Sequence[Sequence[ArrivalTrace]],
+        tau_caps: Optional[Sequence[Optional[int]]] = None,
+        backend: Optional[str] = None,
+        carry_ins: Optional[Sequence[Optional[QueueState]]] = None,
+        ) -> list[MultiTenantReport]:
+    """Run many N-stream managed simulations as one batch, one lane per
+    multi-tenant run. Lanes may have *different* tenant counts: the host
+    merges each lane's events (stable time sort, ties by stream index) into
+    one event axis with a per-event service time, and the lanes share the
+    chunked ``maxplus_scan`` launches of ``simulate_batch``. All reports of
+    all lanes and streams share one report-builder pass (``lane_sort``).
+    ``carry_ins`` gives each lane a carried per-stream ``QueueState``."""
+    n = len(pms)
+    if not (len(stream_workloads) == len(bsss) == len(tracess) == n):
+        raise ValueError("stream_workloads / pms / bsss / tracess must align")
+    caps = list(tau_caps) if tau_caps is not None else [None] * n
+    if len(caps) != n:
+        raise ValueError("tau_caps must align with the lanes")
+    carries = list(carry_ins) if carry_ins is not None else [None] * n
+    if len(carries) != n:
+        raise ValueError("carry_ins must align with the lanes")
+    if n == 0:
+        return []
+    backend = resolve_backend(backend)
+    lanes = _multi_lane_events(device, w_tr, stream_workloads, pms, bsss,
+                               tracess, carries)
+    comps, trained_f = _run_engine(backend,
+                                   [ln[2] for ln in lanes],
+                                   [ln[3] for ln in lanes],
+                                   np.array([ln[1][0] for ln in lanes]),
+                                   _tau_array(caps),
+                                   np.array([ln[6] for ln in lanes]))
+    out, flat = [], []
+    for i, (tps, ttr, _, _, sid, eff, clock) in enumerate(lanes):
+        comp = comps[i]
+        trained = int(round(float(trained_f[i]))) if w_tr else 0
+        power = ttr[1] if trained else 0.0
+        for _, p_in in tps:
+            power = max(power, p_in)
+        duration = max((tr.duration for tr in tracess[i]), default=0.0)
+        streams, busys = [], []
+        for j, (tr, b) in enumerate(zip(eff, bsss[i])):
+            comp_j = comp[sid == j]
+            lat = np.repeat(comp_j, int(b)) - tr.times[:comp_j.size * int(b)]
+            busys.append(comp_j.size * tps[j][0])
+            streams.append(ExecutionReport("managed", lat, 0, tr.duration,
+                                           power, tr))
+        attr = _attribute_power(power,
+                                busys + [trained * ttr[0] if trained
+                                         else 0.0])
+        for rep, a in zip(streams, attr):
+            rep.attributed_power = a
+        flat.extend(streams)
+        state = _multi_tenant_state([tr.times for tr in eff], bsss[i], comp,
+                                    clock)
+        out.append(MultiTenantReport(streams, trained, duration, power,
+                                     ArrivalTrace.merge(eff),
+                                     queue_state=state,
+                                     train_attributed_power=attr[-1]))
+    _presort_reports(flat, backend)
+    return out
 
 
 def simulate(device: DeviceModel, w_tr: Optional[WorkloadProfile],

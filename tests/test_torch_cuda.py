@@ -20,6 +20,9 @@ backwards form rowsum(dO O) from the forward kernel's output. The SSD
 chunk meets its plain version within rtol 2e-4, atol 1e-4
 (``tests/test_kernels.py``'s tolerance), its backward element by element
 within 2e-4 (|want| + max(RMS, 0.1)).
+The engine's multi-tenant batches, windowed carry-ins and a closed loop
+with shedding meet the CPU backend to the same engine tolerance with the
+same decisions per window; one tenant gives the pair path's bits.
 The tiled matmul meets its plain version within ``tests/test_kernels.py``'s
 1e-3 (float32) and 3e-2 (bf16), by the route its wrapper picks (bf16
 through TMA and wgmma where rows are 16-byte multiples, else mma.sync).
@@ -171,6 +174,113 @@ def test_cuda_engine_matches_cpu_engine(hopper):
         np.testing.assert_allclose(b.latencies, a.latencies, **ENG_TOL)
         assert abs(a.train_minibatches - b.train_minibatches) <= 2
         np.testing.assert_array_equal(b._sorted, np.sort(b.latencies))
+
+
+@pytest.mark.parametrize("counts", [(1, 2, 4), (4, 1, 3, 2, 1), (2,) * 20])
+def test_cuda_multi_tenant_batch_matches_cpu(hopper, counts):
+    """Lanes of 1, 2, 3 and 4 tenants in one batch, with carried per-stream
+    queue states: K1 on per-event service times, K2 over every stream."""
+    rng = np.random.default_rng(len(counts))
+    modes = PowerModeSpace().all_modes()
+    names = list(INFER_WORKLOADS)
+    ws, pms, bsss, tracess, carries = [], [], [], [], []
+    for i, n in enumerate(counts):
+        ws.append([INFER_WORKLOADS[names[int(rng.integers(5))]]
+                   for _ in range(n)])
+        pms.append(modes[int(rng.integers(len(modes)))])
+        bsss.append([int(b) for b in rng.choice([1, 4, 16, 32], n)])
+        tracess.append([S.ArrivalTrace.poisson(float(rng.uniform(5, 60)),
+                                               20.0, seed=7 * i + j)
+                        .shifted(1.0) for j in range(n)])
+        k = int(rng.integers(0, 6))
+        carries.append(S.QueueState(np.sort(rng.uniform(0.0, 0.5, k)),
+                                    float(rng.uniform(0.0, 1.5)),
+                                    rng.integers(0, n, k)))
+    args = (S.DeviceModel(), TRAIN_WORKLOADS["resnet18"], ws, pms, bsss,
+            tracess)
+    got = S.simulate_multi_tenant_batch(*args, carry_ins=carries,
+                                        backend="cuda")
+    ref = S.simulate_multi_tenant_batch(*args, carry_ins=carries,
+                                        backend="cpu")
+    for a, b in zip(ref, got):
+        assert len(b.streams) == len(a.streams)
+        for ra, rb in zip(a.streams, b.streams):
+            np.testing.assert_allclose(rb.latencies, ra.latencies, **ENG_TOL)
+            np.testing.assert_array_equal(rb._sorted, np.sort(rb.latencies))
+        assert abs(a.train_minibatches - b.train_minibatches) <= 2
+        assert b.queue_state.pending.tolist() == \
+            a.queue_state.pending.tolist()
+
+
+def test_cuda_single_tenant_run_is_bitwise_the_pair_path(hopper):
+    """One tenant feeds K1 the pair path's inputs: the same bits on the
+    card, latencies, sorted cache and training count."""
+    modes = PowerModeSpace().all_modes()
+    dev, w_tr = S.DeviceModel(), TRAIN_WORKLOADS["mobilenet"]
+    for i, (name, bs) in enumerate([("mobilenet", 4), ("lstm", 16),
+                                    ("resnet50", 1)]):
+        w, pm = INFER_WORKLOADS[name], modes[37 * i]
+        trace = S.ArrivalTrace.poisson(40.0, 30.0, seed=i).shifted(1.0)
+        carry = S.QueueState(np.array([0.2, 0.4]), 1.3)
+        pair = S.simulate(dev, w_tr, w, pm, bs, trace, tau_cap=2,
+                          carry_in=carry, backend="cuda")
+        multi = S.simulate_multi_tenant(dev, w_tr, [w], pm, [bs], [trace],
+                                        tau_cap=2, carry_in=carry,
+                                        backend="cuda")
+        rep = multi.streams[0]
+        assert np.asarray(rep.latencies).tobytes() == \
+            np.asarray(pair.latencies).tobytes()
+        assert rep.sorted_latencies.tobytes() == \
+            pair.sorted_latencies.tobytes()
+        assert multi.train_minibatches == pair.train_minibatches
+        assert multi.queue_state.clock == pair.queue_state.clock
+
+
+def test_cuda_windowed_carryover_matches_the_long_trace(hopper):
+    """A trace replayed as windows chained through queue states on the
+    card meets its one-call replay within the engine tolerance."""
+    dev, pm = S.DeviceModel(), PowerModeSpace().all_modes()[123]
+    w_tr, w_in = TRAIN_WORKLOADS["resnet18"], INFER_WORKLOADS["mobilenet"]
+    trace = S.ArrivalTrace.poisson(70.0, 40.0, seed=5)
+    long = S.simulate(dev, w_tr, w_in, pm, 8, trace, tau_cap=3,
+                      backend="cuda")
+    carry, lats, trained = None, [], 0
+    for k in range(4):
+        hi = (k + 1) * 10.0 if k < 3 else 41.0
+        rep = S.simulate(dev, w_tr, w_in, pm, 8, trace.clip(k * 10.0, hi),
+                         tau_cap=3, carry_in=carry, backend="cuda")
+        carry = rep.queue_state
+        lats.extend(np.asarray(rep.latencies).tolist())
+        trained += rep.train_minibatches
+    np.testing.assert_allclose(lats, long.latencies, **ENG_TOL)
+    assert abs(trained - long.train_minibatches) <= 2 * 4
+    assert carry.pending.tolist() == long.queue_state.pending.tolist()
+    assert abs(carry.clock - long.queue_state.clock) < 1e-7
+
+
+def test_cuda_closed_loop_shed_matches_cpu(hopper):
+    """The burst case with shedding (resnet50, 40 W, 0.1 s, Poisson 45 /
+    60 / 180 / 50 req/s over 30 s windows) on the card and on the CPU: the
+    same decisions per window, latencies within the engine tolerance."""
+    from repro_torch.core.controller import ControllerConfig
+    from repro_torch.core.scheduler import Fulcrum
+    cfg = ControllerConfig(rate_estimator="ewma", rate_margin=1.5,
+                           feedback=True, carry_backlog=True,
+                           burst_quantile=0.95, split_backlog=64,
+                           mode_switch_s=0.5, admission="shed")
+    runs = [Fulcrum(S.DeviceModel()).serve_dynamic(
+        INFER_WORKLOADS["resnet50"], 40.0, 0.1, [45.0, 60.0, 180.0, 50.0],
+        window_duration=30.0, arrivals="poisson", seed=0, controller=cfg,
+        backend=b) for b in ("cpu", "cuda")]
+    for a, b in zip(*runs):
+        assert (b.solution, b.replanned, b.splits, b.shed_requests,
+                b.carried_requests, b.estimated_rate) == \
+            (a.solution, a.replanned, a.splits, a.shed_requests,
+             a.carried_requests, a.estimated_rate)
+        if a.report is not None:
+            np.testing.assert_allclose(b.report.latencies, a.report.latencies,
+                                       **ENG_TOL)
+    assert sum(w.shed_requests for w in runs[1]) > 0
 
 
 def _attn_close(got, want, dtype, what):

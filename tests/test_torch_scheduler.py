@@ -198,12 +198,3 @@ def test_solve_dynamic_equals_reference():
     got = f.solve_dynamic(INFER_WORKLOADS["lstm"], 30.0, 0.3, rates)
     assert [_sol_key(s) for s in got] == [_sol_key(s) for s in ref]
 
-
-def test_serve_dynamic_refuses_what_this_slice_lacks():
-    f = Fulcrum()
-    with pytest.raises(NotImplementedError, match="closed-loop"):
-        f.serve_dynamic(INFER_WORKLOADS["lstm"], 30.0, 0.3, [20.0],
-                        controller=object(), backend="cpu")
-    with pytest.raises(NotImplementedError, match="multi-tenant"):
-        f.serve_dynamic([P.StreamSpec(20.0, 0.3, INFER_WORKLOADS["lstm"])],
-                        30.0, None, [[20.0]], backend="cpu")

@@ -6,7 +6,9 @@ converted params gives the reference's tokens over 8 steps in float32
 compute. ``ManagedInterleaveRuntime`` under a ``FakeClock`` with
 fixed-duration stubs gives the reference runtime's latencies and training
 counts bitwise on the same trace (the same float operations in the same
-order). The CLI runs with ``--reduced`` on ``cpu``.
+order), for one stream and for a merged multi-tenant trace;
+``attach_drift`` records the same drift as the reference's. The CLI runs
+with ``--reduced`` on ``cpu``.
 """
 import dataclasses
 
@@ -24,6 +26,7 @@ from repro.runtime.clock import FakeClock as JFakeClock
 from repro.runtime.interleave_runtime import InterleaveConfig as JICfg
 from repro.runtime.interleave_runtime import \
     ManagedInterleaveRuntime as JRuntime
+from repro.runtime.interleave_runtime import attach_drift as j_attach_drift
 from repro_torch.configs import base as TC
 from repro_torch.convert import arrival_trace, model_params
 from repro_torch.core import simulate as TS
@@ -31,7 +34,8 @@ from repro_torch.launch import serve as tserve
 from repro_torch.runtime import serving as TSV
 from repro_torch.runtime.clock import FakeClock, WallClock
 from repro_torch.runtime.interleave_runtime import (InterleaveConfig,
-                                                    ManagedInterleaveRuntime)
+                                                    ManagedInterleaveRuntime,
+                                                    attach_drift)
 
 
 def test_generate_gives_the_reference_tokens_in_f32():
@@ -107,9 +111,69 @@ def test_runtime_default_trace_and_merged_traces():
     assert len(rep.latencies) == 40 and rep.trace.kind == "uniform"
     assert rep.latencies[3] == pytest.approx(0.01) and rep.train_minibatches == 0
     merged = TS.ArrivalTrace.merge([TS.ArrivalTrace.uniform(10.0, 1.0)] * 2)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    clock = FakeClock()
+    rep = ManagedInterleaveRuntime(None, None, cfg, trace=merged, clock=clock,
+                                   servers=[_Server(clock, 0.01)] * 2).run()
+    assert isinstance(rep, TS.MultiTenantReport) and len(rep.streams) == 2
+    assert [len(r.latencies) for r in rep.streams] == [8, 8]
+    with pytest.raises(ValueError, match="servers"):
         ManagedInterleaveRuntime(None, _Server(clock, 0.01), cfg,
-                                 trace=merged, clock=clock)
+                                 trace=merged, clock=clock).run()
+
+
+def test_runtime_merged_trace_matches_the_reference_runtime_bitwise():
+    """A merged 2-tenant trace with per-stream minibatch sizes and a
+    trainer, under each package's FakeClock with the same fixed step
+    times: the same latencies per tenant and the same training count."""
+    t_ins, t_tr, bss = [0.013, 0.041], 0.07, [4, 16]
+    jtraces = [JS.ArrivalTrace.poisson(30.0, 15.0, seed=1),
+               JS.ArrivalTrace.uniform(50.0, 15.0)]
+    jmerged = JS.ArrivalTrace.merge(jtraces)
+    tmerged = arrival_trace(jmerged.times, jmerged.duration, jmerged.kind,
+                            jmerged.stream_ids, jmerged.n_streams)
+
+    def run(Runtime, Cfg, Clock, trace):
+        clock = Clock()
+        return Runtime(_Trainer(clock, t_tr), None,
+                       Cfg(arrival_rate=0.0, infer_bs=4, latency_budget=0.5),
+                       trace=trace, clock=clock,
+                       servers=[_Server(clock, t) for t in t_ins],
+                       bss=bss).run()
+
+    want = run(JRuntime, JICfg, JFakeClock, jmerged)
+    got = run(ManagedInterleaveRuntime, InterleaveConfig, FakeClock, tmerged)
+    assert len(got.streams) == len(want.streams) == 2
+    for a, b in zip(got.streams, want.streams):
+        assert a.latencies == b.latencies and len(a.latencies) > 0
+    assert got.train_minibatches == want.train_minibatches > 0
+    assert got.duration == want.duration
+
+
+def test_attach_drift_records_the_largest_latency_gap():
+    """``attach_drift`` against the reference's on the same reports, and
+    the runtime under a FakeClock against the port's engine: zero drift on
+    an uncongested trace."""
+    a = TS.ExecutionReport("managed-real", [0.1, 0.25, 0.3], 0, 1.0, 0.0)
+    b = TS.ExecutionReport("managed", [0.1, 0.2, 0.35], 0, 1.0, 0.0)
+    ja = JS.ExecutionReport("managed-real", [0.1, 0.25, 0.3], 0, 1.0, 0.0)
+    jb = JS.ExecutionReport("managed", [0.1, 0.2, 0.35], 0, 1.0, 0.0)
+    assert attach_drift(a, b) == j_attach_drift(ja, jb) == a.drift_s
+    assert a.drift_s == pytest.approx(0.05)
+    with pytest.raises(ValueError, match="shared"):
+        attach_drift(a, TS.ExecutionReport("managed", [0.1], 0, 1.0, 0.0))
+    from repro_torch.core.device_model import DeviceModel, INFER_WORKLOADS
+    from repro_torch.core.powermode import PowerModeSpace
+    dev, pm, w = DeviceModel(), PowerModeSpace().maxn(), \
+        INFER_WORKLOADS["resnet50"]
+    t_in = dev.time_power(w, pm, 8)[0]
+    trace = TS.ArrivalTrace.uniform(40.0, 10.0)
+    clock = FakeClock()
+    rep = ManagedInterleaveRuntime(
+        None, _Server(clock, t_in),
+        InterleaveConfig(arrival_rate=40.0, infer_bs=8, latency_budget=0.5),
+        trace=trace, clock=clock).run()
+    eng = TS.simulate(dev, None, w, pm, 8, trace, backend="cpu")
+    assert attach_drift(rep, eng) <= 1e-8 and rep.drift_s <= 1e-8
 
 
 def test_batch_inference_server_serves_a_trace_on_the_cpu():
