@@ -21,9 +21,11 @@ the state that closes the loop:
    carried ``QueueState``, the deferred backlog, and the previous power
    mode for mode-switch accounting.
 
+``FleetControllerState`` holds one ``ControllerState`` per device of a
+K-device fleet and the fleet's deferred backlog (``core.fleet``).
+
 ``ControllerConfig`` bundles the knobs; its defaults are the open loop
-(``closed_loop`` is False). The reference's ``FleetControllerState`` comes
-with the fleet (ROADMAP queue 1, item 4). The admission mask is exact
+(``closed_loop`` is False). The admission mask is exact
 against the engine it imitates only where that engine is bitwise (the
 reference's NumPy tier); the port's engine is in the tolerance tier, so an
 admitted request meets its budget to within that tolerance.
@@ -548,3 +550,83 @@ class ControllerState:
             pol.update(rep.violation_rate(bud),
                        rep.latency_quantile(self.cfg.tail_quantile), bud)
         self.carry = queue_state
+
+
+class FleetControllerState:
+    """Array-of-struct controller state for a K-device fleet
+    (``Scenario.FLEET``): device ``d`` is governed by exactly the scalar
+    ``ControllerState(cfg, 1)`` a standalone single-device closed loop
+    would hold, so parity with K sequential loops is by construction —
+    same estimator floats, same feedback scales, same carried queue
+    states. The ``plan_*`` methods return per-device arrays the batched
+    fleet planner consumes; this O(K) Python bookkeeping is negligible
+    against the batched solve + batched simulate it feeds (measured in
+    ``benchmarks/bench_fleet.py``)."""
+
+    def __init__(self, cfg: ControllerConfig, n_devices: int):
+        if n_devices <= 0:
+            raise ValueError("a fleet needs at least one device")
+        self.cfg = cfg
+        self.devices = [ControllerState(cfg, 1) for _ in range(n_devices)]
+        # fleet-level deferred backlog (admission mode "defer"): unlike the
+        # per-device ``ControllerState.deferred`` counters, a request a
+        # device rejects re-enters the *dispatcher* at the next window
+        # start — it may land on any device, not the one it bounced off
+        self.fleet_deferred = 0
+
+    def __len__(self) -> int:
+        return len(self.devices)
+
+    # -- fleet-level deferred requests (admission mode "defer") -------------
+    def push_fleet_deferred(self, n: int) -> int:
+        """Queue ``n`` rejected requests for fleet-wide re-submission at the
+        next window start (they re-enter the dispatcher, re-timestamped).
+        The config's ``defer_cap`` bounds the fleet's total deferred
+        backlog; the overflow is returned for the driver to record as shed
+        — charged, like the per-device counters, to the device that pushed
+        it."""
+        self.fleet_deferred += int(n)
+        cap = self.cfg.defer_cap
+        if cap is None or self.fleet_deferred <= cap:
+            return 0
+        dropped = self.fleet_deferred - cap
+        self.fleet_deferred = cap
+        return dropped
+
+    def pop_fleet_deferred(self) -> int:
+        """Drain the fleet's deferred backlog for re-dispatch: the count of
+        requests to prepend (re-timestamped at the window start) to the next
+        window's aggregate arrivals. Requests the next admission pass
+        rejects again are re-deferred (or shed) by the driver."""
+        n, self.fleet_deferred = self.fleet_deferred, 0
+        return n
+
+    def plan_rates(self, announced: Sequence[float], t0: float = 0.0,
+                   duration: Optional[float] = None,
+                   margin: Optional[float] = None,
+                   pressure: bool = True) -> np.ndarray:
+        """Per-device planning rates (one announced rate per device)."""
+        return np.array([st.plan_rates([r], t0, duration, margin=margin,
+                                       pressure=pressure)[0]
+                         for st, r in zip(self.devices, announced)])
+
+    def plan_budgets(self, nominal: Sequence[float]) -> np.ndarray:
+        """Per-device effective latency budgets."""
+        return np.array([st.plan_budgets([b])[0]
+                         for st, b in zip(self.devices, nominal)])
+
+    def mode_switch(self, d: int, pm) -> float:
+        """Commit device ``d`` to a power mode (solved devices only — an
+        unsolved device keeps its previous mode, as in the scalar loop)."""
+        return self.devices[d].mode_switch(pm)
+
+    def window_carry_in(self, d: int, t0: float, switch_s: float) -> QueueState:
+        return self.devices[d].window_carry_in(t0, switch_s)
+
+    def observe(self, d: int, trace, report, nominal_budget: float,
+                duration: float, queue_state: Optional[QueueState]) -> None:
+        self.devices[d].observe([trace], [report], [nominal_budget],
+                                duration, queue_state)
+
+    def observe_unserved(self, d: int, trace, duration: float) -> None:
+        self.devices[d].observe_unserved([trace], duration)

@@ -13,11 +13,13 @@ strategies need the NN predictor, not ported yet: asking for them raises
 the reference's ``KeyError``; a strategy registered with
 ``register_strategy`` takes the fitted strategies' paths), ``execute`` and
 ``execute_multi_tenant``, ``solve_dynamic`` and
-``solve_dynamic_multi_tenant``, and ``serve_dynamic`` in all its forms:
-the open loop (all windows replayed as one engine batch), the closed loop
-of ``core.controller`` (rate estimation, budget feedback, backlog
-carryover, mode-switch cost, admission control and mid-window splits),
-and their multi-tenant counterparts over the merged-event engine.
+``solve_dynamic_multi_tenant``, ``serve_dynamic`` in all its forms: the
+open loop (all windows replayed as one engine batch), the closed loop of
+``core.controller`` (rate estimation, budget feedback, backlog carryover,
+mode-switch cost, admission control and mid-window splits), and their
+multi-tenant counterparts over the merged-event engine; ``serve_fleet``
+(``core.fleet``, the K-device fleet) and the ground-truth ``oracle``
+(``core.oracle``).
 
 The closed loop judges discrete decisions (admission, splits, feedback)
 on the engine's completions, which the port computes in the engine's
@@ -42,6 +44,7 @@ from repro_torch.core.device_model import DeviceModel, Profiler, WorkloadProfile
 from repro_torch.core.gmd import (ConcurrentProfiler, GMDConcurrent, GMDInfer,
                                   GMDMultiTenant, GMDTrain,
                                   MultiTenantProfiler)
+from repro_torch.core.oracle import Oracle
 from repro_torch.core.powermode import PowerModeSpace
 from repro_torch.core.simulate import (ArrivalTrace, ExecutionReport,
                                        MultiTenantReport, QueueState,
@@ -218,6 +221,7 @@ class Fulcrum:
                  space: Optional[PowerModeSpace] = None):
         self.device = device or DeviceModel()
         self.space = space or PowerModeSpace()
+        self.oracle = Oracle(self.device, self.space)
 
     # -- solve --------------------------------------------------------------
     def solve(self, scenario, workloads: Sequence[WorkloadProfile], prob,
@@ -540,6 +544,34 @@ class Fulcrum:
                              and by_window[i].trace is not None else 0)
                 for i, (rate, sol, rp)
                 in enumerate(zip(rates, sols, replanned))]
+
+    def serve_fleet(self, w: WorkloadProfile, power_budget: float,
+                    latency_budget: float, rates: Sequence[float],
+                    fleet, window_duration: float = 30.0,
+                    arrivals: str = "uniform", seed: int = 0,
+                    backend: Optional[str] = None,
+                    controller: Optional[ControllerConfig] = None):
+        """``Scenario.FLEET``: serve one aggregate dynamic trace on a
+        K-device heterogeneous fleet (``fleet`` is a ``core.fleet.FleetSpec``
+        or a device count), dispatching each window's arrivals across
+        devices and stepping all K closed-loop controller windows as one
+        batched program (one batched grid solve per ladder rung, one
+        ``simulate_batch`` with per-lane devices per window). Fleet-wide
+        resource control is opt-in: ``controller.admission`` runs the
+        deadline-drop mask per device with rejected requests shed or
+        re-entering the *dispatcher* (defer), ``FleetSpec.migrate_backlog``
+        re-dispatches carried backlog between windows, and
+        ``FleetSpec.fleet_power_budget`` water-fills one shared cap into
+        per-device budgets. Returns one ``FleetWindowReport`` per window;
+        the same decisions as K sequential single-device loops
+        (``fleet.serve_fleet_sequential``) for every feature combination."""
+        from repro_torch.core import fleet as F
+        spec = F.FleetSpec(int(fleet)) if not isinstance(fleet, F.FleetSpec) \
+            else fleet
+        return F.serve_fleet(w, power_budget, latency_budget, rates, spec,
+                             window_duration=window_duration,
+                             arrivals=arrivals, seed=seed, backend=backend,
+                             controller=controller, space=self.space)
 
     def _serve_closed_loop(self, w, power_budget, latency_budget, rates,
                            strategy, window_duration, arrivals, seed,

@@ -540,13 +540,17 @@ def _run_engine(backend: str, readies: Sequence[np.ndarray],
 def _lane_events(device: DeviceModel, w_tr: Optional[WorkloadProfile],
                  w_in: WorkloadProfile, pms: Sequence[PowerMode],
                  bss: Sequence[int], traces: Sequence[ArrivalTrace],
-                 carries: Sequence[Optional[QueueState]]):
+                 carries: Sequence[Optional[QueueState]],
+                 devices: Optional[Sequence[DeviceModel]] = None):
     """Per-lane host inputs of the managed engine: inference and training
     (time, power), effective arrivals with their start clock, and the
-    batch-ready / execution-time event vectors."""
-    tps = [_time_power(device, w_in, pm, int(bs)) for pm, bs in zip(pms, bss)]
-    ttr = [_time_power(device, w_tr, pm, None) if w_tr else (np.inf, 0.0)
-           for pm in pms]
+    batch-ready / execution-time event vectors. ``devices`` gives each lane
+    its own device model (``device`` serves every lane otherwise)."""
+    devs = [device] * len(pms) if devices is None else devices
+    tps = [_time_power(dv, w_in, pm, int(bs))
+           for dv, pm, bs in zip(devs, pms, bss)]
+    ttr = [_time_power(dv, w_tr, pm, None) if w_tr else (np.inf, 0.0)
+           for dv, pm in zip(devs, pms)]
     lane_times = [_carry_times(tr, ci) for tr, ci in zip(traces, carries)]
     readies = [_batch_ready(times, int(bs))
                for (times, _), bs in zip(lane_times, bss)]
@@ -804,13 +808,17 @@ def simulate_batch(device: DeviceModel, w_tr: Optional[WorkloadProfile],
                    approach: str = "managed", seed: int = 0,
                    backend: Optional[str] = None,
                    carry_ins: Optional[Sequence[Optional[QueueState]]] = None,
+                   devices: Optional[Sequence[DeviceModel]] = None,
                    ) -> list[ExecutionReport]:
     """Run many (power mode, batch size, trace) simulations as one batch,
     one report per lane. Managed lanes run as chunked ``maxplus_scan``
     launches on ``backend``; native/streams lanes use the seeded NumPy
     models. Either way the reports' quantile/violation caches are filled by
     the batched report builder on ``backend``. ``carry_ins`` (managed only)
-    gives each lane a carried ``QueueState``."""
+    gives each lane a carried ``QueueState``. ``devices`` gives each lane
+    its own device model (the fleet: lanes ARE devices); the scan is
+    unchanged — heterogeneity enters only through each lane's (t, p)
+    timings, which reach the kernel as its per-lane ``exec`` times."""
     n = len(pms)
     if not (len(bss) == len(traces) == n):
         raise ValueError("pms / bss / traces must align")
@@ -820,6 +828,9 @@ def simulate_batch(device: DeviceModel, w_tr: Optional[WorkloadProfile],
     carries = list(carry_ins) if carry_ins is not None else [None] * n
     if len(carries) != n:
         raise ValueError("carry_ins must align with the lanes")
+    devs = list(devices) if devices is not None else [device] * n
+    if len(devs) != n:
+        raise ValueError("devices must align with the lanes")
     if approach != "managed" and any(ci is not None for ci in carries):
         raise ValueError("carry-in backlog is only defined for the "
                          "deterministic managed approach")
@@ -828,12 +839,13 @@ def simulate_batch(device: DeviceModel, w_tr: Optional[WorkloadProfile],
     backend = resolve_backend(backend)
     if approach != "managed":
         engine = ENGINES[approach]
-        reports = [engine(device, w_tr, w_in, pm, int(bs), tr, seed, cap)
-                   for pm, bs, tr, cap in zip(pms, bss, traces, caps)]
+        reports = [engine(dv, w_tr, w_in, pm, int(bs), tr, seed, cap)
+                   for dv, pm, bs, tr, cap
+                   in zip(devs, pms, bss, traces, caps)]
         _presort_reports(reports, backend)
         return reports
     tps, ttr, lane_times, readies, execs = _lane_events(
-        device, w_tr, w_in, pms, bss, traces, carries)
+        device, w_tr, w_in, pms, bss, traces, carries, devs)
     comps, trained_f = _run_engine(backend, readies, execs,
                                    np.array([t for t, _ in ttr]),
                                    _tau_array(caps),

@@ -20,9 +20,11 @@ backwards form rowsum(dO O) from the forward kernel's output. The SSD
 chunk meets its plain version within rtol 2e-4, atol 1e-4
 (``tests/test_kernels.py``'s tolerance), its backward element by element
 within 2e-4 (|want| + max(RMS, 0.1)).
-The engine's multi-tenant batches, windowed carry-ins and a closed loop
-with shedding meet the CPU backend to the same engine tolerance with the
-same decisions per window; one tenant gives the pair path's bits.
+The engine's multi-tenant batches, windowed carry-ins, per-lane fleet
+devices, a closed loop with shedding and a K = 8 fleet meet the CPU
+backend to the same engine tolerance with the same decisions per window;
+one tenant gives the pair path's bits. The batched grid solvers on the card
+return the CPU backend's solutions bitwise.
 The tiled matmul meets its plain version within ``tests/test_kernels.py``'s
 1e-3 (float32) and 3e-2 (bf16), by the route its wrapper picks (bf16
 through TMA and wgmma where rows are 16-byte multiples, else mma.sync).
@@ -281,6 +283,135 @@ def test_cuda_closed_loop_shed_matches_cpu(hopper):
             np.testing.assert_allclose(b.report.latencies, a.report.latencies,
                                        **ENG_TOL)
     assert sum(w.shed_requests for w in runs[1]) > 0
+
+
+def _solutions(sols):
+    return [None if s is None else dataclasses.asdict(s) for s in sols]
+
+
+def _solver_run(solver, n):
+    """``run(backend)`` for one batched solver over ``n`` problems."""
+    from repro_torch.core import grid_eval as G
+    from repro_torch.core import problem as P
+    from repro_torch.core.oracle import Oracle
+    rng = np.random.default_rng(n)
+    oracle = Oracle(S.DeviceModel())
+    w_tr, w_in = TRAIN_WORKLOADS["resnet18"], INFER_WORKLOADS["mobilenet"]
+    rows = [(float(rng.uniform(10, 55)), float(rng.uniform(0.05, 2.0)),
+             float(rng.uniform(5, 150))) for _ in range(n)]
+    if solver == "train":
+        probs = [P.TrainProblem(r[0]) for r in rows]
+        return lambda b: oracle.solve_train_batch(w_tr, probs, b)
+    if solver == "infer":
+        probs = [P.InferProblem(*r) for r in rows]
+        return lambda b: oracle.solve_infer_batch(w_in, probs, b)
+    if solver == "ties":
+        # a grid of a few (t, p) values repeated: ties everywhere
+        pool = [(0.05, 15.0), (0.2, 15.0), (0.05, 30.0), (0.02, 40.0)]
+        modes = PowerModeSpace().all_modes()
+        obs = {(pm, bs): pool[(i + bs) % 4]
+               for i, pm in enumerate(modes) for bs in (1, 4, 16)}
+        probs = [P.InferProblem(*r) for r in rows]
+        return lambda b: G.solve_infer_batch(probs, obs, b)
+    if solver == "concurrent":
+        probs = [P.ConcurrentProblem(*r) for r in rows]
+        return lambda b: oracle.solve_concurrent_batch(w_tr, w_in, probs, b)
+    if solver == "fleet":
+        probs = [P.InferProblem(*r) for r in rows]
+        his = [r[2] * float(rng.uniform(1.0, 1.6)) for r in rows]
+        ts, ps = rng.uniform(0.7, 1.3, n), rng.uniform(0.9, 1.1, n)
+        grid = oracle.infer_grid(w_in)
+        return lambda b: G.solve_infer_fleet_batch(probs, his, grid, ts, ps,
+                                                   backend=b)
+    train = solver == "multi_train"
+    probs = [P.MultiTenantProblem(r[0], (
+        P.StreamSpec(r[2] / 3.0, r[1], INFER_WORKLOADS["mobilenet"]),
+        P.StreamSpec(r[2] / 2.0, r[1] / 2.0, INFER_WORKLOADS["lstm"])),
+        train=train) for r in rows]
+    return lambda b: oracle.solve_multi_tenant_batch(w_tr, probs, b)
+
+
+@pytest.mark.parametrize("n", [1, 37, 300])
+@pytest.mark.parametrize("solver", ["train", "infer", "ties", "concurrent",
+                                    "fleet", "multi_train", "multi_infer"])
+def test_cuda_solvers_are_bitwise_the_cpu_backend(hopper, solver, n):
+    """Every batched grid solver on the card returns the CPU backend's
+    solutions bitwise (and the CPU backend is the reference's NumPy tier,
+    tests/test_torch_grid_eval.py): masked argmin / argmax, no
+    reassociation, the first of equal values."""
+    run = _solver_run(solver, n)
+    got, ref = run("cuda"), run("cpu")
+    assert _solutions(got) == _solutions(ref)
+    assert any(s is not None for s in ref) or n == 1
+
+
+def test_cuda_simulate_batch_with_per_lane_devices_matches_cpu(hopper):
+    """Per-lane fleet devices: each lane's service time reaches K1 as its
+    exec times; cuda within the engine tolerance of cpu."""
+    from repro_torch.core.device_model import fleet_device
+    rng = np.random.default_rng(3)
+    modes = PowerModeSpace().all_modes()
+    n = 21
+    devs = [fleet_device(d, seed=3, time_spread=0.3) for d in range(n)]
+    pms = [modes[int(i)] for i in rng.integers(0, len(modes), n)]
+    bss = [int(b) for b in rng.choice([1, 4, 16, 32], n)]
+    traces = [S.ArrivalTrace.poisson(float(rng.uniform(10, 90)), 8.0, seed=i)
+              for i in range(n)]
+    carries = [S.QueueState(np.sort(rng.uniform(0.0, 0.3, i % 4)),
+                            float(rng.uniform(0.0, 0.5))) for i in range(n)]
+    args = (S.DeviceModel(), None, INFER_WORKLOADS["mobilenet"], pms, bss,
+            traces)
+    got = S.simulate_batch(*args, carry_ins=carries, devices=devs,
+                           backend="cuda")
+    ref = S.simulate_batch(*args, carry_ins=carries, devices=devs,
+                           backend="cpu")
+    for a, b in zip(ref, got):
+        np.testing.assert_allclose(b.latencies, a.latencies, **ENG_TOL)
+        np.testing.assert_array_equal(b._sorted, np.sort(b.latencies))
+        assert b.queue_state.pending.tolist() == \
+            a.queue_state.pending.tolist()
+        assert (b.power, b.attributed_power) == (a.power, a.attributed_power)
+
+
+def test_cuda_fleet_window_matches_cpu(hopper):
+    """The README's overload fleet (K = 8, mobilenet, 30 W, 0.1 s, shed,
+    migration, a 216 W shared cap) on the card and on the CPU: per window
+    the same dispatch, plans, shed / migrated counts and grants, latencies
+    within the engine tolerance; one K1 and one K2 launch per window."""
+    from repro_torch.core import fleet as F
+    from repro_torch.core.controller import ControllerConfig
+    spec = F.FleetSpec(8, seed=3, dispatch="least-backlog",
+                       migrate_backlog=True, fleet_power_budget=216.0)
+    cfg = ControllerConfig(rate_estimator="ewma", rate_margin=1.5,
+                           feedback=True, carry_backlog=True,
+                           burst_quantile=0.95, admission="shed")
+
+    def serve(backend):
+        return F.serve_fleet(INFER_WORKLOADS["mobilenet"], 30.0, 0.1,
+                             [720.0, 1080.0, 240.0], spec,
+                             window_duration=5.0, arrivals="poisson", seed=0,
+                             controller=cfg, backend=backend)
+
+    ref = serve("cpu")
+    k1, k2 = maxplus_scan.launches, lane_sort.launches
+    got = serve("cuda")
+    assert (maxplus_scan.launches - k1, lane_sort.launches - k2) == (3, 3)
+    for a, b in zip(ref, got):
+        assert b.dispatch_counts.tolist() == a.dispatch_counts.tolist()
+        assert (b.shed_requests, b.deferred_requests, b.migrated_requests) \
+            == (a.shed_requests, a.deferred_requests, a.migrated_requests)
+        assert b.power_budgets.tolist() == a.power_budgets.tolist()
+        for da, db in zip(a.devices, b.devices):
+            assert (db.solution is None) == (da.solution is None)
+            if da.solution is None:
+                continue
+            pa, pb = (dataclasses.asdict(da.solution),
+                      dataclasses.asdict(db.solution))
+            ta, tb = pa.pop("time"), pb.pop("time")
+            assert pb == pa and abs(tb - ta) <= 1e-8 + 1e-9 * ta
+            np.testing.assert_allclose(db.report.latencies,
+                                       da.report.latencies, **ENG_TOL)
+    assert sum(w.shed_requests for w in got) > 0
 
 
 def _attn_close(got, want, dtype, what):
