@@ -36,20 +36,42 @@ each and stopping with a traceback at the first failure:
     scaling (2 tenants, ``(pm, bss)`` cycling), each on ``"cuda"`` against
     ``"cpu"``; K1 and K2 timed against their plain versions at that
     batch's own chunk shapes.
- 7. ``sweep``: ``simulate_batch`` over every (power mode x inference
+ 7. ``oracle_sweep``: the paper-scale sweep of
+    ``benchmarks/bench_solver.py`` through the oracle's batched grid
+    solvers (41 training problems against 441 modes, 51,168 inference
+    problems against 2,205 (mode, bs) entries, 6,560 concurrent ones) and
+    ``bench_multi_tenant.py``'s full grid around the README's three tenants
+    with resnet18 training (96 problems), on ``"cuda"`` and on ``"cpu"``:
+    solutions bitwise equal, every 997th (every training problem, two
+    multi-tenant ones) equal to the scalar ``problem.solve_*`` loop;
+    configs/s per backend, solver launches, and the device's idle share
+    under the profiler.
+ 8. ``fleet``: ``serve_fleet`` on K devices (mobilenet, 30 W, 0.1 s, 5 s
+    Poisson windows): the README's two examples at K = 8 (the second with
+    shedding, backlog migration and a 216 W shared cap), the scaling rows
+    of ``benchmarks/bench_fleet.py`` at K = 8, 64 and 512 (each also
+    served by ``serve_fleet_sequential``, the K single-device loops) and
+    its admission matrix at K = 64 (shed, defer, degrade-bs; migration on;
+    a 27 W x K shared cap). Every batched run on ``"cuda"`` against
+    ``"cpu"``, the sequential loops against the batched run: the same
+    decisions per window and device, latencies to the engine tolerance;
+    one K1 and one K2 launch per window that serves, K2's routes; wall,
+    device-windows/s, the batched speedup, goodput, shed / deferred /
+    migrated counts, and the K = 64 row under the profiler.
+ 9. ``sweep``: ``simulate_batch`` over every (power mode x inference
     minibatch size) of the default space (2,205 lanes, 120 s at 60 req/s),
     then the 100k-lane point of ``benchmarks/bench_interleave_engine.py``;
     both checked against the CPU backend, with each kernel timed and checked
     against its plain version on the card at the sweep's own shapes.
 
- 8. ``generate``: ``GenerationServer`` on zamba2-1.2b at full width (38
+10. ``generate``: ``GenerationServer`` on zamba2-1.2b at full width (38
     layers) serving bs 4, a 512-token prompt and 32 greedy tokens on the
     card: wall, prefill and per-token decode times, and the attention and
     SSD kernels' launches per prefill (one per attention site, one per
     Mamba2 layer). Then a copy cut to 2 layers (still full width) in
     float32 compute, run on ``"cuda"`` and on ``"cpu"``: logits within
     1e-3 and 8 greedy tokens equal.
- 9. ``serve_interleaved``: ``ManagedInterleaveRuntime`` (no trainer) over
+11. ``serve_interleaved``: ``ManagedInterleaveRuntime`` (no trainer) over
     ``BatchInferenceServer(zamba2-1.2b, seq_len 2048, bs 8)`` and a uniform
     trace at 80% of the measured minibatch rate for 5 s: p50 / p99 latency
     and the kernels' launches per minibatch; then one minibatch under
@@ -57,7 +79,7 @@ each and stopping with a traceback at the first failure:
     runtime's admission gate: the same server behind
     ``AdmissionPolicy("shed").gate`` on a uniform 5 s trace at 150% of the
     minibatch rate, which must shed exactly the engine mask's count.
-10. ``train``: ``Trainer`` on zamba2-1.2b at full width and depth (remat on,
+12. ``train``: ``Trainer`` on zamba2-1.2b at full width and depth (remat on,
     float32 params, bf16 compute, AdamW) for a few steps of bs 4 x 512
     tokens: ms per step, tokens/s, first and last loss (finite), peak
     memory and every kernel's launches per step (forward, remat's second
@@ -65,13 +87,13 @@ each and stopping with a traceback at the first failure:
     2-layer full-width float32 copy takes one step on ``"cuda"`` and on
     ``"cpu"`` from the same params and batch: losses within 1e-4, every
     gradient leaf within 1e-3 of its largest |g|.
-11. ``serve_train_interleaved``: the runtime with that ``Trainer`` (warm
+13. ``serve_train_interleaved``: the runtime with that ``Trainer`` (warm
     from the train phase) and the ``serve_interleaved`` server on a uniform
     5 s trace whose batch period is the minibatch time plus 2.5 training
     steps: trained minibatches (at least one), p50 / p99 latency with and
     without the trainer, and the largest overrun of a training step past
     its predicted end.
-12. ``tiled_matmul``: the ``kernels.ops.tiled_matmul`` entry point on the
+14. ``tiled_matmul``: the ``kernels.ops.tiled_matmul`` entry point on the
     serving minibatch's MLP up-projection, (16384, 2048) x (2048, 8192)
     bf16, against ``torch.matmul``.
 
@@ -180,6 +202,38 @@ MT_RATE_WINDOWS = [[40.0, 60.0, 20.0], [60.0, 90.0, 30.0],
 MT_LANES = 10_000
 MT_LANE_TRACES = ((20.0, 4.0, 11), (12.0, 4.0, 13))   # rate, duration, seed
 MT_BS_CYCLE = ([4, 8], [8, 16], [16, 4], [32, 8])
+# the oracle sweep: benchmarks/bench_solver.py's paper-scale grids
+# (benchmarks/common.py --full, rebuilt here: that module imports the JAX
+# package) against resnet18 training and mobilenet inference, then
+# bench_multi_tenant.py's full grid around the README's three tenants with
+# resnet18 training
+ORACLE_POWERS = range(10, 51)
+ORACLE_INFER = ([0.05 + 0.01 * i for i in range(96)], range(30, 91, 5))
+ORACLE_CONCURRENT = ([0.5 + 0.1 * i for i in range(16)], range(30, 121, 10))
+ORACLE_MT = (range(20, 56, 5), (0.75, 1.0, 1.5, 2.0), (0.5, 0.75, 1.0))
+MT_TENANTS = (("mobilenet", 40.0, 0.8), ("lstm", 60.0, 0.5),
+              ("resnet50", 20.0, 1.5))
+ORACLE_SCALAR_STRIDE = 997      # every n-th problem against problem.solve_*
+# the fleet: mobilenet at 30 W and 0.1 s over 5 s Poisson windows; the
+# README's two examples (K = 8), bench_fleet.py's scaling rows and its
+# admission matrix under a 27 W x K shared cap
+FLEET = ("mobilenet", 30.0, 0.1, 5.0)
+FLEET_CL = dict(rate_estimator="ewma", rate_margin=1.5, feedback=True,
+                carry_backlog=True)
+FLEET_README = {
+    "readme": ([220.0, 360.0, 280.0], dict(seed=3, dispatch="least-backlog"),
+               FLEET_CL),
+    "readme_overload": ([720.0, 1080.0, 240.0],
+                        dict(seed=3, dispatch="least-backlog",
+                             migrate_backlog=True, fleet_power_budget=216.0),
+                        dict(FLEET_CL, burst_quantile=0.95,
+                             admission="shed"))}
+FLEET_KS = (8, 64, 512)
+FLEET_SEQ_KS = (8, 64, 512)     # where the sequential loops are timed
+FLEET_RATES = (0.9, 1.4, 0.7, 1.1)             # x 30 req/s x K
+FLEET_ADM_K, FLEET_ADM_RATES = 64, (3.0, 4.5, 1.0, 2.5)
+FLEET_ADM_MODES = {"shed": {}, "defer": dict(defer_cap=2000),
+                   "degrade-bs": {}}
 # the runtime's admission gate: a uniform trace at this multiple of the
 # server's minibatch rate, for this long, against a budget of 2 minibatches
 GATE_LOAD, GATE_DURATION = 1.5, 5.0
@@ -1263,6 +1317,303 @@ def phase_multi_tenant(torch, np, rt, launches: Launches) -> dict:
     return out
 
 
+def as_dicts(sols) -> list:
+    return [None if s is None else dataclasses.asdict(s) for s in sols]
+
+
+def oracle_problems(rt) -> dict:
+    """The sweep's problem batches, as benchmarks/common.py builds them."""
+    P, INFER = rt["P"], rt["INFER"]
+    pows = [float(p) for p in ORACLE_POWERS]
+    mt = []
+    for pb in ORACLE_MT[0]:
+        for ls in ORACLE_MT[1]:
+            for rs in ORACLE_MT[2]:
+                mt.append(P.MultiTenantProblem(float(pb), tuple(
+                    P.StreamSpec(r * rs, lat * ls, INFER[name])
+                    for name, r, lat in MT_TENANTS)))
+    return {"train": [P.TrainProblem(p) for p in pows],
+            "infer": [P.InferProblem(p, float(lat), float(r)) for p in pows
+                      for lat in ORACLE_INFER[0] for r in ORACLE_INFER[1]],
+            "concurrent": [P.ConcurrentProblem(p, float(lat), float(r))
+                           for p in pows for lat in ORACLE_CONCURRENT[0]
+                           for r in ORACLE_CONCURRENT[1]],
+            "multi_tenant": mt}
+
+
+def oracle_scalar_check(rt, oracle, w_tr, w_in, name, probs, sols) -> int:
+    """Every ``ORACLE_SCALAR_STRIDE``-th problem (every training problem,
+    two multi-tenant ones) against the scalar ``problem.solve_*`` loop over
+    the oracle's observation dicts. Returns how many were checked."""
+    P = rt["P"]
+    tobs = oracle.train_observations(w_tr)
+    iobs = oracle.infer_observations(w_in)
+    scalar = {"train": lambda pr: P.solve_train(pr, tobs),
+              "infer": lambda pr: P.solve_infer(pr, iobs),
+              "concurrent": lambda pr: P.solve_concurrent(pr, tobs, iobs),
+              "multi_tenant": lambda pr: P.solve_multi_tenant(
+                  pr, tobs, [oracle.infer_observations(s.workload)
+                             for s in pr.streams])}[name]
+    stride = {"train": 1, "multi_tenant": len(probs) // 2}.get(
+        name, ORACLE_SCALAR_STRIDE)
+    idx = range(0, len(probs), stride)
+    for i in idx:
+        if as_dicts([sols[i]]) != as_dicts([scalar(probs[i])]):
+            fail(f"oracle_sweep: {name} problem {i} differs from the "
+                 f"scalar solver")
+    return len(idx)
+
+
+def phase_oracle_sweep(torch, np, rt, launches: Launches) -> dict:
+    """bench_solver.py's paper-scale sweep and a multi-tenant batch through
+    the oracle's batched solvers on cuda and on cpu: solutions bitwise
+    equal, a sample also equal to the scalar loops."""
+    B, Oracle = rt["B"], rt["Oracle"]
+    oracle = Oracle(rt["DeviceModel"]())
+    w_tr, w_in = rt["TRAIN"]["resnet18"], rt["INFER"]["mobilenet"]
+    probs = oracle_problems(rt)
+    solve = {
+        "train": lambda ps, b: oracle.solve_train_batch(w_tr, ps, b),
+        "infer": lambda ps, b: oracle.solve_infer_batch(w_in, ps, b),
+        "concurrent": lambda ps, b: oracle.solve_concurrent_batch(
+            w_tr, w_in, ps, b),
+        "multi_tenant": lambda ps, b: oracle.solve_multi_tenant_batch(
+            w_tr, ps, b)}
+    # materialize the grids and upload their columns before any timing
+    for name, fn in solve.items():
+        for b in ("cuda", "cpu"):
+            fn(probs[name][:8], b)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    launches.reset()
+    variants, n_all, cuda_s, cpu_s = {}, 0, 0.0, 0.0
+    for name, fn in solve.items():
+        ps = probs[name]
+        d0 = B.dispatch_count("solver")
+        t0 = time.perf_counter()
+        got = fn(ps, "cuda")
+        wall = time.perf_counter() - t0
+        chunks = B.dispatch_count("solver") - d0
+        t0 = time.perf_counter()
+        ref = fn(ps, "cpu")
+        cpu_wall = time.perf_counter() - t0
+        if as_dicts(got) != as_dicts(ref):
+            fail(f"oracle_sweep: {name} solutions differ between cuda and "
+                 f"cpu")
+        checked = oracle_scalar_check(rt, oracle, w_tr, w_in, name, ps, got)
+        n_all, cuda_s, cpu_s = n_all + len(ps), cuda_s + wall, \
+            cpu_s + cpu_wall
+        variants[name] = {
+            "problems": len(ps), "solved": sum(s is not None for s in got),
+            "cuda_s": wall, "cpu_s": cpu_wall,
+            "cuda_configs_per_s": len(ps) / wall,
+            "cpu_configs_per_s": len(ps) / cpu_wall,
+            "solver_launches": chunks, "scalar_checked": checked}
+    counts = launches.read("oracle_sweep", path=())
+    peak = torch.cuda.max_memory_allocated()
+    profile = profile_device(torch, lambda: [fn(probs[name], "cuda")
+                                             for name, fn in solve.items()])
+    out = {"phase": "oracle_sweep", "train_workload": w_tr.name,
+           "infer_workload": w_in.name,
+           "observations": {"train_modes": len(oracle.train_grid(w_tr)),
+                            "infer_entries": len(oracle.infer_grid(w_in))},
+           "variants": variants, "problems": n_all,
+           "cuda_configs_per_s": n_all / cuda_s,
+           "cpu_configs_per_s": n_all / cpu_s,
+           "solutions_bitwise_cuda_vs_cpu": True,
+           "max_memory_allocated_bytes": peak, "launches": counts,
+           "profile": {k: profile[k] for k in (
+               "wall_s", "device_busy_s", "idle_share", "device_ops",
+               "top", "cost_s")}}
+    emit(out)
+    return out
+
+
+def compare_fleets(np, ref, got, what: str) -> float:
+    """Two fleet runs of the same inputs: per window the same dispatch,
+    shed / deferred / migrated / offered counts and water-filled grants;
+    per device the same plan (pm, bs, tau_tr, power), replanning, counts,
+    estimated rate and mode-switch charge; a plan's latency, the
+    latencies and the queue clocks within ENG_TOL, goodput within one
+    offered request. Returns the max |Δlatency|."""
+    if len(ref) != len(got):
+        fail(f"{what}: {len(got)} windows against {len(ref)}")
+    tol = lambda a, b: abs(a - b) <= ENG_TOL["atol"] + ENG_TOL["rtol"] * abs(a)
+    worst = 0.0
+    for i, (a, b) in enumerate(zip(ref, got)):
+        w = f"{what} window {i}"
+        if (a.dispatch_counts.tolist(), a.offered_requests, a.shed_requests,
+                a.deferred_requests, a.migrated_requests) != \
+                (b.dispatch_counts.tolist(), b.offered_requests,
+                 b.shed_requests, b.deferred_requests, b.migrated_requests):
+            fail(f"{w}: dispatch or shed / deferred / migrated counts differ")
+        if (None if a.power_budgets is None else a.power_budgets.tolist()) \
+                != (None if b.power_budgets is None
+                    else b.power_budgets.tolist()):
+            fail(f"{w}: water-filled power budgets differ")
+        if abs(a.goodput - b.goodput) * max(1, a.offered_requests) > 1:
+            fail(f"{w}: goodput differs by more than one request")
+        for d, (da, db) in enumerate(zip(a.devices, b.devices)):
+            keys = ("replanned", "carried_requests", "offered_requests",
+                    "shed_requests", "deferred_requests", "estimated_rate",
+                    "mode_switch_s")
+            if [getattr(da, k) for k in keys] != [getattr(db, k)
+                                                   for k in keys]:
+                fail(f"{w} device {d}: counts or estimates differ")
+            if (da.solution is None) != (db.solution is None) \
+                    or (da.report is None) != (db.report is None):
+                fail(f"{w} device {d}: served on one run only")
+            if da.solution is None:
+                continue
+            pa, pb = dataclasses.asdict(da.solution), \
+                dataclasses.asdict(db.solution)
+            ta, tb = pa.pop("time"), pb.pop("time")
+            if pa != pb or not tol(ta, tb):
+                fail(f"{w} device {d}: plans differ ({pa} vs {pb})")
+            worst = max(worst, compare_multi(np, da.report, db.report,
+                                             f"{w} device {d}"))
+            qa, qb = da.report.queue_state, db.report.queue_state
+            if qa.pending.tolist() != qb.pending.tolist() \
+                    or not tol(qa.clock, qb.clock):
+                fail(f"{w} device {d}: queue states differ")
+    return worst
+
+
+def fleet_run(rt, fn, K: int, rates, spec_kw: dict, cfg_kw: dict,
+              backend: str, seed: int) -> tuple:
+    """One fleet serving run (``fn`` is serve_fleet or
+    serve_fleet_sequential) and its wall seconds."""
+    F, CC = rt["F"], rt["CC"]
+    name, power, budget, window = FLEET
+    t0 = time.perf_counter()
+    wins = fn(rt["INFER"][name], power, budget, list(rates),
+              F.FleetSpec(K, **spec_kw), window_duration=window,
+              arrivals="poisson", seed=seed, backend=backend,
+              controller=CC.ControllerConfig(**cfg_kw))
+    return wins, time.perf_counter() - t0
+
+
+def fleet_record(np, wins, K: int, wall: float) -> dict:
+    """What a fleet run served: device-windows per second, goodput, shed /
+    deferred / migrated counts and latency quantiles over served requests."""
+    budget = FLEET[2]
+    lats = [np.asarray(d.report.latencies, np.float64)
+            for w in wins for d in w.devices if d.report is not None]
+    lat = np.concatenate(lats) if lats else np.empty(0)
+    offered = sum(w.offered_requests for w in wins)
+    return {"devices": K, "windows": len(wins), "wall_s": wall,
+            "configs_per_s": K * len(wins) / wall,
+            "offered": offered, "served": int(lat.size),
+            "goodput": int(np.count_nonzero(lat <= budget)) / max(offered, 1),
+            "shed": sum(w.shed_requests for w in wins),
+            "deferred": sum(w.deferred_requests for w in wins),
+            "migrated": sum(w.migrated_requests for w in wins),
+            "solved_device_windows": sum(d.solution is not None
+                                         for w in wins for d in w.devices),
+            "p50_latency_s": float(np.quantile(lat, 0.5)) if lat.size
+            else None,
+            "p99_latency_s": float(np.quantile(lat, 0.99)) if lat.size
+            else None,
+            "goodput_by_window": [w.goodput for w in wins]}
+
+
+def phase_fleet(torch, np, rt, launches: Launches) -> dict:
+    """The K-device fleet: the README's two examples, bench_fleet.py's
+    scaling rows at K = 8, 64, 512 (batched against the sequential loops)
+    and its admission matrix at K = 64, each batched run on cuda against
+    cpu; one K1 and one K2 launch per window that serves."""
+    F, K2 = rt["F"], rt["K2"]
+    out, total = {"phase": "fleet"}, {}
+    # the device model's timing caches and the grid warm up first
+    fleet_run(rt, F.serve_fleet, 2, [60.0], {}, FLEET_CL, "cuda", 0)
+    fleet_run(rt, F.serve_fleet_sequential, 2, [60.0], {}, FLEET_CL, "cuda",
+              0)
+
+    def on_card(what, K, rates, spec_kw, cfg_kw, seed):
+        nonlocal total
+        routes = dict(K2.lane_sort.routes)
+        launches.reset()
+        got, wall = fleet_run(rt, F.serve_fleet, K, rates, spec_kw, cfg_kw,
+                              "cuda", seed)
+        counts = launches.read(f"fleet/{what}")
+        routes = {r: n - routes[r] for r, n in K2.lane_sort.routes.items()}
+        # one engine chunk per window that runs a lane, one sort chunk per
+        # window that has a latency to sort (K <= 8,192 lanes, and far
+        # below the sort chunk's elements)
+        want = {"maxplus_scan": sum(
+            any(d.report is not None for d in w.devices) for w in got),
+            "lane_sort": sum(any(d.report is not None
+                                 and len(d.report.latencies)
+                                 for d in w.devices) for w in got)}
+        for k, n in want.items():
+            if counts[k] != n:
+                fail(f"fleet/{what}: {k} launched {counts[k]} times, not "
+                     f"once for each of {n} windows")
+        total = add_counts(total, counts)
+        ref, cpu_wall = fleet_run(rt, F.serve_fleet, K, rates, spec_kw,
+                                  cfg_kw, "cpu", seed)
+        err = compare_fleets(np, ref, got, f"fleet/{what} cuda vs cpu")
+        rec = fleet_record(np, got, K, wall)
+        rec.update(cpu_backend_wall_s=cpu_wall, launches=counts,
+                   lane_sort_routes=routes, max_abs_latency_err_s=err)
+        return got, rec
+
+    for case, (rates, spec_kw, cfg_kw) in FLEET_README.items():
+        got, rec = on_card(case, 8, rates, spec_kw, cfg_kw, 0)
+        rec["windows_detail"] = [
+            {"rate": w.rate, "dispatch_counts": w.dispatch_counts.tolist(),
+             "goodput": w.goodput, "shed": w.shed_requests,
+             "migrated": w.migrated_requests,
+             "attributed_power_w": w.attributed_power,
+             "power_budgets_w": None if w.power_budgets is None
+             else w.power_budgets.tolist()} for w in got]
+        out[case] = rec
+    scaling = {}
+    for K in FLEET_KS:
+        spec_kw = dict(seed=3, dispatch="least-backlog")
+        cfg_kw = dict(FLEET_CL, mode_switch_s=0.25)
+        rates = [30.0 * m * K for m in FLEET_RATES]
+        got, rec = on_card(f"k{K}", K, rates, spec_kw, cfg_kw, 11)
+        if K in FLEET_SEQ_KS:
+            k1 = rt["K1"].maxplus_scan.launches
+            seq, seq_wall = fleet_run(rt, F.serve_fleet_sequential, K, rates,
+                                      spec_kw, cfg_kw, "cuda", 11)
+            rec.update(
+                sequential_wall_s=seq_wall,
+                sequential_configs_per_s=K * len(rates) / seq_wall,
+                speedup=seq_wall / rec["wall_s"],
+                sequential_k1_launches=rt["K1"].maxplus_scan.launches - k1,
+                max_abs_latency_err_vs_sequential_s=compare_fleets(
+                    np, seq, got, f"fleet/k{K} batched vs sequential"))
+        scaling[f"k{K}"] = rec
+    out["scaling"] = scaling
+    matrix = {}
+    K = FLEET_ADM_K
+    for mode, extra in FLEET_ADM_MODES.items():
+        spec_kw = dict(seed=3, dispatch="least-backlog", migrate_backlog=True,
+                       fleet_power_budget=27.0 * K)
+        cfg_kw = dict(FLEET_CL, mode_switch_s=0.25, burst_quantile=0.95,
+                      admission=mode, **extra)
+        _, rec = on_card(f"admission_{mode}", K,
+                         [30.0 * m * K for m in FLEET_ADM_RATES], spec_kw,
+                         cfg_kw, 11)
+        matrix[mode] = rec
+    if sum(matrix["shed"][k] for k in ("shed", "migrated")) < 1:
+        fail("fleet: the admission matrix shed and migrated nothing")
+    out["admission"] = matrix
+    profile = profile_device(torch, lambda: fleet_run(
+        rt, F.serve_fleet, 64, [30.0 * m * 64 for m in FLEET_RATES],
+        dict(seed=3, dispatch="least-backlog"),
+        dict(FLEET_CL, mode_switch_s=0.25), "cuda", 11))
+    out["profile_k64"] = {k: profile[k] for k in (
+        "wall_s", "device_busy_s", "idle_share", "device_ops",
+        "k1_device_ms", "k1_kernels", "k2_device_ms", "k2_kernels", "top",
+        "cost_s")}
+    out["launches"] = total
+    emit(out)
+    return out
+
+
 def sweep_kernels(torch, np, rt, lanes, reports) -> dict:
     """The sweep's own work, re-made stage by stage from its inputs: the
     host's per-lane event prep and padding of the engine's first chunk, the
@@ -1829,11 +2180,14 @@ def main() -> int:
     import repro_torch.kernels.tiled_matmul.tiled_matmul as K5
     from repro_torch import tree as T
     from repro_torch.configs import base as C
+    from repro_torch.core import backend as B
     from repro_torch.core import controller as CC
+    from repro_torch.core import fleet as F
     from repro_torch.core import problem as P
     from repro_torch.core import simulate as S
     from repro_torch.core.device_model import (DeviceModel, INFER_WORKLOADS,
                                                TRAIN_WORKLOADS)
+    from repro_torch.core.oracle import Oracle
     from repro_torch.core.powermode import PowerModeSpace
     from repro_torch.core.scheduler import Fulcrum
     from repro_torch.data import pipeline as D
@@ -1848,7 +2202,7 @@ def main() -> int:
     rt = dict(P=P, S=S, K1=K1, K2=K2, Fulcrum=Fulcrum, DeviceModel=DeviceModel,
               PowerModeSpace=PowerModeSpace, TRAIN=TRAIN_WORKLOADS,
               INFER=INFER_WORKLOADS, C=C, SV=SV, IR=IR, TL=TL, A=A, ST=ST,
-              T=T, M=M, D=D, OPS=OPS, CC=CC)
+              T=T, M=M, D=D, OPS=OPS, CC=CC, B=B, F=F, Oracle=Oracle)
 
     device = phase_device(torch, build)
     kern = phase_kernels(torch, K1, K2, K3, K4, K5, args.seed)
@@ -1863,7 +2217,9 @@ def main() -> int:
              "serve_dynamic": phase_serve_dynamic(torch, np, rt, launches),
              "serve_closed_loop": phase_serve_closed_loop(torch, np, rt,
                                                           launches),
-             "multi_tenant": phase_multi_tenant(torch, np, rt, launches)}
+             "multi_tenant": phase_multi_tenant(torch, np, rt, launches),
+             "oracle_sweep": phase_oracle_sweep(torch, np, rt, launches),
+             "fleet": phase_fleet(torch, np, rt, launches)}
     sweep = phase_sweep(torch, np, rt, launches)
     paths["sweep"] = sweep["full_space"]
     paths["sweep_100k"] = sweep["lanes_100k"]
