@@ -15,7 +15,8 @@ is the only place that touches CUDA, so ``import repro_torch`` neither
 initialises a device nor builds anything.
 
 The dispatch counters count host -> device program launches by layer, as in
-the reference (``"engine"``: one per max-plus-scan lane chunk).
+the reference (``"engine"``: one per max-plus-scan lane chunk, ``"sort"``:
+one per lane-sort chunk, ``"solver"``: one per grid-solver chunk).
 """
 from __future__ import annotations
 
