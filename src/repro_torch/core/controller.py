@@ -582,9 +582,9 @@ class FleetControllerState:
         """Queue ``n`` rejected requests for fleet-wide re-submission at the
         next window start (they re-enter the dispatcher, re-timestamped).
         The config's ``defer_cap`` bounds the fleet's total deferred
-        backlog; the overflow is returned for the driver to record as shed
-        — charged, like the per-device counters, to the device that pushed
-        it."""
+        backlog; the overflow is returned for the serving loop to record as
+        shed — charged, like the per-device counters, to the device that
+        pushed it."""
         self.fleet_deferred += int(n)
         cap = self.cfg.defer_cap
         if cap is None or self.fleet_deferred <= cap:
@@ -597,7 +597,7 @@ class FleetControllerState:
         """Drain the fleet's deferred backlog for re-dispatch: the count of
         requests to prepend (re-timestamped at the window start) to the next
         window's aggregate arrivals. Requests the next admission pass
-        rejects again are re-deferred (or shed) by the driver."""
+        rejects again are re-deferred (or shed) by the serving loop."""
         n, self.fleet_deferred = self.fleet_deferred, 0
         return n
 

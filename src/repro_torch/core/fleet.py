@@ -24,7 +24,7 @@ aggregate arrival stream. Each window:
  3. **execute** — all solved devices run as one ``simulate_batch`` call
     with per-lane devices (``devices=``): each device's service time reaches
     the max-plus scan (K1) as its lane's ``exec`` times, and the report
-    builder sorts every device's latencies with the lane sort (K2).
+    pass sorts every device's latencies with the lane sort (K2).
 
 Fleet-wide resource control rides on top of the same three passes (all
 opt-in; with the knobs at their defaults every step below is skipped):
@@ -56,7 +56,7 @@ independent single-device closed loops run one after another (scalar
 solvers over each device's own observation dict, one single-lane engine
 call per device per window). The cross-device decisions (dispatch,
 deferral, migration, water-filling, admission masks) are shared helpers
-called identically by both drivers.
+called identically by both serving loops.
 
 Exactness. The solves are bitwise the reference's NumPy tier
 (``grid_eval``), and so are the host decisions built on them. The engine is
