@@ -12,9 +12,10 @@ each and stopping with a traceback at the first failure:
  2. ``kernels``: each kernel against its plain PyTorch version on the card
     at the engine's full shapes — the max-plus scan at 8192 lanes x 8192
     events, the lane sort at 512 x 8192, at 1 x 32768 (its global-pass
-    path) and at the sweeps' sort chunks, 577 x 7263 and 34663 x 121 —
-    with times, the bytes-over-bandwidth bound and the one-call library
-    yardstick where PyTorch has one.
+    path) and at the sweeps' sort chunks, 577 x 7263 and 34663 x 121, and
+    the fused fleet window on the K = 512 fleet's second window and on a
+    shedding one — with times, the bytes-over-bandwidth bound and the
+    one-call library yardstick where PyTorch has one.
  3. ``execute``: the README quickstart (GMD concurrent plan for mobilenet,
     executed over a 120 s Poisson trace) on ``backend="cuda"`` and again on
     ``"cpu"``, compared to the engine tolerance.
@@ -57,7 +58,14 @@ each and stopping with a traceback at the first failure:
     decisions per window and device, latencies to the engine tolerance;
     one K1 and one K2 launch per window that serves, K2's routes; wall,
     device-windows/s, the batched speedup, goodput, shed / deferred /
-    migrated counts, and the K = 64 row under the profiler.
+    migrated counts, and the K = 64 row under the profiler. Then the fused
+    window (``serve_fleet(fused=True)``) on the README's two fleets, the
+    scaling rows at K = 64 and 512 and the shed and defer rows, each on
+    ``"cuda"`` against the row's unfused cuda run and against the fused
+    window on ``"cpu"``: the same decisions, one ``fused_window`` and one
+    K2 launch a window and no K1; device-windows/s and the speedup over
+    the unfused row; degrade-bs refused; the K = 64 row under the profiler
+    (idle share, copies per window).
  9. ``sweep``: ``simulate_batch`` over every (power mode x inference
     minibatch size) of the default space (2,205 lanes, 120 s at 60 req/s),
     then the 100k-lane point of ``benchmarks/bench_interleave_engine.py``;
@@ -234,6 +242,15 @@ FLEET_RATES = (0.9, 1.4, 0.7, 1.1)             # x 30 req/s x K
 FLEET_ADM_K, FLEET_ADM_RATES = 64, (3.0, 4.5, 1.0, 2.5)
 FLEET_ADM_MODES = {"shed": {}, "defer": dict(defer_cap=2000),
                    "degrade-bs": {}}
+# the fused window runs the README's fleets, these scaling rows and these
+# admission rows (degrade-bs re-plans on the host and is refused), each
+# against the unfused cuda run of the same row; the kernel phase holds the
+# kernel against its plain version on the K = 512 scaling row's second
+# window (a carried backlog and previous modes) and on the admission
+# matrix's shed row run at K = 512
+FLEET_FUSED_KS = (64, 512)
+FLEET_FUSED_ADM = ("shed", "defer")
+FUSED_K = 512
 # the runtime's admission gate: a uniform trace at this multiple of the
 # server's minibatch rate, for this long, against a budget of 2 minibatches
 GATE_LOAD, GATE_DURATION = 1.5, 5.0
@@ -295,8 +312,15 @@ KERNEL_ROWS = {
     "tiled_matmul": dict(
         route="cuda", source="src/repro_torch/kernels/csrc/tiled_matmul.cu",
         replaces="src/repro/kernels/tiled_matmul/tiled_matmul.py:37"),
+    # the reference's fused window is a jax.jit program, not Pallas: the
+    # row names its window function
+    "fused_window": dict(
+        route="cuda", source="src/repro_torch/kernels/csrc/fused_window.cu",
+        replaces="src/repro/core/fused_window.py:154"),
 }
 ENGINE_KERNELS = ("maxplus_scan", "lane_sort")
+# a fused fleet window: the fused kernel, then the report builder's sort
+FUSED_KERNELS = ("fused_window", "lane_sort")
 # the device functions of K3's two sources, as the profiler names them
 K3_FUNCTIONS = ("flash_attention_tc", "flash_attention_kernel",
                 "rowdot_kernel", "rowvec_tc", "dkdv_tc", "dkdv_kernel",
@@ -309,6 +333,8 @@ K4_BWD_FUNCTIONS = ("query_pass", "state_pass", "key_pass",
 K1_FUNCTIONS = ("maxplus_scan_kernel",)
 K2_FUNCTIONS = ("sort_rows_warp", "sort_rows_block", "sort_pieces",
                 "merge_pieces", "merge_global", "count_over")
+# and of the fused fleet window (csrc/fused_window.cu)
+KF_FUNCTIONS = ("fused_window_kernel",)
 MODEL_KERNELS = ("flash_attention", "ssd_chunk")
 TRAIN_KERNELS = MODEL_KERNELS + ("flash_attention_bwd", "ssd_chunk_bwd")
 
@@ -470,6 +496,100 @@ def time_sort(torch, K2, mat, budgets, reps: int) -> dict:
     return {"shape": [L, R], "route": way, "kernel_ms": ms,
             "plain_ms": plain_ms, "library_ms": library_ms, "bound_ms": b_ms,
             "bound_by": by, "max_abs_err": 0.0}
+
+
+def fused_inputs(rt, K: int, rates, spec_kw: dict, cfg_kw: dict) -> tuple:
+    """The fused window's wrapper arguments as the fleet's main path gives
+    them: ``serve_fleet(fused=True)`` on the card at K devices over
+    ``rates``; the last window's, with its carried backlog and previous
+    modes."""
+    FW, seen = rt["FW"], []
+    inner = FW.fused_window           # the importer's name of the wrapper
+
+    def record(*args):
+        seen.append(tuple(a.clone() if hasattr(a, "clone") else a
+                          for a in args))
+        return inner(*args)
+
+    FW.fused_window = record
+    try:
+        fleet_run(rt, rt["F"].serve_fleet, K, rates, spec_kw, cfg_kw, "cuda",
+                  11, fused=True)
+    finally:
+        FW.fused_window = inner
+    return seen[-1]
+
+
+def check_fused(torch, np, rt, args, what: str) -> tuple:
+    """The fused kernel against its plain version on the same card inputs:
+    every field bitwise but the fold's (latencies, the last completion),
+    which meet ENG_TOL. Returns (max |Δ| of the fold, the kernel's
+    unpacked result)."""
+    KF, FW = rt["KF"], rt["FW"]
+    got = KF.fused_window(*args)
+    torch.cuda.synchronize()
+    want = KF.fused_window_plain(*args)
+    g, w = (FW.unpack_window(x.cpu().numpy()) for x in (got, want))
+    for f in KF.OUT_FIELDS:
+        if f != "clock_out" and g[f].tobytes() != w[f].tobytes():
+            fail(f"{what}: fused_window's {f} differs from the plain "
+                 f"version at {int(np.count_nonzero(g[f] != w[f]))} devices")
+    if g["adm_times"].tobytes() != w["adm_times"].tobytes():
+        fail(f"{what}: fused_window's admitted times differ")
+    err = 0.0
+    for f in ("latencies", "clock_out"):
+        a, b = np.asarray(w[f]), np.asarray(g[f])
+        if not np.allclose(b, a, **ENG_TOL):
+            fail(f"{what}: fused_window's {f} differ beyond {ENG_TOL}")
+        fin = np.isfinite(a)
+        if fin.any():
+            err = max(err, float(np.abs(b[fin] - a[fin]).max()))
+    return err, g
+
+
+def time_fused(torch, np, rt, args, shed_args, reps: int) -> dict:
+    """The fused kernel on the K = 512 scaling row's window: checked, timed
+    beside its plain version, with its device time under the profiler;
+    also checked and timed on the K = 512 shed row's window (admission
+    on)."""
+    KF = rt["KF"]
+    t, p, bsf, ids, rows = args[:5]
+    K, T = rows.shape[0], rows.shape[1] - KF.N_IN
+    err, g = check_fused(torch, np, rt, args, f"fused_window {K}x{T}")
+    shed_err, sg = check_fused(torch, np, rt, shed_args,
+                               "fused_window, shed row")
+    if not sg["n_rej"].any():
+        fail("fused_window: the shed row's window rejected nothing")
+    ms = cuda_ms(torch, lambda: KF.fused_window(*args), reps)
+    plain_ms = cuda_ms(torch, lambda: KF.fused_window_plain(*args), 2)
+    prof = profile_device(torch, lambda: [KF.fused_window(*args)
+                                          for _ in range(reps)])
+    N = t.shape[0]
+    # each input read once, each output written once: the grid's three
+    # float64 columns and int32 mode ids, the rows, the result; about 9
+    # float64 operations per grid entry per rung a device runs (two
+    # products, a difference, two quotients, a sum, three comparisons), 4
+    # per arrival an admitting device judges, 2 per batch folded and 1 per
+    # latency
+    nbytes = 28.0 * N + 8.0 * rows.numel() + 8.0 * K * (KF.N_OUT + 2 * T)
+    adm = int(g["n_adm"].sum() + g["n_rej"].sum()) if args[7] else 0
+    served = int((g["n_batches"] * np.where(
+        g["solved"], bsf.cpu().numpy()[g["sel"]], 0)).sum())
+    ops = (9.0 * N * int(g["rungs"].sum()) + 4.0 * adm
+           + 2.0 * int(g["n_batches"].sum()) + served)
+    b_ms, by = bound(nbytes, ops)
+    shed_ms = cuda_ms(torch, lambda: KF.fused_window(*shed_args), reps)
+    return {"shape": [K, T], "grid_entries": N, "trims": bool(args[7]),
+            "kernel_ms": ms,
+            "kernel_device_ms": prof["kf_device_ms"] / max(1, reps),
+            "plain_ms": plain_ms, "library_ms": None, "bound_ms": b_ms,
+            "bound_by": by, "bound_bytes": nbytes, "bound_ops": ops,
+            "rungs_run": int(g["rungs"].sum()),
+            "solved": int(g["solved"].sum()), "max_abs_err": err,
+            "shed_row": {"shape": [shed_args[4].shape[0],
+                                   shed_args[4].shape[1] - KF.N_IN],
+                         "rejected": int(sg["n_rej"].sum()),
+                         "kernel_ms": shed_ms, "max_abs_err": shed_err}}
 
 
 def attention_pairs(S: int, window) -> int:
@@ -893,7 +1013,7 @@ def phase_device(torch, build) -> dict:
     return out
 
 
-def phase_kernels(torch, K1, K2, K3, K4, K5, seed: int) -> dict:
+def phase_kernels(torch, np, rt, K1, K2, K3, K4, K5, seed: int) -> dict:
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(seed)
     args, valid = maxplus_case(torch, *MAXPLUS_SHAPE, gen, dev)
@@ -910,12 +1030,25 @@ def phase_kernels(torch, K1, K2, K3, K4, K5, seed: int) -> dict:
     k3b = time_attention_bwd(torch, K3, gen, dev, reps=5)
     k4b = time_ssd_bwd(torch, K4, gen, dev, reps=5)
     k5 = time_matmul(torch, K5, gen, dev, reps=10)
+    kf = time_fused(torch, np, rt, fused_inputs(
+        rt, FUSED_K, [30.0 * m * FUSED_K for m in FLEET_RATES[:2]],
+        dict(seed=3, dispatch="least-backlog"),
+        dict(FLEET_CL, mode_switch_s=0.25)),
+        fused_inputs(rt, FUSED_K,
+                     [30.0 * m * FUSED_K for m in FLEET_ADM_RATES[:2]],
+                     dict(seed=3, dispatch="least-backlog",
+                          migrate_backlog=True,
+                          fleet_power_budget=27.0 * FUSED_K),
+                     dict(FLEET_CL, mode_switch_s=0.25, burst_quantile=0.95,
+                          admission="shed")), reps=20)
     out = {"phase": "kernels", "maxplus_scan": k1, **k2,
            "maxplus_scan_library": "no single PyTorch call computes the "
                                    "max-plus recurrence with fills",
            "flash_attention": k3, "ssd_chunk": k4,
            "flash_attention_bwd": k3b, "ssd_chunk_bwd": k4b,
-           "tiled_matmul": k5}
+           "tiled_matmul": k5, "fused_window": kf,
+           "fused_window_library": "no single PyTorch call plans, admits "
+                                   "and folds a window"}
     emit(out)
     return out
 
@@ -1480,16 +1613,18 @@ def compare_fleets(np, ref, got, what: str) -> float:
 
 
 def fleet_run(rt, fn, K: int, rates, spec_kw: dict, cfg_kw: dict,
-              backend: str, seed: int) -> tuple:
+              backend: str, seed: int, fused: bool = False) -> tuple:
     """One fleet serving run (``fn`` is serve_fleet or
-    serve_fleet_sequential) and its wall seconds."""
+    serve_fleet_sequential; ``fused`` asks serve_fleet for the fused
+    window) and its wall seconds."""
     F, CC = rt["F"], rt["CC"]
     name, power, budget, window = FLEET
     t0 = time.perf_counter()
     wins = fn(rt["INFER"][name], power, budget, list(rates),
               F.FleetSpec(K, **spec_kw), window_duration=window,
               arrivals="poisson", seed=seed, backend=backend,
-              controller=CC.ControllerConfig(**cfg_kw))
+              controller=CC.ControllerConfig(**cfg_kw),
+              **({"fused": True} if fused else {}))
     return wins, time.perf_counter() - t0
 
 
@@ -1524,10 +1659,19 @@ def phase_fleet(torch, np, rt, launches: Launches) -> dict:
     cpu; one K1 and one K2 launch per window that serves."""
     F, K2 = rt["F"], rt["K2"]
     out, total = {"phase": "fleet"}, {}
+    unfused = {}                  # row -> (its unfused cuda run, wall s)
     # the device model's timing caches and the grid warm up first
     fleet_run(rt, F.serve_fleet, 2, [60.0], {}, FLEET_CL, "cuda", 0)
+    fleet_run(rt, F.serve_fleet, 2, [60.0], {}, FLEET_CL, "cuda", 0,
+              fused=True)
     fleet_run(rt, F.serve_fleet_sequential, 2, [60.0], {}, FLEET_CL, "cuda",
               0)
+
+    def sorts(got):
+        """One sort chunk per window that has a latency to sort (K <= 8,192
+        lanes, far below the sort chunk's elements)."""
+        return sum(any(d.report is not None and len(d.report.latencies)
+                       for d in w.devices) for w in got)
 
     def on_card(what, K, rates, spec_kw, cfg_kw, seed):
         nonlocal total
@@ -1542,9 +1686,7 @@ def phase_fleet(torch, np, rt, launches: Launches) -> dict:
         # below the sort chunk's elements)
         want = {"maxplus_scan": sum(
             any(d.report is not None for d in w.devices) for w in got),
-            "lane_sort": sum(any(d.report is not None
-                                 and len(d.report.latencies)
-                                 for d in w.devices) for w in got)}
+            "lane_sort": sorts(got), "fused_window": 0}
         for k, n in want.items():
             if counts[k] != n:
                 fail(f"fleet/{what}: {k} launched {counts[k]} times, not "
@@ -1556,7 +1698,44 @@ def phase_fleet(torch, np, rt, launches: Launches) -> dict:
         rec = fleet_record(np, got, K, wall)
         rec.update(cpu_backend_wall_s=cpu_wall, launches=counts,
                    lane_sort_routes=routes, max_abs_latency_err_s=err)
+        unfused[what] = (got, wall)
         return got, rec
+
+    def fused_on_card(what, K, rates, spec_kw, cfg_kw, seed):
+        """The same row through the fused window on the card (one launch a
+        window, no K1), against the row's unfused cuda run and against the
+        fused window on cpu."""
+        nonlocal total
+        launches.reset()
+        got, wall = fleet_run(rt, F.serve_fleet, K, rates, spec_kw, cfg_kw,
+                              "cuda", seed, fused=True)
+        counts = launches.read(f"fleet/fused_{what}", FUSED_KERNELS)
+        want = {"fused_window": len(got), "maxplus_scan": 0,
+                "lane_sort": sorts(got)}
+        for k, n in want.items():
+            if counts[k] != n:
+                fail(f"fleet/fused_{what}: {k} launched {counts[k]} times, "
+                     f"not {n} ({len(got)} windows)")
+        if not all(any(d.report is not None for d in w.devices) for w in got):
+            fail(f"fleet/fused_{what}: a window served no device")
+        total = add_counts(total, counts)
+        ref, unf_wall = unfused[what]
+        err = compare_fleets(np, ref, got,
+                             f"fleet/fused_{what} vs the unfused cuda run")
+        cpu, cpu_wall = fleet_run(rt, F.serve_fleet, K, rates, spec_kw,
+                                  cfg_kw, "cpu", seed, fused=True)
+        cpu_err = compare_fleets(np, cpu, got,
+                                 f"fleet/fused_{what} cuda vs cpu")
+        rec = fleet_record(np, got, K, wall)
+        rec.update(unfused_wall_s=unf_wall,
+                   unfused_configs_per_s=K * len(got) / unf_wall,
+                   speedup_over_unfused=unf_wall / wall,
+                   cpu_backend_wall_s=cpu_wall, launches=counts,
+                   launches_per_window={k: n / len(got)
+                                        for k, n in counts.items() if n},
+                   max_abs_latency_err_vs_unfused_s=err,
+                   max_abs_latency_err_vs_cpu_s=cpu_err)
+        return rec
 
     for case, (rates, spec_kw, cfg_kw) in FLEET_README.items():
         got, rec = on_card(case, 8, rates, spec_kw, cfg_kw, 0)
@@ -1601,14 +1780,54 @@ def phase_fleet(torch, np, rt, launches: Launches) -> dict:
     if sum(matrix["shed"][k] for k in ("shed", "migrated")) < 1:
         fail("fleet: the admission matrix shed and migrated nothing")
     out["admission"] = matrix
+    fused = {}
+    for case, (rates, spec_kw, cfg_kw) in FLEET_README.items():
+        fused[case] = fused_on_card(case, 8, rates, spec_kw, cfg_kw, 0)
+    for K in FLEET_FUSED_KS:
+        fused[f"k{K}"] = fused_on_card(
+            f"k{K}", K, [30.0 * m * K for m in FLEET_RATES],
+            dict(seed=3, dispatch="least-backlog"),
+            dict(FLEET_CL, mode_switch_s=0.25), 11)
+    K = FLEET_ADM_K
+    for mode in FLEET_FUSED_ADM:
+        fused[f"admission_{mode}"] = fused_on_card(
+            f"admission_{mode}", K, [30.0 * m * K for m in FLEET_ADM_RATES],
+            dict(seed=3, dispatch="least-backlog", migrate_backlog=True,
+                 fleet_power_budget=27.0 * K),
+            dict(FLEET_CL, mode_switch_s=0.25, burst_quantile=0.95,
+                 admission=mode, **FLEET_ADM_MODES[mode]), 11)
+    if fused["admission_shed"]["shed"] < 1:
+        fail("fleet: the fused shed row shed nothing")
+    try:
+        fleet_run(rt, F.serve_fleet, 8, [220.0], {},
+                  dict(FLEET_CL, admission="degrade-bs"), "cuda", 0,
+                  fused=True)
+        fail("fleet: the fused window served degrade-bs instead of refusing")
+    except ValueError as e:
+        if "degrade-bs" not in str(e):
+            fail(f"fleet: the fused degrade-bs refusal says {e}")
+    fused["degrade_bs_refused"] = True
+    fprof = profile_device(torch, lambda: fleet_run(
+        rt, F.serve_fleet, 64, [30.0 * m * 64 for m in FLEET_RATES],
+        dict(seed=3, dispatch="least-backlog"),
+        dict(FLEET_CL, mode_switch_s=0.25), "cuda", 11, fused=True))
+    fused["profile_k64"] = {k: fprof[k] for k in (
+        "wall_s", "device_busy_s", "idle_share", "device_ops", "copies",
+        "kf_device_ms", "kf_kernels", "k1_kernels", "k2_device_ms",
+        "k2_kernels", "top", "cost_s")}
+    fused["profile_k64"]["copies_per_window"] = \
+        fprof["copies"] / len(FLEET_RATES)
+    out["fused"] = fused
     profile = profile_device(torch, lambda: fleet_run(
         rt, F.serve_fleet, 64, [30.0 * m * 64 for m in FLEET_RATES],
         dict(seed=3, dispatch="least-backlog"),
         dict(FLEET_CL, mode_switch_s=0.25), "cuda", 11))
     out["profile_k64"] = {k: profile[k] for k in (
-        "wall_s", "device_busy_s", "idle_share", "device_ops",
+        "wall_s", "device_busy_s", "idle_share", "device_ops", "copies",
         "k1_device_ms", "k1_kernels", "k2_device_ms", "k2_kernels", "top",
         "cost_s")}
+    out["profile_k64"]["copies_per_window"] = \
+        profile["copies"] / len(FLEET_RATES)
     out["launches"] = total
     emit(out)
     return out
@@ -1805,9 +2024,9 @@ def profile_device(torch, fn) -> dict:
     that take longer to reduce than the step itself): the device's busy time
     (the sum of kernel time) against the wall, the number of kernels and
     copies it ran, K3's device time and kernels (forward and backward),
-    K4's forward's and backward's, K1's and K2's, the kernels with the
-    most device time, and what the profiled call cost in all (``cost_s``,
-    the reduction included)."""
+    K4's forward's and backward's, K1's and K2's, the fused window's, the
+    host-device copies, the kernels with the most device time, and what the
+    profiled call cost in all (``cost_s``, the reduction included)."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     t_cost = time.perf_counter()
@@ -1835,6 +2054,7 @@ def profile_device(torch, fn) -> dict:
            if any(f in k for f in K4_BWD_FUNCTIONS)]
     k1 = [(us, n) for k, us, n in rows if any(f in k for f in K1_FUNCTIONS)]
     k2 = [(us, n) for k, us, n in rows if any(f in k for f in K2_FUNCTIONS)]
+    kf = [(us, n) for k, us, n in rows if any(f in k for f in KF_FUNCTIONS)]
     return {"wall_s": wall, "device_busy_s": busy,
             "idle_share": (1.0 - busy / wall) if rows else None,
             "device_ops": sum(n for _, _, n in rows),
@@ -1848,6 +2068,9 @@ def profile_device(torch, fn) -> dict:
             "k1_kernels": sum(n for _, n in k1),
             "k2_device_ms": sum(us for us, _ in k2) / 1e3,
             "k2_kernels": sum(n for _, n in k2),
+            "kf_device_ms": sum(us for us, _ in kf) / 1e3,
+            "kf_kernels": sum(n for _, n in kf),
+            "copies": sum(n for k, _, n in rows if k.startswith("Memcpy")),
             "top": [{"name": k[:120], "device_ms": us / 1e3, "count": n}
                     for k, us, n in rows[:15]],
             "cost_s": time.perf_counter() - t_cost}
@@ -2174,6 +2397,7 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
 
     import repro_torch.kernels.flash_attention.flash_attention as K3
+    import repro_torch.kernels.fulcrum.fused_window as KF
     import repro_torch.kernels.fulcrum.lane_sort as K2
     import repro_torch.kernels.fulcrum.maxplus_scan as K1
     import repro_torch.kernels.ssd_scan.ssd_scan as K4
@@ -2183,6 +2407,7 @@ def main() -> int:
     from repro_torch.core import backend as B
     from repro_torch.core import controller as CC
     from repro_torch.core import fleet as F
+    from repro_torch.core import fused_window as FW
     from repro_torch.core import problem as P
     from repro_torch.core import simulate as S
     from repro_torch.core.device_model import (DeviceModel, INFER_WORKLOADS,
@@ -2202,17 +2427,19 @@ def main() -> int:
     rt = dict(P=P, S=S, K1=K1, K2=K2, Fulcrum=Fulcrum, DeviceModel=DeviceModel,
               PowerModeSpace=PowerModeSpace, TRAIN=TRAIN_WORKLOADS,
               INFER=INFER_WORKLOADS, C=C, SV=SV, IR=IR, TL=TL, A=A, ST=ST,
-              T=T, M=M, D=D, OPS=OPS, CC=CC, B=B, F=F, Oracle=Oracle)
+              T=T, M=M, D=D, OPS=OPS, CC=CC, B=B, F=F, Oracle=Oracle,
+              KF=KF, FW=FW)
 
     device = phase_device(torch, build)
-    kern = phase_kernels(torch, K1, K2, K3, K4, K5, args.seed)
+    kern = phase_kernels(torch, np, rt, K1, K2, K3, K4, K5, args.seed)
     launches = Launches({"maxplus_scan": K1.maxplus_scan,
                          "lane_sort": K2.lane_sort,
                          "flash_attention": K3.flash_attention,
                          "flash_attention_bwd": K3.flash_attention_bwd,
                          "ssd_chunk": K4.ssd_chunk,
                          "ssd_chunk_bwd": K4.ssd_chunk_bwd,
-                         "tiled_matmul": K5.tiled_matmul})
+                         "tiled_matmul": K5.tiled_matmul,
+                         "fused_window": KF.fused_window})
     paths = {"execute": phase_execute(torch, np, rt, launches),
              "serve_dynamic": phase_serve_dynamic(torch, np, rt, launches),
              "serve_closed_loop": phase_serve_closed_loop(torch, np, rt,

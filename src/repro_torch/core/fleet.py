@@ -70,11 +70,14 @@ elements), so ``serve_fleet`` equals ``serve_fleet_sequential`` bitwise
 there; on ``"cuda"`` the kernel's association depends on the padded event
 count, so the two agree within the engine tolerance.
 
-Not ported yet: the fused window (``serve_fleet(fused=True)``, one launch
-per window; ROADMAP queue 1, item 5) raises ``NotImplementedError``. The
-one remaining single-device refinement is mid-window re-entry
-(``split_backlog``): configs requesting it are rejected rather than
-silently ignored.
+``serve_fleet(fused=True)`` runs each window as one launch
+(``core.fused_window``): the ladder, admission and engine of every device in
+one kernel (``csrc/fused_window.cu`` on ``"cuda"``, its plain version on
+``"cpu"``), the same host bookkeeping around it. It supports admission
+none / shed / defer; ``degrade-bs`` re-plans on the host between solve and
+execute and is refused. The one remaining single-device refinement is
+mid-window re-entry (``split_backlog``): configs requesting it are rejected
+rather than silently ignored.
 """
 from __future__ import annotations
 
@@ -89,9 +92,11 @@ from repro_torch.core.controller import (AdmissionPolicy, ControllerConfig,
                                          ControllerState, FleetControllerState)
 from repro_torch.core.device_model import (DeviceModel, PerturbedDeviceModel,
                                            WorkloadProfile, fleet_device)
+from repro_torch.core.fused_window import fused_fleet_window
 from repro_torch.core.grid_eval import materialize, solve_infer_fleet_batch
 from repro_torch.core.powermode import PowerModeSpace
-from repro_torch.core.simulate import (ArrivalTrace, QueueState, simulate,
+from repro_torch.core.simulate import (ArrivalTrace, ExecutionReport,
+                                       QueueState, _presort_reports, simulate,
                                        simulate_batch)
 
 _DISPATCHES = ("capacity", "least-backlog")
@@ -403,6 +408,55 @@ def _degrade_fleet_plan(sol, est: float, n_waiting: int, duration: float,
     return cand if cand.bs / c_t > sol.bs / t_in else sol
 
 
+def _open_window(state: FleetControllerState, cfg: ControllerConfig,
+                 adm: AdmissionPolicy, spec: FleetSpec, wts: np.ndarray,
+                 shares: np.ndarray, rate: float, i: int,
+                 window_duration: float, arrivals: str, seed: int,
+                 power_budget: float, latency_budget: float,
+                 prev_attr: np.ndarray) -> tuple:
+    """Window ``i``'s host preamble, shared by both batched loops (unfused
+    and fused): its arrivals, backlog migration, the deferred re-offers'
+    return, dispatch, the announced rates, the water-filled power grants,
+    and the ladder's per-device inputs. Returns ``(t0, agg, n_mig, carried,
+    merged, dtr, own_dtr, def_counts, counts, announced, pbud, hi, est,
+    bud)``."""
+    K = spec.n_devices
+    t0 = i * window_duration
+    agg = _window_trace(rate, i, window_duration, arrivals, seed)
+    n_mig = _migrate_backlog(state.devices, wts, t0) \
+        if spec.migrate_backlog else 0
+    n_def = state.pop_fleet_deferred() if adm.active else 0
+    carried = _backlog_counts(state.devices, cfg)
+    counts0 = carried if spec.dispatch == "least-backlog" else None
+    merged, dtr, own_dtr, def_counts, counts = _dispatch_fleet_window(
+        agg, n_def, t0, wts, counts0, K)
+    announced = rate * shares
+    pbud = _fleet_power_budgets(spec, power_budget, prev_attr, K)
+    hi = state.plan_rates(announced, t0, window_duration)
+    est = state.plan_rates(announced, t0, window_duration,
+                           margin=1.0, pressure=False)
+    if cfg.burst_quantile > 0.0:
+        hi = np.maximum(hi, [P.burst_rate(e, window_duration,
+                                          cfg.burst_quantile)
+                             for e in est])
+    bud = state.plan_budgets([latency_budget] * K)
+    return (t0, agg, n_mig, carried, merged, dtr, own_dtr, def_counts,
+            counts, announced, pbud, hi, est, bud)
+
+
+def _unserved_report(announced: float, est: float, carried: int,
+                     shed: int, own: ArrivalTrace):
+    """The report of a device that served nothing this window."""
+    from repro_torch.core.scheduler import WindowReport
+    offered = len(own)
+    return WindowReport(float(announced), None, None,
+                        estimated_rate=float(est),
+                        carried_requests=int(carried),
+                        shed_requests=int(shed),
+                        goodput=0.0 if offered else 1.0,
+                        offered_requests=offered)
+
+
 def _goodput(rep, latency_budget: float, offered: int) -> float:
     good = int(np.count_nonzero(
         np.asarray(rep.latencies, np.float64) <= latency_budget))
@@ -443,16 +497,23 @@ def serve_fleet(w: WorkloadProfile, power_budget: float,
     ``serve_fleet_sequential`` (the K independent scalar loops), bitwise on
     ``"cpu"`` (see the module's note on exactness).
 
-    ``fused=True`` — the whole window as one launch — is not ported yet
-    and raises ``NotImplementedError``; it never runs the unfused loop."""
+    ``fused=True`` runs each window through the fused window instead — ONE
+    launch per window (``core.fused_window``) on the same backend, with the
+    same decisions and latencies within the engine tolerance. It never
+    falls back to the unfused loop; admission ``degrade-bs`` is refused."""
     cfg = controller if controller is not None else ControllerConfig()
     _check_fleet_features(spec, cfg)
     adm = cfg.admission_policy()
     if fused:
-        raise NotImplementedError(
-            "serve_fleet(fused=True) — the fused fleet window, one launch "
-            "per window — is not ported yet (ROADMAP queue 1, item 5); "
-            "leave fused off to run the unfused loop")
+        if adm.mode == "degrade-bs":
+            raise ValueError(
+                "admission mode 'degrade-bs' re-plans on the host between "
+                "solve and simulate (problem.solve_infer_capacity over the "
+                "device dict); serve it unfused — the fused window supports "
+                "admission none/shed/defer")
+        return _serve_fleet_fused(w, power_budget, latency_budget, rates,
+                                  spec, window_duration, arrivals, seed,
+                                  cfg, adm, space, resolve_backend(backend))
     K = spec.n_devices
     devs, ts, ps, wts, shares = _fleet_scales(spec)
     grid = materialize(DeviceModel(), w, space or PowerModeSpace(),
@@ -476,27 +537,13 @@ def serve_fleet(w: WorkloadProfile, power_budget: float,
     out: list[FleetWindowReport] = []
     from repro_torch.core.scheduler import WindowReport
     for i, rate in enumerate(rates):
-        t0 = i * window_duration
-        agg = _window_trace(float(rate), i, window_duration, arrivals, seed)
-        n_mig = _migrate_backlog(state.devices, wts, t0) \
-            if spec.migrate_backlog else 0
-        n_def = state.pop_fleet_deferred() if adm.active else 0
-        carried = _backlog_counts(state.devices, cfg)
-        counts0 = carried if spec.dispatch == "least-backlog" else None
-        merged, dtr, own_dtr, def_counts, counts = _dispatch_fleet_window(
-            agg, n_def, t0, wts, counts0, K)
-        announced = float(rate) * shares
-        pbud = _fleet_power_budgets(spec, power_budget, prev_attr, K)
+        (t0, agg, n_mig, carried, merged, dtr, own_dtr, def_counts, counts,
+         announced, pbud, hi, est, bud) = _open_window(
+            state, cfg, adm, spec, wts, shares, float(rate), i,
+            window_duration, arrivals, seed, power_budget, latency_budget,
+            prev_attr)
         # the closed-loop ladder, vectorized over the device axis: every
         # rung is one batched fleet solve over the still-unsolved devices
-        hi = state.plan_rates(announced, t0, window_duration)
-        est = state.plan_rates(announced, t0, window_duration,
-                               margin=1.0, pressure=False)
-        if cfg.burst_quantile > 0.0:
-            hi = np.maximum(hi, [P.burst_rate(e, window_duration,
-                                              cfg.burst_quantile)
-                                 for e in est])
-        bud = state.plan_budgets([latency_budget] * K)
         sols: list[Optional[P.Solution]] = [None] * K
         live = est > 0.0            # a zero estimate has no rate to plan at
         unsolved = np.ones(K, bool)
@@ -585,14 +632,148 @@ def serve_fleet(w: WorkloadProfile, power_budget: float,
             prev_keys[d] = key
         for d in range(K):
             if device_reports[d] is None:
-                offered = len(own_dtr[d])
-                device_reports[d] = WindowReport(
-                    float(announced[d]), None, None,
-                    estimated_rate=float(est[d]),
-                    carried_requests=int(carried[d]),
-                    shed_requests=int(shed_d[d]),
-                    goodput=0.0 if offered else 1.0,
-                    offered_requests=offered)
+                device_reports[d] = _unserved_report(
+                    announced[d], est[d], carried[d], shed_d[d], own_dtr[d])
+        out.append(_fleet_report(
+            rate, device_reports, merged, counts, latency_budget,
+            offered=len(agg), shed=int(shed_d.sum()),
+            deferred=int(def_out_d.sum()), migrated=n_mig,
+            power_budgets=pbud.copy()
+            if spec.fleet_power_budget is not None else None))
+        prev_attr = _attributed_by_device(device_reports)
+    return out
+
+
+def _serve_fleet_fused(w: WorkloadProfile, power_budget: float,
+                       latency_budget: float, rates: Sequence[float],
+                       spec: FleetSpec, window_duration: float,
+                       arrivals: str, seed: int, cfg: ControllerConfig,
+                       adm: AdmissionPolicy,
+                       space: Optional[PowerModeSpace], backend: str,
+                       ) -> list[FleetWindowReport]:
+    """The fused driver behind ``serve_fleet(fused=True)``: the unfused
+    loop's host bookkeeping (dispatch, deferral, migration, water-filling,
+    controller states), but the window's plan ladder, admission recurrence
+    and engine run as ONE launch (``core.fused_window.fused_fleet_window``)
+    instead of up to four solver rungs, a host admission pass and an engine
+    launch. Reports are rebuilt from the fetched arrays with the float ops
+    ``simulate_batch`` would apply; the report builder then sorts them (K2
+    on the card). The decisions are the unfused loop's; latencies agree
+    within the engine tolerance."""
+    K = spec.n_devices
+    devs, ts, ps, wts, shares = _fleet_scales(spec)
+    grid = materialize(DeviceModel(), w, space or PowerModeSpace(),
+                       P.INFER_BATCH_SIZES)
+    state = FleetControllerState(cfg, K)
+    prev_keys: list = [None] * K
+    prev_mode = np.full(K, -1, np.int32)    # committed mode ids; -1 = none
+    prev_attr = np.full(K, float(power_budget))
+    adm_budget = adm.headroom * float(latency_budget)
+    out: list[FleetWindowReport] = []
+    from repro_torch.core.scheduler import WindowReport
+    for i, rate in enumerate(rates):
+        (t0, agg, n_mig, carried, merged, dtr, own_dtr, def_counts, counts,
+         announced, pbud, hi, est, bud) = _open_window(
+            state, cfg, adm, spec, wts, shares, float(rate), i,
+            window_duration, arrivals, seed, power_budget, latency_budget,
+            prev_attr)
+        nominal = np.full(K, float(latency_budget))
+        live = est > 0.0
+        # the engine-side carry-in, flattened: device d's effective arrival
+        # vector [carried pending, dispatched arrivals] and its pre-switch
+        # clock max(carried clock, t0) — window_carry_in minus the switch
+        # cost, which the window charges from prev_mode
+        eff: list[np.ndarray] = []
+        n_carry = np.zeros(K, np.int64)
+        clock0 = np.full(K, float(t0))
+        for d in range(K):
+            st = state.devices[d]
+            if cfg.carry_backlog and st.carry is not None:
+                pend = np.asarray(st.carry.pending, np.float64)
+                clock0[d] = max(float(st.carry.clock), float(t0))
+                n_carry[d] = pend.size
+                eff.append(np.concatenate([pend, dtr[d].times])
+                           if pend.size else dtr[d].times)
+            else:
+                eff.append(dtr[d].times)
+        res = fused_fleet_window(grid, ts, ps, pbud, bud, nominal, est, hi,
+                                 live, prev_mode, eff, n_carry, clock0,
+                                 float(cfg.mode_switch_s), adm_budget,
+                                 adm.trims, backend=backend)
+        shed_d = np.zeros(K, np.int64)
+        def_out_d = np.zeros(K, np.int64)
+        sols: list = [None] * K
+        switches = np.zeros(K)
+        reps: list = [None] * K
+        for d in range(K):
+            if not res["solved"][d]:
+                if def_counts[d]:
+                    shed_d[d] += state.push_fleet_deferred(
+                        int(def_counts[d]))
+                state.observe_unserved(d, own_dtr[d], window_duration)
+                continue
+            sel = int(res["sel"][d])
+            sol = P.Solution(pm=grid.modes[sel], bs=int(grid.bs[sel]),
+                             time=float(res["lam"][d]),
+                             power=float(res["power"][d]))
+            sols[d] = sol
+            switches[d] = state.mode_switch(d, sol.pm)   # == res["switch"]
+            n_rej = int(res["n_rej"][d])
+            if n_rej:
+                if adm.mode == "defer":
+                    dropped = state.push_fleet_deferred(n_rej)
+                    def_out_d[d] = n_rej - dropped
+                    shed_d[d] = dropped
+                else:
+                    shed_d[d] = n_rej
+            bs = sol.bs
+            n_adm = int(res["n_adm"][d])
+            nb = int(res["n_batches"][d])
+            ctv = np.asarray(res["adm_times"][d][:n_adm], np.float64)
+            if adm.trims and n_rej:
+                # rebuilt exactly as _admit_fleet_device does: the admitted
+                # window arrivals follow the admitted carry prefix
+                nca = int(n_carry[d]) - int(res["n_carry_rej"][d])
+                run_tr = ArrivalTrace(ctv[nca:].copy(), dtr[d].duration,
+                                      dtr[d].kind)
+            else:
+                run_tr = dtr[d]
+            power = float(res["power"][d])
+            reps[d] = ExecutionReport(
+                "managed",
+                np.asarray(res["latencies"][d][:nb * bs], np.float64).copy(),
+                0, run_tr.duration, power, run_tr,
+                queue_state=QueueState(ctv[nb * bs:].copy(),
+                                       float(res["clock_out"][d])),
+                attributed_power=power if nb else 0.0)
+            prev_mode[d] = int(res["mode_id"][d])
+        _presort_reports([r for r in reps if r is not None], backend)
+        device_reports: list = [None] * K
+        for d in range(K):
+            rep = reps[d]
+            offered = len(own_dtr[d])
+            if rep is None:
+                device_reports[d] = _unserved_report(
+                    announced[d], est[d], carried[d], shed_d[d], own_dtr[d])
+                continue
+            sol = sols[d]
+            gp = _goodput(rep, latency_budget, offered)
+            rep.goodput = gp
+            rep.shed_requests = int(shed_d[d])
+            rep.deferred_requests = int(def_out_d[d])
+            state.observe(d, own_dtr[d], rep, latency_budget,
+                          window_duration, rep.queue_state)
+            key = (sol.pm, sol.bs, sol.tau_tr)
+            device_reports[d] = WindowReport(
+                float(announced[d]), sol, rep,
+                estimated_rate=float(est[d]),
+                replanned=key != prev_keys[d],
+                mode_switch_s=float(switches[d]),
+                carried_requests=int(carried[d]),
+                shed_requests=int(shed_d[d]),
+                deferred_requests=int(def_out_d[d]), goodput=gp,
+                offered_requests=offered)
+            prev_keys[d] = key
         out.append(_fleet_report(
             rate, device_reports, merged, counts, latency_budget,
             offered=len(agg), shed=int(shed_d.sum()),
@@ -686,13 +867,8 @@ def serve_fleet_sequential(w: WorkloadProfile, power_budget: float,
                     shed_d[d] += fstate.push_fleet_deferred(
                         int(def_counts[d]))
                 st.observe_unserved([own_dtr[d]], window_duration)
-                device_reports.append(WindowReport(
-                    float(announced[d]), None, None,
-                    estimated_rate=float(est),
-                    carried_requests=int(carried[d]),
-                    shed_requests=int(shed_d[d]),
-                    goodput=0.0 if offered else 1.0,
-                    offered_requests=offered))
+                device_reports.append(_unserved_report(
+                    announced[d], est, carried[d], shed_d[d], own_dtr[d]))
                 continue
             switch_s = st.mode_switch(sol.pm)
             carry_in = st.window_carry_in(t0, switch_s)

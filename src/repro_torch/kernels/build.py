@@ -32,7 +32,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 SOURCES = ("maxplus_scan", "lane_sort", "flash_attention",
            "flash_attention_bwd", "ssd_chunk", "ssd_chunk_bwd",
-           "tiled_matmul")
+           "tiled_matmul", "fused_window")
 
 _LIBS: dict = {}
 _LOCK = threading.Lock()

@@ -25,6 +25,12 @@ devices, a closed loop with shedding and a K = 8 fleet meet the CPU
 backend to the same engine tolerance with the same decisions per window;
 one tenant gives the pair path's bits. The batched grid solvers on the card
 return the CPU backend's solutions bitwise.
+The fused fleet window's kernel meets its plain version bitwise in every
+selection, count, clock before the fold and admitted time, latencies and
+the last completion within the engine tolerance, on the shared-memory and
+the global-memory route and on grids whose entries tie; ``serve_fleet(
+fused=True)`` on the card makes the CPU backend's decisions with one
+``fused_window`` launch per window and no K1 launch.
 The tiled matmul meets its plain version within ``tests/test_kernels.py``'s
 1e-3 (float32) and 3e-2 (bf16), by the route its wrapper picks (bf16
 through TMA and wgmma where rows are 16-byte multiples, else mma.sync).
@@ -42,6 +48,7 @@ from repro_torch.core import simulate as S
 from repro_torch.core.device_model import INFER_WORKLOADS, TRAIN_WORKLOADS
 from repro_torch.core.powermode import PowerModeSpace
 from repro_torch.kernels import build
+from repro_torch.kernels.fulcrum import fused_window as KF
 from repro_torch.kernels.fulcrum import lane_sort as K2
 from repro_torch.kernels.fulcrum.lane_sort import lane_sort, lane_sort_plain
 from repro_torch.kernels.fulcrum.maxplus_scan import (maxplus_scan,
@@ -412,6 +419,220 @@ def test_cuda_fleet_window_matches_cpu(hopper):
             np.testing.assert_allclose(db.report.latencies,
                                        da.report.latencies, **ENG_TOL)
     assert sum(w.shed_requests for w in got) > 0
+
+
+# ---------------------------------------------------------------------------
+# the fused fleet window (its CPU tests import the case generator and the
+# fleet matrix from here: this file needs no jax)
+# ---------------------------------------------------------------------------
+
+FUSED_MATRIX = {    # tests/test_fleet.py's, name -> (spec, controller)
+    "heterogeneous": (dict(time_spread=0.25, power_spread=0.15), dict()),
+    "carried-backlog": (dict(), dict(rate_estimator="ewma",
+                                     carry_backlog=True,
+                                     mode_switch_s=0.25)),
+    "shed": (dict(), dict(admission="shed", carry_backlog=True,
+                          mode_switch_s=0.25)),
+    "defer": (dict(dispatch="least-backlog"),
+              dict(admission="defer", defer_cap=25, carry_backlog=True,
+                   rate_estimator="ewma", rate_margin=1.5, feedback=True,
+                   mode_switch_s=0.25)),
+    "water-filled": (dict(migrate_backlog=True, fleet_power_budget=80.0),
+                     dict(carry_backlog=True, feedback=True)),
+}
+# idle devices: rates so low whole windows dispatch nothing to some lanes
+FUSED_RATES = {"idle": [2.0, 0.0, 1.0],
+               "default": [60.0, 110.0, 25.0, 80.0]}
+
+
+def fused_window_case(grid, seed, K=24, t0=6.0):
+    """A random fleet window's ``fused_fleet_window`` arguments after the
+    grid: power grants some of which nothing fits, tight feedback budgets
+    (rung 4), interval plans (rungs 1 and 2), idle devices (est = 0),
+    previous mode ids or none, carried prefixes from before t0 (admission
+    rejects inside them), an empty device 0, clocks past t0."""
+    from repro_torch.core.fused_window import grid_mode_ids
+    rng = np.random.default_rng(seed)
+    ids = grid_mode_ids(grid)
+    ts, ps = rng.uniform(0.8, 1.25, K), rng.uniform(0.85, 1.15, K)
+    pbud = rng.choice([10.0, 20.0, 30.0, 45.0], K)
+    nominal = rng.choice([0.1, 0.3], K)
+    bud = nominal * rng.choice([1.0, 0.6, 0.05], K, p=[0.5, 0.3, 0.2])
+    est = rng.choice([0.0, 5.0, 30.0, 120.0, 250.0, 450.0], K) \
+        * rng.uniform(0.7, 1.3, K)
+    hi = est * rng.choice([0.9, 1.0, 1.3, 2.0], K)
+    prev = np.where(rng.random(K) < 0.3, -1,
+                    ids[rng.integers(0, len(ids), K)]).astype(np.int32)
+    eff, n_carry, clock0 = [], np.zeros(K, np.int64), np.full(K, t0)
+    for d in range(K):
+        n = 0 if d == 0 else int(rng.integers(1, 4 * max(est[d], 10.0)))
+        nc = int(rng.integers(0, min(n, 30) + 1)) if rng.random() < 0.5 \
+            else 0
+        eff.append(np.concatenate([np.sort(t0 - rng.uniform(0.0, 0.6, nc)),
+                                   np.sort(t0 + rng.uniform(0.0, 3.0,
+                                                            n - nc))]))
+        n_carry[d] = nc
+        if rng.random() < 0.5:
+            clock0[d] = t0 + rng.uniform(0.0, 0.4)
+    return (ts, ps, pbud, bud, nominal, est, hi, est > 0.0, prev, eff,
+            n_carry, clock0, 0.25, 0.9 * 0.1)
+
+
+def _fused_grid(how=None):
+    """mobilenet's inference grid, or the grid with each entry twice (two
+    copies in a row, or each beside its copy) so that every lam ties."""
+    from repro_torch.core import problem as P
+    from repro_torch.core.grid_eval import ObservationGrid, materialize
+    g = materialize(S.DeviceModel(), INFER_WORKLOADS["mobilenet"],
+                    PowerModeSpace(), P.INFER_BATCH_SIZES)
+    if how is None:
+        return g
+    twice = (lambda x: np.concatenate([x, x])) if how == "concat" \
+        else (lambda x: np.repeat(x, 2))
+    modes = g.modes * 2 if how == "concat" \
+        else [m for m in g.modes for _ in range(2)]
+    return ObservationGrid(modes, twice(g.t), twice(g.p), twice(g.bs))
+
+
+def _fused_kernel_vs_plain(dev, grid, args, trims):
+    """One window through the kernel and through the plain version on the
+    card: every field bitwise but the fold's, which meets the tolerance."""
+    from repro_torch.core import fused_window as FW
+    rows = torch.from_numpy(FW.pack_window(*args[:7], args[11], args[7],
+                                           args[8], args[9],
+                                           args[10])).to(dev)
+    t, p, bsf = (torch.from_numpy(np.ascontiguousarray(x)).to(dev) for x in
+                 (grid.t, grid.p, grid.bs.astype(np.float64)))
+    ids = torch.from_numpy(FW.grid_mode_ids(grid)).to(dev)
+    call = (t, p, bsf, ids, rows, args[12], args[13], trims,
+            FW._grid_max_bs(grid))
+    n0 = KF.fused_window.launches
+    got = KF.fused_window(*call)
+    torch.cuda.synchronize()
+    assert KF.fused_window.launches == n0 + 1
+    want = KF.fused_window_plain(*call)
+    g, w = (FW.unpack_window(x.cpu().numpy()) for x in (got, want))
+    for f in KF.OUT_FIELDS:
+        if f != "clock_out":
+            assert g[f].tobytes() == w[f].tobytes(), f
+    assert g["adm_times"].tobytes() == w["adm_times"].tobytes()
+    np.testing.assert_allclose(g["latencies"], w["latencies"], **ENG_TOL)
+    np.testing.assert_allclose(g["clock_out"], w["clock_out"], **ENG_TOL)
+    return g
+
+
+@pytest.mark.parametrize("trims", [True, False])
+@pytest.mark.parametrize("K", [6, 64, 512])
+def test_cuda_fused_window_matches_plain(hopper, K, trims):
+    grid = _fused_grid()
+    g = _fused_kernel_vs_plain(hopper, grid, fused_window_case(grid, K, K),
+                               trims)
+    assert g["solved"].any() and (g["n_rej"].any() == trims)
+
+
+@pytest.mark.parametrize("how", ["concat", "repeat"])
+def test_cuda_fused_window_ties_go_to_the_first_entry(hopper, how):
+    grid = _fused_grid(how)
+    args = fused_window_case(_fused_grid(), 3, 64)
+    g = _fused_kernel_vs_plain(hopper, grid, args, True)
+    assert g["solved"].any()
+
+
+def test_cuda_fused_window_global_route(hopper):
+    """Rows past ``STAGE_MAX_T`` arrivals: the serial part works on the
+    global rows; the launcher applies the wrapper's staging rule."""
+    grid = _fused_grid()
+    args = list(fused_window_case(grid, 5, 8))
+    rng = np.random.default_rng(5)
+    big = KF.STAGE_MAX_T + 700
+    args[9] = list(args[9])
+    for d in (1, 2, 3):
+        args[9][d] = np.sort(6.0 + rng.uniform(0.0, 30.0, big - d))
+        args[10][d] = 0
+    args[5][1:4] = args[6][1:4] = 400.0          # plannable, busy
+    args[7] = args[5] > 0.0
+    args[2][1:4], args[3][1:4], args[4][1:4] = 45.0, 0.3, 0.3
+    args[13] = 0.3                               # the admission budget
+    assert not KF.staged(big)
+    g = _fused_kernel_vs_plain(hopper, grid, args, True)
+    assert g["solved"][1:4].all() and g["n_adm"][1:4].max() > KF.STAGE_MAX_T
+    lib = build.load("fused_window", KF._SIGNATURES)
+    for T in (0, 1, KF.STAGE_MAX_T, KF.STAGE_MAX_T + 1, big):
+        assert bool(lib.fused_window_staged(T)) == KF.staged(T)
+
+
+def _assert_fleet_runs_close(ref, got):
+    """Per window the same dispatch, shed / deferred / migrated counts,
+    grants, plans and queue states; latencies and clocks within the engine
+    tolerance."""
+    assert len(got) == len(ref)
+    for a, b in zip(ref, got):
+        assert b.dispatch_counts.tolist() == a.dispatch_counts.tolist()
+        assert (b.offered_requests, b.shed_requests, b.deferred_requests,
+                b.migrated_requests) == (a.offered_requests,
+                                         a.shed_requests,
+                                         a.deferred_requests,
+                                         a.migrated_requests)
+        assert (None if b.power_budgets is None else
+                b.power_budgets.tolist()) == \
+            (None if a.power_budgets is None else a.power_budgets.tolist())
+        for da, db in zip(a.devices, b.devices):
+            assert (db.replanned, db.mode_switch_s, db.carried_requests,
+                    db.shed_requests, db.deferred_requests,
+                    db.estimated_rate) == \
+                (da.replanned, da.mode_switch_s, da.carried_requests,
+                 da.shed_requests, da.deferred_requests, da.estimated_rate)
+            assert (db.solution is None) == (da.solution is None)
+            if da.solution is None:
+                continue
+            pa, pb = (dataclasses.asdict(da.solution),
+                      dataclasses.asdict(db.solution))
+            ta, tb = pa.pop("time"), pb.pop("time")
+            assert pb == pa and abs(tb - ta) <= 1e-8 + 1e-9 * abs(ta)
+            np.testing.assert_allclose(db.report.latencies,
+                                       da.report.latencies, **ENG_TOL)
+            np.testing.assert_array_equal(db.report._sorted,
+                                          np.sort(db.report.latencies))
+            qa, qb = da.report.queue_state, db.report.queue_state
+            assert qb.pending.tolist() == qa.pending.tolist()
+            np.testing.assert_allclose(qb.clock, qa.clock, **ENG_TOL)
+
+
+@pytest.mark.parametrize("case", sorted(FUSED_MATRIX))
+def test_cuda_fused_fleet_matches_cpu(hopper, case):
+    from repro_torch.core import fleet as F
+    from repro_torch.core.controller import ControllerConfig
+    spec_kw, cfg_kw = FUSED_MATRIX[case]
+    rates = FUSED_RATES["idle" if case == "heterogeneous" else "default"]
+
+    def serve(backend):
+        return F.serve_fleet(INFER_WORKLOADS["mobilenet"], 30.0, 0.15, rates,
+                             F.FleetSpec(6, seed=3, **spec_kw),
+                             window_duration=3.0, arrivals="poisson",
+                             seed=17, backend=backend, fused=True,
+                             controller=ControllerConfig(**cfg_kw))
+
+    ref = serve("cpu")
+    k1, kf = maxplus_scan.launches, KF.fused_window.launches
+    got = serve("cuda")
+    assert KF.fused_window.launches - kf == len(rates)
+    assert maxplus_scan.launches == k1
+    _assert_fleet_runs_close(ref, got)
+
+
+def test_cuda_fused_window_builds_once_across_shapes(hopper):
+    """Windows of different K and T load one library, built once."""
+    grid = _fused_grid()
+    _fused_kernel_vs_plain(hopper, grid, fused_window_case(grid, 1, 3), True)
+    lib = build._LIBS["fused_window"]
+    path = build.library_path("fused_window")
+    mtime = path.stat().st_mtime_ns
+    for K in (1, 17, 200):
+        _fused_kernel_vs_plain(hopper, grid, fused_window_case(grid, K, K),
+                               K % 2 == 1)
+    assert build._LIBS["fused_window"] is lib
+    assert path.stat().st_mtime_ns == mtime
+    assert len(list(path.parent.glob("libfused_window-*.so"))) >= 1
 
 
 def _attn_close(got, want, dtype, what):

@@ -358,9 +358,11 @@ def test_scenario_fleet_and_the_scheduler_facade():
 # ---------------------------------------------------------------------------
 
 def test_fused_window_and_backlog_splits_are_refused():
-    with pytest.raises(NotImplementedError, match="queue 1, item 5"):
+    # the fused window re-plans nothing on the host: degrade-bs is refused
+    with pytest.raises(ValueError, match="degrade-bs"):
         F.serve_fleet(W_IN, 30.0, 0.2, [50.0], F.FleetSpec(2), fused=True,
-                      backend="cpu")
+                      backend="cpu",
+                      controller=ControllerConfig(admission="degrade-bs"))
     for fn in (F.serve_fleet, F.serve_fleet_sequential):
         with pytest.raises(ValueError, match="split_backlog"):
             fn(W_IN, 30.0, 0.2, [50.0], F.FleetSpec(2), backend="cpu",

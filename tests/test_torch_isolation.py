@@ -43,6 +43,8 @@ def test_importing_every_module_pulls_in_no_jax_and_no_reference():
     got = json.loads(out.stdout.strip().splitlines()[-1])
     assert "repro_torch.core.simulate" in got["modules"]
     assert "repro_torch.core.scheduler" in got["modules"]
+    assert "repro_torch.core.fused_window" in got["modules"]
+    assert "repro_torch.kernels.fulcrum.fused_window" in got["modules"]
     assert got["foreign"] == []
     assert got["cuda_initialized"] is False
 
