@@ -478,6 +478,75 @@ def _fleet_report(rate, device_reports, merged, counts, latency_budget,
                              power_budgets=power_budgets)
 
 
+def _device_unserved(state: FleetControllerState, d: int, n_def: int,
+                     shed_d: np.ndarray, own: ArrivalTrace,
+                     window_duration: float) -> None:
+    """Device ``d`` serves nothing this window: its deferred re-offers are
+    deferred again (what overflows is shed) and its controller observes an
+    unserved window."""
+    if n_def:
+        shed_d[d] += state.push_fleet_deferred(int(n_def))
+    state.observe_unserved(d, own, window_duration)
+
+
+def _split_rejected(state: FleetControllerState, adm: AdmissionPolicy,
+                    d: int, n_rej: int, shed_d: np.ndarray,
+                    def_out_d: np.ndarray) -> None:
+    """Device ``d``'s ``n_rej`` admission rejections: deferred under
+    ``"defer"`` (what overflows the queue is shed), else shed."""
+    if not n_rej:
+        return
+    if adm.mode == "defer":
+        dropped = state.push_fleet_deferred(n_rej)
+        def_out_d[d] = n_rej - dropped
+        shed_d[d] = dropped
+    else:
+        shed_d[d] = n_rej
+
+
+def _close_window(state: FleetControllerState, spec: FleetSpec, served,
+                  rate: float, agg: ArrivalTrace, merged, counts, own_dtr,
+                  announced, est, carried, shed_d: np.ndarray,
+                  def_out_d: np.ndarray, n_mig: int, pbud: np.ndarray,
+                  prev_keys: list, latency_budget: float,
+                  window_duration: float) -> FleetWindowReport:
+    """Window close, shared by both batched loops: each served device's
+    report (goodput, shed and deferred counts, the controller's
+    observation, the replan flag) in device order, the unserved devices'
+    reports, and the fleet report. ``served`` holds ``(device, solution,
+    mode-switch seconds, ExecutionReport)`` in device order."""
+    from repro_torch.core.scheduler import WindowReport
+    device_reports: list = [None] * spec.n_devices
+    for d, sol, switch_s, rep in served:
+        offered = len(own_dtr[d])
+        gp = _goodput(rep, latency_budget, offered)
+        rep.goodput = gp
+        rep.shed_requests = int(shed_d[d])
+        rep.deferred_requests = int(def_out_d[d])
+        state.observe(d, own_dtr[d], rep, latency_budget,
+                      window_duration, rep.queue_state)
+        key = (sol.pm, sol.bs, sol.tau_tr)
+        device_reports[d] = WindowReport(
+            float(announced[d]), sol, rep,
+            estimated_rate=float(est[d]),
+            replanned=key != prev_keys[d], mode_switch_s=switch_s,
+            carried_requests=int(carried[d]),
+            shed_requests=int(shed_d[d]),
+            deferred_requests=int(def_out_d[d]), goodput=gp,
+            offered_requests=offered)
+        prev_keys[d] = key
+    for d in range(spec.n_devices):
+        if device_reports[d] is None:
+            device_reports[d] = _unserved_report(
+                announced[d], est[d], carried[d], shed_d[d], own_dtr[d])
+    return _fleet_report(
+        rate, device_reports, merged, counts, latency_budget,
+        offered=len(agg), shed=int(shed_d.sum()),
+        deferred=int(def_out_d.sum()), migrated=n_mig,
+        power_budgets=pbud.copy()
+        if spec.fleet_power_budget is not None else None)
+
+
 def serve_fleet(w: WorkloadProfile, power_budget: float,
                 latency_budget: float, rates: Sequence[float],
                 spec: FleetSpec, window_duration: float = 30.0,
@@ -535,7 +604,6 @@ def serve_fleet(w: WorkloadProfile, power_budget: float,
     prev_keys: list = [None] * K
     prev_attr = np.full(K, float(power_budget))
     out: list[FleetWindowReport] = []
-    from repro_torch.core.scheduler import WindowReport
     for i, rate in enumerate(rates):
         (t0, agg, n_mig, carried, merged, dtr, own_dtr, def_counts, counts,
          announced, pbud, hi, est, bud) = _open_window(
@@ -581,11 +649,8 @@ def serve_fleet(w: WorkloadProfile, power_budget: float,
                     window_duration, float(pbud[d]), device_obs(d))
                 sols[d] = sol
             if sol is None:
-                if def_counts[d]:
-                    # nothing serves here: re-defer this device's re-offers
-                    shed_d[d] += state.push_fleet_deferred(
-                        int(def_counts[d]))
-                state.observe_unserved(d, own_dtr[d], window_duration)
+                _device_unserved(state, d, def_counts[d], shed_d,
+                                 own_dtr[d], window_duration)
                 continue
             switch_s = state.mode_switch(d, sol.pm)
             carry_in = state.window_carry_in(d, t0, switch_s)
@@ -594,13 +659,7 @@ def serve_fleet(w: WorkloadProfile, power_budget: float,
                 t_in = devs[d].time_power(w, sol.pm, sol.bs)[0]
                 run_trace, run_carry, n_rej = _admit_fleet_device(
                     adm, latency_budget, sol, t_in, carry_in, dtr[d])
-                if n_rej:
-                    if adm.mode == "defer":
-                        dropped = state.push_fleet_deferred(n_rej)
-                        def_out_d[d] = n_rej - dropped
-                        shed_d[d] = dropped
-                    else:
-                        shed_d[d] = n_rej
+                _split_rejected(state, adm, d, n_rej, shed_d, def_out_d)
             lanes.append((d, sol, switch_s, run_trace, run_carry))
         reps = simulate_batch(
             DeviceModel(), None, w,
@@ -611,36 +670,14 @@ def serve_fleet(w: WorkloadProfile, power_budget: float,
             backend=eng_backend,
             carry_ins=[rc for _, _, _, _, rc in lanes],
             devices=[devs[d] for d, _, _, _, _ in lanes])
-        device_reports: list = [None] * K
-        for (d, sol, switch_s, _, _), rep in zip(lanes, reps):
-            offered = len(own_dtr[d])
-            gp = _goodput(rep, latency_budget, offered)
-            rep.goodput = gp
-            rep.shed_requests = int(shed_d[d])
-            rep.deferred_requests = int(def_out_d[d])
-            state.observe(d, own_dtr[d], rep, latency_budget,
-                          window_duration, rep.queue_state)
-            key = (sol.pm, sol.bs, sol.tau_tr)
-            device_reports[d] = WindowReport(
-                float(announced[d]), sol, rep,
-                estimated_rate=float(est[d]),
-                replanned=key != prev_keys[d], mode_switch_s=switch_s,
-                carried_requests=int(carried[d]),
-                shed_requests=int(shed_d[d]),
-                deferred_requests=int(def_out_d[d]), goodput=gp,
-                offered_requests=offered)
-            prev_keys[d] = key
-        for d in range(K):
-            if device_reports[d] is None:
-                device_reports[d] = _unserved_report(
-                    announced[d], est[d], carried[d], shed_d[d], own_dtr[d])
-        out.append(_fleet_report(
-            rate, device_reports, merged, counts, latency_budget,
-            offered=len(agg), shed=int(shed_d.sum()),
-            deferred=int(def_out_d.sum()), migrated=n_mig,
-            power_budgets=pbud.copy()
-            if spec.fleet_power_budget is not None else None))
-        prev_attr = _attributed_by_device(device_reports)
+        fr = _close_window(
+            state, spec, [(d, sol, switch_s, rep) for
+                          (d, sol, switch_s, _, _), rep in zip(lanes, reps)],
+            rate, agg, merged, counts, own_dtr, announced, est, carried,
+            shed_d, def_out_d, n_mig, pbud, prev_keys, latency_budget,
+            window_duration)
+        out.append(fr)
+        prev_attr = _attributed_by_device(fr.devices)
     return out
 
 
@@ -670,7 +707,6 @@ def _serve_fleet_fused(w: WorkloadProfile, power_budget: float,
     prev_attr = np.full(K, float(power_budget))
     adm_budget = adm.headroom * float(latency_budget)
     out: list[FleetWindowReport] = []
-    from repro_torch.core.scheduler import WindowReport
     for i, rate in enumerate(rates):
         (t0, agg, n_mig, carried, merged, dtr, own_dtr, def_counts, counts,
          announced, pbud, hi, est, bud) = _open_window(
@@ -702,30 +738,19 @@ def _serve_fleet_fused(w: WorkloadProfile, power_budget: float,
                                  adm.trims, backend=backend)
         shed_d = np.zeros(K, np.int64)
         def_out_d = np.zeros(K, np.int64)
-        sols: list = [None] * K
-        switches = np.zeros(K)
-        reps: list = [None] * K
+        served = []             # (device, sol, switch_s, report)
         for d in range(K):
             if not res["solved"][d]:
-                if def_counts[d]:
-                    shed_d[d] += state.push_fleet_deferred(
-                        int(def_counts[d]))
-                state.observe_unserved(d, own_dtr[d], window_duration)
+                _device_unserved(state, d, def_counts[d], shed_d,
+                                 own_dtr[d], window_duration)
                 continue
             sel = int(res["sel"][d])
             sol = P.Solution(pm=grid.modes[sel], bs=int(grid.bs[sel]),
                              time=float(res["lam"][d]),
                              power=float(res["power"][d]))
-            sols[d] = sol
-            switches[d] = state.mode_switch(d, sol.pm)   # == res["switch"]
+            switch_s = state.mode_switch(d, sol.pm)   # == res["switch"]
             n_rej = int(res["n_rej"][d])
-            if n_rej:
-                if adm.mode == "defer":
-                    dropped = state.push_fleet_deferred(n_rej)
-                    def_out_d[d] = n_rej - dropped
-                    shed_d[d] = dropped
-                else:
-                    shed_d[d] = n_rej
+            _split_rejected(state, adm, d, n_rej, shed_d, def_out_d)
             bs = sol.bs
             n_adm = int(res["n_adm"][d])
             nb = int(res["n_batches"][d])
@@ -739,48 +764,22 @@ def _serve_fleet_fused(w: WorkloadProfile, power_budget: float,
             else:
                 run_tr = dtr[d]
             power = float(res["power"][d])
-            reps[d] = ExecutionReport(
+            rep = ExecutionReport(
                 "managed",
                 np.asarray(res["latencies"][d][:nb * bs], np.float64).copy(),
                 0, run_tr.duration, power, run_tr,
                 queue_state=QueueState(ctv[nb * bs:].copy(),
                                        float(res["clock_out"][d])),
                 attributed_power=power if nb else 0.0)
+            served.append((d, sol, switch_s, rep))
             prev_mode[d] = int(res["mode_id"][d])
-        _presort_reports([r for r in reps if r is not None], backend)
-        device_reports: list = [None] * K
-        for d in range(K):
-            rep = reps[d]
-            offered = len(own_dtr[d])
-            if rep is None:
-                device_reports[d] = _unserved_report(
-                    announced[d], est[d], carried[d], shed_d[d], own_dtr[d])
-                continue
-            sol = sols[d]
-            gp = _goodput(rep, latency_budget, offered)
-            rep.goodput = gp
-            rep.shed_requests = int(shed_d[d])
-            rep.deferred_requests = int(def_out_d[d])
-            state.observe(d, own_dtr[d], rep, latency_budget,
-                          window_duration, rep.queue_state)
-            key = (sol.pm, sol.bs, sol.tau_tr)
-            device_reports[d] = WindowReport(
-                float(announced[d]), sol, rep,
-                estimated_rate=float(est[d]),
-                replanned=key != prev_keys[d],
-                mode_switch_s=float(switches[d]),
-                carried_requests=int(carried[d]),
-                shed_requests=int(shed_d[d]),
-                deferred_requests=int(def_out_d[d]), goodput=gp,
-                offered_requests=offered)
-            prev_keys[d] = key
-        out.append(_fleet_report(
-            rate, device_reports, merged, counts, latency_budget,
-            offered=len(agg), shed=int(shed_d.sum()),
-            deferred=int(def_out_d.sum()), migrated=n_mig,
-            power_budgets=pbud.copy()
-            if spec.fleet_power_budget is not None else None))
-        prev_attr = _attributed_by_device(device_reports)
+        _presort_reports([rep for _, _, _, rep in served], backend)
+        fr = _close_window(
+            state, spec, served, rate, agg, merged, counts, own_dtr,
+            announced, est, carried, shed_d, def_out_d, n_mig, pbud,
+            prev_keys, latency_budget, window_duration)
+        out.append(fr)
+        prev_attr = _attributed_by_device(fr.devices)
     return out
 
 

@@ -550,8 +550,7 @@ class Fulcrum:
                     fleet, window_duration: float = 30.0,
                     arrivals: str = "uniform", seed: int = 0,
                     backend: Optional[str] = None,
-                    controller: Optional[ControllerConfig] = None,
-                    fused: Optional[bool] = None):
+                    controller: Optional[ControllerConfig] = None):
         """``Scenario.FLEET``: serve one aggregate dynamic trace on a
         K-device heterogeneous fleet (``fleet`` is a ``core.fleet.FleetSpec``
         or a device count), dispatching each window's arrivals across
@@ -565,17 +564,14 @@ class Fulcrum:
         ``FleetSpec.fleet_power_budget`` water-fills one shared cap into
         per-device budgets. Returns one ``FleetWindowReport`` per window;
         the same decisions as K sequential single-device loops
-        (``fleet.serve_fleet_sequential``) for every feature combination.
-        ``fused=True`` runs each window as one fused-window launch
-        (``core.fused_window``)."""
+        (``fleet.serve_fleet_sequential``) for every feature combination."""
         from repro_torch.core import fleet as F
         spec = F.FleetSpec(int(fleet)) if not isinstance(fleet, F.FleetSpec) \
             else fleet
         return F.serve_fleet(w, power_budget, latency_budget, rates, spec,
                              window_duration=window_duration,
                              arrivals=arrivals, seed=seed, backend=backend,
-                             controller=controller, space=self.space,
-                             fused=fused)
+                             controller=controller, space=self.space)
 
     def _serve_closed_loop(self, w, power_budget, latency_budget, rates,
                            strategy, window_duration, arrivals, seed,

@@ -24,7 +24,7 @@
 //    batch's members and the trailing partial batch are the admitted
 //    subsequence), then folds c = max(c, ready_j) + t_in over the admitted
 //    batches and writes the latencies. When 2T doubles fit in shared memory
-//    (kStageBytes), the arrivals and the admitted times are staged there;
+//    (T <= kStageMaxT), the arrivals and the admitted times are staged there;
 //    else thread 0 works on the global rows. The block's threads fill the
 //    +inf tails and copy the staged admitted times out.
 //
@@ -51,6 +51,9 @@ constexpr int kWarps = kThreads / 32;
 constexpr unsigned kFull = 0xffffffffu;
 constexpr int kMaxRing = 1024;                 // largest batch size taken
 constexpr int64_t kStageBytes = 192 * 1024;    // dynamic shared memory cap
+// rows of up to this many arrivals are staged (their times and the
+// admitted times, 2 T doubles); longer rows work on the global rows
+constexpr int64_t kStageMaxT = kStageBytes / (2 * (int64_t)sizeof(double));
 
 // the row's fields and the output's, in the wrapper's IN_FIELDS / OUT_FIELDS
 enum { kTs, kPs, kPbud, kBud, kNom, kEst, kHi, kClock0, kLive, kPrev,
@@ -276,9 +279,8 @@ extern "C" int fused_window_launch(const void* t, const void* p,
   if (N < 1 || N > INT_MAX || T < 0 || T > INT_MAX / 2 || max_bs < 1 ||
       max_bs > kMaxRing || K > INT_MAX)
     return (int)cudaErrorInvalidValue;
-  const int64_t bytes = 2 * T * (int64_t)sizeof(double);
-  const int staged = bytes <= kStageBytes;
-  const size_t smem = staged ? (size_t)bytes : 0;
+  const int staged = T <= kStageMaxT;
+  const size_t smem = staged ? (size_t)(2 * T * sizeof(double)) : 0;
   cudaError_t err = cudaFuncSetAttribute(
       fused_window_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)kStageBytes);
@@ -290,11 +292,8 @@ extern "C" int fused_window_launch(const void* t, const void* p,
   return (int)cudaGetLastError();
 }
 
-// Whether rows of T arrivals are staged in shared memory (the wrapper's
-// tests ask, to cover both sides of the rule).
-extern "C" int fused_window_staged(int64_t T) {
-  return 2 * T * (int64_t)sizeof(double) <= kStageBytes;
-}
+// The longest row staged in shared memory (tests size rows past it).
+extern "C" int64_t fused_window_stage_max_t() { return kStageMaxT; }
 
 extern "C" const char* error_string(int err) {
   return cudaGetErrorString((cudaError_t)err);

@@ -69,22 +69,13 @@ OUT_FIELDS = ("solved", "sel", "lam", "power", "mode_id", "switch",
 N_IN, N_OUT = len(IN_FIELDS), len(OUT_FIELDS)
 ADMIT_EPS = 1e-12             # controller._admit_mask's slack
 MAX_RING = 1024               # the largest batch size the kernel takes
-STAGE_MAX_T = 12288           # rows of up to this many arrivals are staged
-#                               in shared memory (2 T doubles <= 192 KiB)
 
 _IN = {f: i for i, f in enumerate(IN_FIELDS)}
 _SIGNATURES = {"fused_window_launch": (
     [ctypes.c_void_p] * 4 + [ctypes.c_int64] + [ctypes.c_void_p] * 2
     + [ctypes.c_int64] * 2 + [ctypes.c_double] * 2 + [ctypes.c_int] * 2
     + [ctypes.c_void_p], ctypes.c_int),
-    "fused_window_staged": ([ctypes.c_int64], ctypes.c_int)}
-
-
-def staged(T: int) -> bool:
-    """Whether the kernel stages rows of ``T`` arrivals in shared memory
-    (else its serial part reads and writes the global rows). The launcher
-    applies the same rule."""
-    return T <= STAGE_MAX_T
+    "fused_window_stage_max_t": ([], ctypes.c_int64)}
 
 
 def _rung(t, p, bsf, ts, ps, pb, ar, b_h, b_l):

@@ -478,20 +478,24 @@ def fused_window_case(grid, seed, K=24, t0=6.0):
             n_carry, clock0, 0.25, 0.9 * 0.1)
 
 
+def doubled_grid(grid, cls, how):
+    """``grid`` (an ``ObservationGrid`` of the class ``cls``) with every
+    entry twice, as two copies one after the other (``"concat"``) or each
+    entry beside its copy (``"repeat"``): each lam ties with its copy's."""
+    twice = (lambda x: np.concatenate([x, x])) if how == "concat" \
+        else (lambda x: np.repeat(x, 2))
+    modes = grid.modes * 2 if how == "concat" \
+        else [m for m in grid.modes for _ in range(2)]
+    return cls(modes, twice(grid.t), twice(grid.p), twice(grid.bs))
+
+
 def _fused_grid(how=None):
-    """mobilenet's inference grid, or the grid with each entry twice (two
-    copies in a row, or each beside its copy) so that every lam ties."""
+    """mobilenet's inference grid, or ``doubled_grid`` of it."""
     from repro_torch.core import problem as P
     from repro_torch.core.grid_eval import ObservationGrid, materialize
     g = materialize(S.DeviceModel(), INFER_WORKLOADS["mobilenet"],
                     PowerModeSpace(), P.INFER_BATCH_SIZES)
-    if how is None:
-        return g
-    twice = (lambda x: np.concatenate([x, x])) if how == "concat" \
-        else (lambda x: np.repeat(x, 2))
-    modes = g.modes * 2 if how == "concat" \
-        else [m for m in g.modes for _ in range(2)]
-    return ObservationGrid(modes, twice(g.t), twice(g.p), twice(g.bs))
+    return g if how is None else doubled_grid(g, ObservationGrid, how)
 
 
 def _fused_kernel_vs_plain(dev, grid, args, trims):
@@ -539,12 +543,15 @@ def test_cuda_fused_window_ties_go_to_the_first_entry(hopper, how):
 
 
 def test_cuda_fused_window_global_route(hopper):
-    """Rows past ``STAGE_MAX_T`` arrivals: the serial part works on the
-    global rows; the launcher applies the wrapper's staging rule."""
+    """Rows past the launcher's shared-memory staging limit: the serial
+    part works on the global rows."""
     grid = _fused_grid()
     args = list(fused_window_case(grid, 5, 8))
     rng = np.random.default_rng(5)
-    big = KF.STAGE_MAX_T + 700
+    lib = build.load("fused_window", KF._SIGNATURES)
+    stage_max_t = lib.fused_window_stage_max_t()
+    assert stage_max_t == 12288                  # 2 T doubles <= 192 KiB
+    big = stage_max_t + 700
     args[9] = list(args[9])
     for d in (1, 2, 3):
         args[9][d] = np.sort(6.0 + rng.uniform(0.0, 30.0, big - d))
@@ -553,12 +560,8 @@ def test_cuda_fused_window_global_route(hopper):
     args[7] = args[5] > 0.0
     args[2][1:4], args[3][1:4], args[4][1:4] = 45.0, 0.3, 0.3
     args[13] = 0.3                               # the admission budget
-    assert not KF.staged(big)
     g = _fused_kernel_vs_plain(hopper, grid, args, True)
-    assert g["solved"][1:4].all() and g["n_adm"][1:4].max() > KF.STAGE_MAX_T
-    lib = build.load("fused_window", KF._SIGNATURES)
-    for T in (0, 1, KF.STAGE_MAX_T, KF.STAGE_MAX_T + 1, big):
-        assert bool(lib.fused_window_staged(T)) == KF.staged(T)
+    assert g["solved"][1:4].all() and g["n_adm"][1:4].max() > stage_max_t
 
 
 def _assert_fleet_runs_close(ref, got):

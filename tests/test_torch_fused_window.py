@@ -43,7 +43,8 @@ from repro_torch.core.device_model import DeviceModel, INFER_WORKLOADS
 from repro_torch.core.grid_eval import materialize
 from repro_torch.core.powermode import PowerModeSpace
 from repro_torch.kernels.fulcrum import fused_window as K
-from test_torch_cuda import FUSED_MATRIX, FUSED_RATES, fused_window_case
+from test_torch_cuda import (FUSED_MATRIX, FUSED_RATES, doubled_grid,
+                             fused_window_case)
 from test_torch_fleet import ENG_TOL, assert_fleets_match
 
 W_IN, REF_W_IN = INFER_WORKLOADS["mobilenet"], REF_INFER["mobilenet"]
@@ -201,7 +202,6 @@ def test_wrapper_refuses_what_the_kernel_does_not_take():
         call(t, p, bsf, ids, rows, mb=K.MAX_RING + 1)
     with pytest.raises(ValueError, match="cuda or cpu"):
         call(*(x.to("meta") for x in (t, p, bsf, ids, rows)))
-    assert K.staged(K.STAGE_MAX_T) and not K.staged(K.STAGE_MAX_T + 1)
 
 
 # ---------------------------------------------------------------------------
@@ -326,22 +326,12 @@ def test_fused_run_leaves_the_unfused_cpu_path_bit_for_bit():
     assert_fleets_match(ref, after)
 
 
-def _doubled(grid, cls, how):
-    """The grid with every entry twice, as two copies one after the other
-    or each entry beside its copy: each lam ties with its copy's."""
-    twice = (lambda x: np.concatenate([x, x])) if how == "concat" \
-        else (lambda x: np.repeat(x, 2))
-    modes = grid.modes * 2 if how == "concat" \
-        else [m for m in grid.modes for _ in range(2)]
-    return cls(modes, twice(grid.t), twice(grid.p), twice(grid.bs))
-
-
 @pytest.mark.parametrize("how", ["concat", "repeat"])
 def test_window_ties_go_to_the_first_entry(ref_jax, how):
     from repro_torch.core.grid_eval import ObservationGrid
     grid, rgrid = _grids()
-    grid2 = _doubled(grid, ObservationGrid, how)
-    rgrid2 = _doubled(rgrid, RG.ObservationGrid, how)
+    grid2 = doubled_grid(grid, ObservationGrid, how)
+    rgrid2 = doubled_grid(rgrid, RG.ObservationGrid, how)
     args = _window(3)
     ref = RFW.fused_fleet_window(rgrid2, *args, True)
     got = FW.fused_fleet_window(grid2, *args, True, backend="cpu")
@@ -359,19 +349,16 @@ def test_fused_default_backend_needs_the_card():
         F.serve_fleet(W_IN, 30.0, 0.15, [50.0], F.FleetSpec(2), fused=True)
 
 
-def test_the_scheduler_facade_passes_fused_through():
+def test_the_scheduler_facade_keeps_the_reference_signature():
+    """``Fulcrum.serve_fleet`` takes the reference facade's parameters,
+    with its defaults: the fused window is reached through
+    ``fleet.serve_fleet(fused=True)`` only, as in the reference."""
+    import inspect
+    from repro.core.scheduler import Fulcrum as RefFulcrum
     from repro_torch.core.scheduler import Fulcrum
-    kw = dict(window_duration=2.0, arrivals="poisson", seed=5,
-              backend="cpu")
-    got = Fulcrum(DeviceModel()).serve_fleet(W_IN, 30.0, 0.2, [100.0, 150.0],
-                                             4, fused=True, **kw)
-    calls = []
-    inner = FW.fused_window
-    FW.fused_window = lambda *a: calls.append(1) or inner(*a)
-    try:
-        direct = F.serve_fleet(W_IN, 30.0, 0.2, [100.0, 150.0],
-                               F.FleetSpec(4), fused=True, **kw)
-    finally:
-        FW.fused_window = inner
-    assert len(calls) == 2
-    assert_fleets_match(direct, got, exact=True)
+    ours, ref = (inspect.signature(f.serve_fleet).parameters
+                 for f in (Fulcrum, RefFulcrum))
+    assert list(ours) == list(ref)
+    assert [p.default for p in ours.values()] == \
+        [p.default for p in ref.values()]
+    assert "fused" not in ours
