@@ -47,7 +47,23 @@ each and stopping with a traceback at the first failure:
     multi-tenant ones) equal to the scalar ``problem.solve_*`` loop;
     configs/s per backend, solver launches, and the device's idle share
     under the profiler.
- 8. ``fleet``: ``serve_fleet`` on K devices (mobilenet, 30 W, 0.1 s, 5 s
+ 8. ``strategies``: the fitted strategies (ALS, RND-k, NN-k) on
+    ``benchmarks/common.py``'s strided grids at the benchmarks' 300 NN
+    epochs, each on ``"cuda"`` and again on ``"cpu"``, against the
+    oracle's optima: resnet18 training, mobilenet inference, resnet18 +
+    mobilenet through ``Fulcrum.solve_concurrent`` and the README's three
+    tenants with resnet18 training through ``solve_multi_tenant``
+    (solved, ground-truth violations, median gap, modes profiled,
+    profiling cost, wall); then ``serve_dynamic(strategy="als145")``'s
+    closed loop (mobilenet, 30 W, 0.1 s), which must launch K1 and K2, and
+    the NN predictor: cuda against cpu at 10 and 100 epochs, ms per fit
+    and per epoch at 300, device launches per epoch. Fails on an ALS or
+    RND ground-truth violation, on RND differing between the backends
+    (profiles, cost, solutions) or on predictions beyond ``NN_TOL``;
+    where ALS or NN-k profile other modes on the two backends (their
+    float32 fits part at these epochs), the record says how many and
+    both answers' quality.
+ 9. ``fleet``: ``serve_fleet`` on K devices (mobilenet, 30 W, 0.1 s, 5 s
     Poisson windows): the README's two examples at K = 8 (the second with
     shedding, backlog migration and a 216 W shared cap), the scaling rows
     of ``benchmarks/bench_fleet.py`` at K = 8, 64 and 512 (each also
@@ -66,20 +82,20 @@ each and stopping with a traceback at the first failure:
     K2 launch a window and no K1; device-windows/s and the speedup over
     the unfused row; degrade-bs refused; the K = 64 row under the profiler
     (idle share, copies per window).
- 9. ``sweep``: ``simulate_batch`` over every (power mode x inference
+10. ``sweep``: ``simulate_batch`` over every (power mode x inference
     minibatch size) of the default space (2,205 lanes, 120 s at 60 req/s),
     then the 100k-lane point of ``benchmarks/bench_interleave_engine.py``;
     both checked against the CPU backend, with each kernel timed and checked
     against its plain version on the card at the sweep's own shapes.
 
-10. ``generate``: ``GenerationServer`` on zamba2-1.2b at full width (38
+11. ``generate``: ``GenerationServer`` on zamba2-1.2b at full width (38
     layers) serving bs 4, a 512-token prompt and 32 greedy tokens on the
     card: wall, prefill and per-token decode times, and the attention and
     SSD kernels' launches per prefill (one per attention site, one per
     Mamba2 layer). Then a copy cut to 2 layers (still full width) in
     float32 compute, run on ``"cuda"`` and on ``"cpu"``: logits within
     1e-3 and 8 greedy tokens equal.
-11. ``serve_interleaved``: ``ManagedInterleaveRuntime`` (no trainer) over
+12. ``serve_interleaved``: ``ManagedInterleaveRuntime`` (no trainer) over
     ``BatchInferenceServer(zamba2-1.2b, seq_len 2048, bs 8)`` and a uniform
     trace at 80% of the measured minibatch rate for 5 s: p50 / p99 latency
     and the kernels' launches per minibatch; then one minibatch under
@@ -87,7 +103,7 @@ each and stopping with a traceback at the first failure:
     runtime's admission gate: the same server behind
     ``AdmissionPolicy("shed").gate`` on a uniform 5 s trace at 150% of the
     minibatch rate, which must shed exactly the engine mask's count.
-12. ``train``: ``Trainer`` on zamba2-1.2b at full width and depth (remat on,
+13. ``train``: ``Trainer`` on zamba2-1.2b at full width and depth (remat on,
     float32 params, bf16 compute, AdamW) for a few steps of bs 4 x 512
     tokens: ms per step, tokens/s, first and last loss (finite), peak
     memory and every kernel's launches per step (forward, remat's second
@@ -95,13 +111,13 @@ each and stopping with a traceback at the first failure:
     2-layer full-width float32 copy takes one step on ``"cuda"`` and on
     ``"cpu"`` from the same params and batch: losses within 1e-4, every
     gradient leaf within 1e-3 of its largest |g|.
-13. ``serve_train_interleaved``: the runtime with that ``Trainer`` (warm
+14. ``serve_train_interleaved``: the runtime with that ``Trainer`` (warm
     from the train phase) and the ``serve_interleaved`` server on a uniform
     5 s trace whose batch period is the minibatch time plus 2.5 training
     steps: trained minibatches (at least one), p50 / p99 latency with and
     without the trainer, and the largest overrun of a training step past
     its predicted end.
-14. ``tiled_matmul``: the ``kernels.ops.tiled_matmul`` entry point on the
+15. ``tiled_matmul``: the ``kernels.ops.tiled_matmul`` entry point on the
     serving minibatch's MLP up-projection, (16384, 2048) x (2048, 8192)
     bf16, against ``torch.matmul``.
 
@@ -134,6 +150,8 @@ import argparse
 import dataclasses
 import json
 import math
+import random
+import statistics
 import subprocess
 import sys
 import time
@@ -222,6 +240,29 @@ ORACLE_MT = (range(20, 56, 5), (0.75, 1.0, 1.5, 2.0), (0.5, 0.75, 1.0))
 MT_TENANTS = (("mobilenet", 40.0, 0.8), ("lstm", 60.0, 0.5),
               ("resnet50", 20.0, 1.5))
 ORACLE_SCALAR_STRIDE = 997      # every n-th problem against problem.solve_*
+# the fitted strategies (ALS, RND-k, NN-k) on benchmarks/common.py's strided
+# grids (full=False) with the benchmarks' NN epochs, rebuilt here, each step
+# on cuda and again on cpu: resnet18 training, mobilenet inference (the
+# quadrants of bench_infer.py), the pair of bench_concurrent.py through
+# Fulcrum.solve_concurrent, the README's three tenants with resnet18
+# training through Fulcrum.solve_multi_tenant (ORACLE_MT's 96 problems)
+NN_EPOCHS = 300
+STRAT_TRAIN = ("resnet18", ("als50", "rnd50", "rnd250", "nn250"))
+STRAT_INFER = ("mobilenet", ((0.05, 1.0), (30.0, 90.0)),
+               ("als145", "rnd150", "rnd250", "nn250"))
+STRAT_CONCURRENT = (("resnet18", "mobilenet"), ((0.5, 2.0), (30.0, 120.0)),
+                    ("als145", "rnd150", "rnd250", "nn250"))
+STRAT_MT = ("resnet18", ("als145", "rnd150", "nn250"))
+# the closed loop answered by one fitted ALS model: mobilenet at 30 W and
+# 0.1 s, 30 s windows, the README's controller (CLOSED_LOOP_CASES' readme)
+STRAT_SERVE = ("mobilenet", 30.0, 0.1, (45.0, 60.0, 90.0, 50.0), 30.0)
+# the NN predictor on cuda against cpu: within NN_TOL of the largest
+# |prediction| after each of NN_CHECK_EPOCHS; timed at NN_EPOCHS, and under
+# the profiler for NN_PROFILE_EPOCHS (launches per epoch)
+NN_TOL = 1e-5
+NN_CHECK_EPOCHS = (10, 100)
+NN_PROFILE_EPOCHS = 30
+NN_DRIFT_EPOCHS = (10, 100, 300)
 # the fleet: mobilenet at 30 W and 0.1 s over 5 s Poisson windows; the
 # README's two examples (K = 8), bench_fleet.py's scaling rows and its
 # admission matrix under a 27 W x K shared cap
@@ -1454,24 +1495,26 @@ def as_dicts(sols) -> list:
     return [None if s is None else dataclasses.asdict(s) for s in sols]
 
 
+def mt_problems(rt) -> list:
+    """bench_multi_tenant.py's grid around the README's three tenants."""
+    P, INFER = rt["P"], rt["INFER"]
+    return [P.MultiTenantProblem(float(pb), tuple(
+        P.StreamSpec(r * rs, lat * ls, INFER[name])
+        for name, r, lat in MT_TENANTS))
+        for pb in ORACLE_MT[0] for ls in ORACLE_MT[1] for rs in ORACLE_MT[2]]
+
+
 def oracle_problems(rt) -> dict:
     """The sweep's problem batches, as benchmarks/common.py builds them."""
-    P, INFER = rt["P"], rt["INFER"]
+    P = rt["P"]
     pows = [float(p) for p in ORACLE_POWERS]
-    mt = []
-    for pb in ORACLE_MT[0]:
-        for ls in ORACLE_MT[1]:
-            for rs in ORACLE_MT[2]:
-                mt.append(P.MultiTenantProblem(float(pb), tuple(
-                    P.StreamSpec(r * rs, lat * ls, INFER[name])
-                    for name, r, lat in MT_TENANTS)))
     return {"train": [P.TrainProblem(p) for p in pows],
             "infer": [P.InferProblem(p, float(lat), float(r)) for p in pows
                       for lat in ORACLE_INFER[0] for r in ORACLE_INFER[1]],
             "concurrent": [P.ConcurrentProblem(p, float(lat), float(r))
                            for p in pows for lat in ORACLE_CONCURRENT[0]
                            for r in ORACLE_CONCURRENT[1]],
-            "multi_tenant": mt}
+            "multi_tenant": mt_problems(rt)}
 
 
 def oracle_scalar_check(rt, oracle, w_tr, w_in, name, probs, sols) -> int:
@@ -1558,6 +1601,333 @@ def phase_oracle_sweep(torch, np, rt, launches: Launches) -> dict:
            "profile": {k: profile[k] for k in (
                "wall_s", "device_busy_s", "idle_share", "device_ops",
                "top", "cost_s")}}
+    emit(out)
+    return out
+
+
+def strategy_problems(rt) -> dict:
+    """benchmarks/common.py's strided grids (full=False) and the
+    multi-tenant grid."""
+    P = rt["P"]
+    return {"train": [P.TrainProblem(float(b)) for b in range(10, 51, 2)],
+            "infer": [P.InferProblem(float(p), lat, float(r))
+                      for p in range(10, 51, 5)
+                      for lat in (0.05, 0.1, 0.2, 0.4, 0.7, 1.0)
+                      for r in range(30, 91, 20)],
+            "concurrent": [P.ConcurrentProblem(float(p), lat, float(r))
+                           for p in range(10, 51, 5)
+                           for lat in (0.5, 1.0, 1.5, 2.0)
+                           for r in range(30, 121, 30)],
+            "multi_tenant": mt_problems(rt)}
+
+
+def strategy_profiles(strat) -> list:
+    """Every profile a strategy took, profiler by profiler, in order."""
+    if hasattr(strat, "profiler"):
+        profs = [strat.profiler]
+    elif hasattr(strat, "cp"):
+        profs = [strat.cp.train, strat.cp.infer]
+    else:
+        profs = [strat.mp.train] + list(strat.mp.streams)
+    return [(j, str(pm), bs) for j, prof in enumerate(profs)
+            for (pm, bs) in prof.cache]
+
+
+def strategy_cost(strat) -> tuple:
+    prof = getattr(strat, "profiler", None) or getattr(strat, "cp", None) \
+        or strat.mp
+    return prof.num_runs, prof.profile_cost_s
+
+
+def judge(rt, oracle, scenario: str, ws, pairs, sols) -> dict:
+    """Each answer against the ground truth, as benchmarks/bench_train.py,
+    bench_infer.py and bench_concurrent.py count it (the multi-tenant
+    answers like the concurrent ones): solved, violations and the median
+    excess time (train) or latency (infer) or training-throughput loss
+    (concurrent, multi-tenant) over the oracle's optimum, in percent."""
+    P = rt["P"]
+    solved, viols, gaps = 0, 0, []
+    for (prob, opt), sol in zip(pairs, sols):
+        if sol is None:
+            continue
+        if scenario == "train":
+            t, p = oracle.true_train(ws[0], sol.pm)
+            viols += p > prob.power_budget + 1e-9
+            solved += 1                  # bench_train counts it solved
+            gaps.append(100.0 * (t - opt.time) / max(opt.time, 1e-12))
+            continue
+        if scenario == "infer":
+            t, p = oracle.true_infer(ws[0], sol.pm, sol.bs)
+            bad = (p > prob.power_budget + 1e-9
+                   or P.peak_latency(sol.bs, prob.arrival_rate, t)
+                   > prob.latency_budget + 1e-9
+                   or not P.sustainable(sol.bs, prob.arrival_rate, t))
+            gap = P.peak_latency(sol.bs, prob.arrival_rate, t) - opt.time
+            scale = opt.time
+        elif scenario == "concurrent":
+            t_in, p_in = oracle.true_infer(ws[1], sol.pm, sol.bs)
+            t_tr, p_tr = oracle.true_train(ws[0], sol.pm)
+            bad = (max(p_in, p_tr) > prob.power_budget + 1e-9
+                   or P.peak_latency(sol.bs, prob.arrival_rate, t_in)
+                   > prob.latency_budget + 1e-9
+                   or not P.sustainable(sol.bs, prob.arrival_rate, t_in))
+            gap = opt.throughput - P.train_throughput(
+                sol.bs, prob.arrival_rate, t_in, t_tr)
+            scale = opt.throughput
+        else:
+            rates = [s.arrival_rate for s in prob.streams]
+            truth = [oracle.true_infer(s.workload, sol.pm, bs)
+                     for s, bs in zip(prob.streams, sol.bss)]
+            t_ins = [t for t, _ in truth]
+            t_tr, p_tr = oracle.true_train(ws[0], sol.pm)
+            bad = (max([p for _, p in truth] + [p_tr])
+                   > prob.power_budget + 1e-9
+                   or not P.multi_sustainable(sol.bss, rates, t_ins)
+                   or any(P.multi_peak_latency(sol.bss, rates, t_ins, j)
+                          > s.latency_budget + 1e-9
+                          for j, s in enumerate(prob.streams)))
+            gap = opt.throughput - P.multi_interleave_tau(
+                sol.bss, rates, t_ins, t_tr) / P.multi_cycle(sol.bss, rates)
+            scale = opt.throughput
+        if bad:
+            viols += 1
+            continue
+        solved += 1
+        gaps.append(100.0 * gap / max(scale, 1e-12))
+    return {"solved": solved, "violations": viols,
+            "median_gap_pct": statistics.median(gaps) if gaps else None}
+
+
+def strategy_run(rt, oracle, scenario: str, ws, pairs, name: str,
+                 quadrants, backend: str) -> tuple:
+    """One fitted strategy through the Fulcrum facade on one backend:
+    ``strategy_for`` + ``solve_batch`` (train, infer, as the benchmarks),
+    ``solve_concurrent`` / ``solve_multi_tenant`` per problem."""
+    Q = rt["QuadrantRanges"]
+    f = rt["Fulcrum"](rt["DeviceModel"](), nn_epochs=NN_EPOCHS,
+                      backend=backend,
+                      quadrants=None if quadrants is None
+                      else Q(latency=quadrants[0], arrival=quadrants[1]))
+    probs = [prob for prob, _ in pairs]
+    t0 = time.perf_counter()
+    if scenario in ("train", "infer"):
+        strat = f.strategy_for(scenario, name, *ws)
+        sols = strat.solve_batch(probs)
+    elif scenario == "concurrent":
+        plans = [f.solve_concurrent(ws[0], ws[1], prob, name)
+                 for prob in probs]
+        sols = [pl and pl.solution for pl in plans]
+        strat = f.strategy_for(scenario, name, *ws)
+    else:
+        plans = [f.solve_multi_tenant(ws[0], prob, name) for prob in probs]
+        sols = [pl and pl.solution for pl in plans]
+        strat = f.strategy_for(scenario, name, ws[0],
+                               *[s.workload for s in probs[0].streams])
+    wall = time.perf_counter() - t0
+    runs, cost = strategy_cost(strat)
+    rec = {**judge(rt, oracle, scenario, ws, pairs, sols), "modes": runs,
+           "profile_cost_s": cost, "wall_s": wall}
+    return rec, strategy_profiles(strat), sols
+
+
+def strategy_step(rt, oracle, scenario: str, ws, names, quadrants,
+                  probs) -> dict:
+    """Every strategy of one scenario on cuda and on cpu. Fails when an ALS
+    or RND answer violates its budget by the ground truth (they answer from
+    observed profiles only), or when RND's profiles, cost or solutions
+    differ between the backends (its draws are Python's ``random``). ALS
+    and NN-k pick from float32 predictions that part between two correct
+    runs at these epochs: where their profiles differ, the record says by
+    how many modes and gives both answers' quality."""
+    if scenario == "train":
+        opts = oracle.solve_train_batch(ws[0], probs, "cuda")
+    elif scenario == "infer":
+        opts = oracle.solve_infer_batch(ws[0], probs, "cuda")
+    elif scenario == "concurrent":
+        opts = oracle.solve_concurrent_batch(ws[0], ws[1], probs, "cuda")
+    else:
+        opts = oracle.solve_multi_tenant_batch(ws[0], probs, "cuda")
+    pairs = [(prob, opt) for prob, opt in zip(probs, opts)
+             if opt is not None and (scenario in ("train", "infer")
+                                     or opt.throughput > 0)]
+    out = {"workloads": [w.name for w in ws], "problems": len(probs),
+           "solvable": len(pairs), "strategies": {}}
+    for name in names:
+        got, keys, sols = strategy_run(rt, oracle, scenario, ws, pairs, name,
+                                       quadrants, "cuda")
+        ref, ref_keys, ref_sols = strategy_run(rt, oracle, scenario, ws,
+                                               pairs, name, quadrants, "cpu")
+        for b, rec in (("cuda", got), ("cpu", ref)):
+            if name.startswith(("als", "rnd")) and rec["violations"]:
+                fail(f"strategies: {scenario} {name} on {b} violated "
+                     f"{rec['violations']} budgets by the ground truth")
+        same = keys == ref_keys
+        if name.startswith("rnd") and not (
+                same and (got["modes"], got["profile_cost_s"])
+                == (ref["modes"], ref["profile_cost_s"])
+                and as_dicts(sols) == as_dicts(ref_sols)):
+            fail(f"strategies: {scenario} {name} differs between cuda and "
+                 f"cpu")
+        out["strategies"][name] = {
+            "cuda": got, "cpu": ref, "same_profiles": same,
+            "modes_differ": len(set(keys) ^ set(ref_keys)),
+            "solutions_equal": as_dicts(sols) == as_dicts(ref_sols)}
+    return out
+
+
+def nn_case(rt, width: int) -> tuple:
+    """50 random profiles (width 4: resnet18 training, 5: mobilenet
+    inference: the (mode, bs) pairs), their times and powers, and every key
+    to predict, as tests/test_torch_cuda.py builds them."""
+    NN = rt["NN"]
+    rng = random.Random(width)
+    modes = rt["PowerModeSpace"]().all_modes()
+    if width == 4:
+        keys, w = [(pm, None) for pm in modes], rt["TRAIN"]["resnet18"]
+    else:
+        keys = [(pm, bs) for pm in modes for bs in rt["P"].INFER_BATCH_SIZES]
+        w = rt["INFER"]["mobilenet"]
+    dev = rt["DeviceModel"]()
+    seen = rng.sample(keys, 50)
+    tp = [dev.time_power(w, pm, bs) for pm, bs in seen]
+    feats = [NN.mode_features(pm, bs) for pm, bs in seen]
+    every = [NN.mode_features(pm, bs) for pm, bs in keys]
+    return (feats, [t for t, _ in tp], [p for _, p in tp], every)
+
+
+def drift_case(rt) -> tuple:
+    """ALSConcurrent's and ALSMultiTenant's first fit (mobilenet's
+    inference time on their 25 initial profiles, NN seed 0), where two
+    correct float32 runs part within 100 epochs (ROADMAP queue 3)."""
+    NN = rt["NN"]
+    rng = random.Random(0)
+    modes = rt["PowerModeSpace"]().all_modes()
+    dev, w = rt["DeviceModel"](), rt["INFER"]["mobilenet"]
+    seen = [(pm, rng.choice(rt["P"].INFER_BATCH_SIZES))
+            for pm in rng.sample(modes, 25)]
+    feats = [NN.mode_features(pm, bs) for pm, bs in seen]
+    times = [dev.time_power(w, pm, bs)[0] for pm, bs in seen]
+    every = [NN.mode_features(pm, bs) for pm in modes
+             for bs in rt["P"].INFER_BATCH_SIZES]
+    return feats, times, every
+
+
+def predictor_step(torch, np, rt) -> dict:
+    """The NN predictor on cuda against cpu from the same initial weights
+    (drawn on the host): within NN_TOL of the largest |prediction| after
+    NN_CHECK_EPOCHS, both feature widths and targets; wall ms per fit and
+    per epoch at NN_EPOCHS on each backend; device launches per epoch under
+    the profiler; the drift case's share at NN_DRIFT_EPOCHS (not judged)."""
+    NN = rt["NN"]
+
+    def fit(x, y, epochs, backend):
+        m = NN.NNPredictor.fit(x, y, epochs=epochs, backend=backend)
+        if backend == "cuda":
+            torch.cuda.synchronize()
+        return m
+
+    def share(x, y, every, epochs):
+        a = fit(x, y, epochs, "cpu").predict(every)
+        b = fit(x, y, epochs, "cuda").predict(every)
+        return float(np.abs(b - a).max() / np.abs(a).max())
+
+    checks = {}
+    for width in (4, 5):
+        feats, times, powers, every = nn_case(rt, width)
+        for target, y in (("time", times), ("power", powers)):
+            for epochs in NN_CHECK_EPOCHS:
+                s = share(feats, y, every, epochs)
+                if not s <= NN_TOL:
+                    fail(f"strategies: NN predictions (width {width}, "
+                         f"{target}, {epochs} epochs) differ between cuda "
+                         f"and cpu by {s:.3g} of the largest")
+                checks[f"w{width}_{target}_{epochs}"] = s
+    feats, times, _, _ = nn_case(rt, 5)
+    timed = {}
+    for backend in ("cuda", "cpu"):
+        fit(feats, times, 5, backend)            # warm
+        walls = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            fit(feats, times, NN_EPOCHS, backend)
+            walls.append(1e3 * (time.perf_counter() - t0))
+        walls.sort()
+        timed[backend] = {"fit_ms": walls, "ms_per_epoch":
+                          walls[1] / NN_EPOCHS}
+    prof = profile_device(torch, lambda: fit(feats, times,
+                                             NN_PROFILE_EPOCHS, "cuda"))
+    timed["cuda"]["launches_per_epoch"] = prof["device_ops"] \
+        / NN_PROFILE_EPOCHS
+    timed["cuda"]["idle_share"] = prof["idle_share"]
+    x, y, every = drift_case(rt)
+    drift = {str(e): share(x, y, every, e) for e in NN_DRIFT_EPOCHS}
+    return {"max_share_of_largest": checks, "tolerance": NN_TOL,
+            "timed": timed, "drift_case": drift}
+
+
+def phase_strategies(torch, np, rt, launches: Launches) -> dict:
+    """The fitted strategies on the card: train, infer, concurrent and
+    multi-tenant steps against the oracle (``strategy_step``), the closed
+    loop answered by ALS through K1 and K2, and the NN predictor."""
+    TRAIN, INFER, Oracle = rt["TRAIN"], rt["INFER"], rt["Oracle"]
+    oracle = Oracle(rt["DeviceModel"]())
+    probs = strategy_problems(rt)
+    out = {"phase": "strategies", "nn_epochs": NN_EPOCHS}
+    name, names = STRAT_TRAIN
+    out["train"] = strategy_step(rt, oracle, "train", (TRAIN[name],), names,
+                                 None, probs["train"])
+    name, quads, names = STRAT_INFER
+    out["infer"] = strategy_step(rt, oracle, "infer", (INFER[name],), names,
+                                 quads, probs["infer"])
+    (tr, inf), quads, names = STRAT_CONCURRENT
+    out["concurrent"] = strategy_step(rt, oracle, "concurrent",
+                                      (TRAIN[tr], INFER[inf]), names, quads,
+                                      probs["concurrent"])
+    name, names = STRAT_MT
+    out["multi_tenant"] = strategy_step(rt, oracle, "multi_tenant",
+                                        (TRAIN[name],), names, None,
+                                        probs["multi_tenant"])
+
+    # the closed loop answered by one fitted ALS model, through K1 and K2
+    name, power, budget, rates, window = STRAT_SERVE
+    w = INFER[name]
+    cfg = rt["CC"].ControllerConfig(**CLOSED_LOOP_CASES["readme"][2])
+    runs = {}
+    for backend in ("cuda", "cpu"):
+        f = rt["Fulcrum"](rt["DeviceModel"](), nn_epochs=NN_EPOCHS,
+                          backend=backend)
+        if backend == "cuda":
+            launches.reset()
+        t0 = time.perf_counter()
+        wins = f.serve_dynamic(w, power, budget, list(rates),
+                               strategy="als145", window_duration=window,
+                               controller=cfg, backend=backend)
+        wall = time.perf_counter() - t0
+        if backend == "cuda":
+            counts = launches.read("strategies")
+        strat = f.strategy_for("dynamic", "als145", w)
+        runs[backend] = (wins, wall, strategy_profiles(strat),
+                         strategy_cost(strat))
+    (got, wall, keys, cost), (ref, cpu_wall, ref_keys, ref_cost) = \
+        runs["cuda"], runs["cpu"]
+    same = keys == ref_keys
+    same_plans = [a.solution == b.solution for a, b in zip(ref, got)]
+    # with the same profiles, or where ALS's picks differ but every window
+    # commits the same plan, the windows must agree; otherwise the record
+    # compares the plans
+    errs = compare_windows(np, ref, got, "strategies serving") \
+        if same or all(same_plans) else [None] * len(got)
+    out["serving"] = {
+        "workload": w.name, "power_w": power, "latency_budget_s": budget,
+        "same_profiles": same, "modes_differ": len(set(keys) ^ set(ref_keys)),
+        "same_plans": same_plans, "modes": [cost[0], ref_cost[0]],
+        "wall_s": wall, "cpu_wall_s": cpu_wall,
+        "windows": window_records(got, errs),
+        "cpu_plans": [None if v.solution is None else
+                      {"pm": str(v.solution.pm), "bs": v.solution.bs}
+                      for v in ref]}
+    out["predictor"] = predictor_step(torch, np, rt)
+    out["launches"] = counts
     emit(out)
     return out
 
@@ -2408,8 +2778,10 @@ def main() -> int:
     from repro_torch.core import controller as CC
     from repro_torch.core import fleet as F
     from repro_torch.core import fused_window as FW
+    from repro_torch.core import nn_model as NN
     from repro_torch.core import problem as P
     from repro_torch.core import simulate as S
+    from repro_torch.core.als import QuadrantRanges
     from repro_torch.core.device_model import (DeviceModel, INFER_WORKLOADS,
                                                TRAIN_WORKLOADS)
     from repro_torch.core.oracle import Oracle
@@ -2428,7 +2800,7 @@ def main() -> int:
               PowerModeSpace=PowerModeSpace, TRAIN=TRAIN_WORKLOADS,
               INFER=INFER_WORKLOADS, C=C, SV=SV, IR=IR, TL=TL, A=A, ST=ST,
               T=T, M=M, D=D, OPS=OPS, CC=CC, B=B, F=F, Oracle=Oracle,
-              KF=KF, FW=FW)
+              KF=KF, FW=FW, NN=NN, QuadrantRanges=QuadrantRanges)
 
     device = phase_device(torch, build)
     kern = phase_kernels(torch, np, rt, K1, K2, K3, K4, K5, args.seed)
@@ -2446,6 +2818,7 @@ def main() -> int:
                                                           launches),
              "multi_tenant": phase_multi_tenant(torch, np, rt, launches),
              "oracle_sweep": phase_oracle_sweep(torch, np, rt, launches),
+             "strategies": phase_strategies(torch, np, rt, launches),
              "fleet": phase_fleet(torch, np, rt, launches)}
     sweep = phase_sweep(torch, np, rt, launches)
     paths["sweep"] = sweep["full_space"]

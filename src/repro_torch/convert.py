@@ -2,10 +2,11 @@
 
 What crosses from a run of the JAX package (or from a saved run) is plain
 data: workload profiles, power modes, arrival-trace times and queue states
-for the plan-and-execute path, and model parameters for the model
-substrate, and the optimizer state for training. Each converter takes that
-data as plain fields, NumPy arrays and nested dicts, never as the
-reference's objects, so the port stays free of the ``repro`` package;
+for the plan-and-execute path, model parameters for the model substrate,
+the optimizer state for training, and the NN predictor's initial weights.
+Each converter takes that data as plain fields, NumPy arrays and nested
+dicts, never as the reference's objects, so the port stays free of the
+``repro`` package;
 ``dataclasses.asdict`` of a reference object gives exactly the fields
 these take, ``jax.tree.map(np.asarray, params)`` a parameter tree
 ``model_params`` takes, and ``jax.tree.map(np.asarray, opt_state)`` an
@@ -91,3 +92,11 @@ def opt_state(tree: Mapping, cfg: ModelConfig, device=None) -> dict:
     out["step"] = torch.tensor(int(np.asarray(tree["step"])),
                                dtype=torch.int32, device=device)
     return out
+
+
+def nn_params(tree) -> list:
+    """The NN predictor's initial parameters (``core.nn_model``) from the
+    reference's: one ``{"w", "b"}`` of arrays per layer, ``w`` of shape
+    (in, out). Returns float32 CPU tensors, as ``_init_params`` does."""
+    return [{k: torch.from_numpy(np.array(layer[k], np.float32))
+             for k in ("w", "b")} for layer in tree]

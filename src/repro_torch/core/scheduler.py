@@ -3,17 +3,20 @@
 Counterpart of ``repro.core.scheduler`` for the plan-and-execute path:
 given a workload tuple, a problem and a strategy name, Fulcrum profiles via
 the strategy, commits to a (power mode [, beta_in [, tau_tr]]) plan, and
-replays it with the trace-driven engine (``core.simulate``). Solving is
+replays it with the trace-driven engine (``core.simulate``). GMD solves in
 host-side scalar Python and gives the reference's plans exactly; executing
 runs on ``backend="cuda"`` (default, the hand-written kernels) or
 ``backend="cpu"``.
 
-It carries the GMD strategy of every scenario (the fitted ALS / RND / NN
-strategies need the NN predictor, not ported yet: asking for them raises
-the reference's ``KeyError``; a strategy registered with
-``register_strategy`` takes the fitted strategies' paths), ``execute`` and
-``execute_multi_tenant``, ``solve_dynamic`` and
-``solve_dynamic_multi_tenant``, ``serve_dynamic`` in all its forms: the
+It carries the reference's strategy registry: GMD for every scenario,
+never cached (it is profiling), and the fitted ALS / RND / NN strategies
+(``core.als``, ``core.baselines``), cached per workload tuple and reused.
+Those fit their NN predictors and answer through the batched grid solvers
+on ``Fulcrum(backend=...)``'s backend (``"cuda"`` by default, or
+``"cpu"``). RND's plans are the reference's exactly; ALS and NN-k pick
+from float32 predictions, held to a tolerance (``core.nn_model``). The
+scheduler has ``execute`` and ``execute_multi_tenant``, ``solve_dynamic``
+and ``solve_dynamic_multi_tenant``, ``serve_dynamic`` in all its forms: the
 open loop (all windows replayed as one engine batch), the closed loop of
 ``core.controller`` (rate estimation, budget feedback, backlog carryover,
 mode-switch cost, admission control and mid-window splits), and their
@@ -39,6 +42,13 @@ from typing import Callable, Optional, Sequence
 import numpy as np
 
 from repro_torch.core import problem as P
+from repro_torch.core.als import (ALSConcurrent, ALSInfer, ALSMultiTenant,
+                                  ALSTrain, QuadrantRanges)
+from repro_torch.core.baselines import (NNConcurrentBaseline,
+                                        NNInferBaseline,
+                                        NNMultiTenantBaseline,
+                                        NNTrainBaseline, RNDConcurrent,
+                                        RNDInfer, RNDMultiTenant, RNDTrain)
 from repro_torch.core.controller import ControllerConfig, ControllerState
 from repro_torch.core.device_model import DeviceModel, Profiler, WorkloadProfile
 from repro_torch.core.gmd import (ConcurrentProfiler, GMDConcurrent, GMDInfer,
@@ -87,14 +97,18 @@ def as_nonurgent(w: WorkloadProfile, bs: int = 32) -> WorkloadProfile:
 # strategy registry: one table for every (scenario, strategy) pair
 # ---------------------------------------------------------------------------
 
-# (scenario, name) -> factory(fulcrum, *workloads) -> strategy. GMD is
-# profiling itself, so every solve builds a fresh strategy.
-_REGISTRY: dict[tuple[Scenario, str], Callable] = {}
+@dataclasses.dataclass(frozen=True)
+class StrategySpec:
+    factory: Callable                 # (fulcrum, *workloads) -> strategy
+    cached: bool = True               # fitted models are reusable; GMD is not
 
 
-def register_strategy(scenario: Scenario, name: str,
-                      factory: Callable) -> None:
-    _REGISTRY[(scenario, name)] = factory
+_REGISTRY: dict[tuple[Scenario, str], StrategySpec] = {}
+
+
+def register_strategy(scenario: Scenario, name: str, factory: Callable,
+                      cached: bool = True) -> None:
+    _REGISTRY[(scenario, name)] = StrategySpec(factory, cached)
 
 
 def available_strategies(scenario: Scenario) -> list[str]:
@@ -120,15 +134,78 @@ def _mtprof(f: "Fulcrum", w_tr: Optional[WorkloadProfile],
 
 
 register_strategy(Scenario.TRAIN, "gmd",
-                  lambda f, w: GMDTrain(_prof(f, w), f.space))
+                  lambda f, w: GMDTrain(_prof(f, w), f.space), cached=False)
+register_strategy(Scenario.TRAIN, "als50",
+                  lambda f, w: ALSTrain(_prof(f, w), f.space,
+                                        nn_epochs=f.nn_epochs,
+                                        backend=f.backend))
+register_strategy(Scenario.TRAIN, "rnd50",
+                  lambda f, w: RNDTrain(_prof(f, w), 50, f.space,
+                                        backend=f.backend))
+register_strategy(Scenario.TRAIN, "rnd250",
+                  lambda f, w: RNDTrain(_prof(f, w), 250, f.space,
+                                        backend=f.backend))
+register_strategy(Scenario.TRAIN, "nn250",
+                  lambda f, w: NNTrainBaseline(_prof(f, w), 250, f.space,
+                                               nn_epochs=f.nn_epochs,
+                                               backend=f.backend))
+
 register_strategy(Scenario.INFER, "gmd",
-                  lambda f, w: GMDInfer(_prof(f, w), f.space))
+                  lambda f, w: GMDInfer(_prof(f, w), f.space), cached=False)
+register_strategy(Scenario.INFER, "als145",
+                  lambda f, w: ALSInfer(_prof(f, w), f.quadrants, f.space,
+                                        nn_epochs=f.nn_epochs,
+                                        backend=f.backend))
+register_strategy(Scenario.INFER, "rnd150",
+                  lambda f, w: RNDInfer(_prof(f, w), 150, f.space,
+                                        backend=f.backend))
+register_strategy(Scenario.INFER, "rnd250",
+                  lambda f, w: RNDInfer(_prof(f, w), 250, f.space,
+                                        backend=f.backend))
+register_strategy(Scenario.INFER, "nn250",
+                  lambda f, w: NNInferBaseline(_prof(f, w), 250, f.space,
+                                               nn_epochs=f.nn_epochs,
+                                               backend=f.backend))
+
 register_strategy(Scenario.CONCURRENT, "gmd",
                   lambda f, w_tr, w_in: GMDConcurrent(_cprof(f, w_tr, w_in),
-                                                      f.space))
+                                                      f.space), cached=False)
+register_strategy(Scenario.CONCURRENT, "als145",
+                  lambda f, w_tr, w_in: ALSConcurrent(
+                      _cprof(f, w_tr, w_in), f.quadrants, f.space,
+                      nn_epochs=f.nn_epochs, backend=f.backend))
+register_strategy(Scenario.CONCURRENT, "rnd150",
+                  lambda f, w_tr, w_in: RNDConcurrent(
+                      _cprof(f, w_tr, w_in), 150, f.space,
+                      backend=f.backend))
+register_strategy(Scenario.CONCURRENT, "rnd250",
+                  lambda f, w_tr, w_in: RNDConcurrent(
+                      _cprof(f, w_tr, w_in), 250, f.space,
+                      backend=f.backend))
+register_strategy(Scenario.CONCURRENT, "nn250",
+                  lambda f, w_tr, w_in: NNConcurrentBaseline(
+                      _cprof(f, w_tr, w_in), 250, f.space,
+                      nn_epochs=f.nn_epochs, backend=f.backend))
+
 register_strategy(Scenario.MULTI_TENANT, "gmd",
                   lambda f, w_tr, *ws: GMDMultiTenant(_mtprof(f, w_tr, *ws),
-                                                      f.space))
+                                                      f.space), cached=False)
+register_strategy(Scenario.MULTI_TENANT, "als145",
+                  lambda f, w_tr, *ws: ALSMultiTenant(
+                      _mtprof(f, w_tr, *ws), f.quadrants, f.space,
+                      nn_epochs=f.nn_epochs, backend=f.backend))
+register_strategy(Scenario.MULTI_TENANT, "rnd150",
+                  lambda f, w_tr, *ws: RNDMultiTenant(
+                      _mtprof(f, w_tr, *ws), 150, f.space,
+                      backend=f.backend))
+register_strategy(Scenario.MULTI_TENANT, "rnd250",
+                  lambda f, w_tr, *ws: RNDMultiTenant(
+                      _mtprof(f, w_tr, *ws), 250, f.space,
+                      backend=f.backend))
+register_strategy(Scenario.MULTI_TENANT, "nn250",
+                  lambda f, w_tr, *ws: NNMultiTenantBaseline(
+                      _mtprof(f, w_tr, *ws), 250, f.space,
+                      nn_epochs=f.nn_epochs, backend=f.backend))
 
 
 # ---------------------------------------------------------------------------
@@ -218,10 +295,19 @@ def _replan_flags(sols: Sequence, key) -> list[bool]:
 
 class Fulcrum:
     def __init__(self, device: Optional[DeviceModel] = None,
-                 space: Optional[PowerModeSpace] = None):
+                 space: Optional[PowerModeSpace] = None,
+                 quadrants: Optional[QuadrantRanges] = None,
+                 nn_epochs: int = 400, backend: Optional[str] = None):
+        """``backend`` is where the fitted strategies fit their NNs and
+        solve (None: ``"cuda"``); each engine call takes its own."""
         self.device = device or DeviceModel()
         self.space = space or PowerModeSpace()
+        self.quadrants = quadrants or QuadrantRanges(latency=(0.05, 2.0),
+                                                     arrival=(30.0, 120.0))
+        self.nn_epochs = nn_epochs
+        self.backend = backend
         self.oracle = Oracle(self.device, self.space)
+        self._fitted: dict = {}     # reusable fitted strategies (ALS/RND/NN)
 
     # -- solve --------------------------------------------------------------
     def solve(self, scenario, workloads: Sequence[WorkloadProfile], prob,
@@ -268,17 +354,28 @@ class Fulcrum:
         return self.solve(Scenario.MULTI_TENANT,
                           (w_tr if prob.train else None,) + ws, prob, strategy)
 
+    def strategy_for(self, scenario, name: str, *workloads: WorkloadProfile):
+        """Resolve (scenario, strategy) through the registry; fitted
+        strategies are cached per workload tuple, GMD never is."""
+        return self._strategy(Scenario(scenario), name, *workloads)
+
     def _strategy(self, scenario: Scenario, name: str,
                   *workloads: WorkloadProfile):
         if scenario is Scenario.CONCURRENT_INFERENCE:
             # the scenario's defining cast, applied regardless of entry point
             workloads = (as_nonurgent(workloads[0]),) + workloads[1:]
-        factory = _REGISTRY.get((scenario.canonical, name))
-        if factory is None:
+        spec = _REGISTRY.get((scenario.canonical, name))
+        if spec is None:
             raise KeyError(
                 f"no strategy {name!r} for scenario {scenario.value!r}; "
                 f"available: {available_strategies(scenario)}")
-        return factory(self, *workloads)
+        if not spec.cached:
+            return spec.factory(self, *workloads)
+        key = (scenario.canonical.value, name,
+               tuple(w.name if w is not None else None for w in workloads))
+        if key not in self._fitted:
+            self._fitted[key] = spec.factory(self, *workloads)
+        return self._fitted[key]
 
     def _plan(self, sol, strat, name, scenario=None) -> Optional[Plan]:
         if sol is None:

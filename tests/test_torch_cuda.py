@@ -873,3 +873,150 @@ def test_cuda_training_gradients_match_cpu_at_full_width(hopper):
     assert abs(lg - lc) <= 1e-4
     for a, b in zip(gg, gc):
         _near(a, b, 1e-3, "gradient")
+
+
+# ---------------------------------------------------------------------------
+# the fitted strategies: the NN predictor, RND-k, ALS, the closed loop
+# ---------------------------------------------------------------------------
+
+NN_TOL = 1e-5          # of the largest |prediction|, cuda against cpu
+
+
+def nn_data(width):
+    """Profiles of 50 random modes (width 4: resnet18 training) or (mode,
+    bs) pairs (width 5: mobilenet inference): features, times, powers, and
+    the features of every key to predict."""
+    import random
+    from repro_torch.core.device_model import DeviceModel
+    from repro_torch.core.nn_model import mode_features
+    from repro_torch.core.problem import INFER_BATCH_SIZES
+    rng = random.Random(width)
+    modes = PowerModeSpace().all_modes()
+    if width == 4:
+        keys = [(pm, None) for pm in modes]
+        w = TRAIN_WORKLOADS["resnet18"]
+    else:
+        keys = [(pm, bs) for pm in modes for bs in INFER_BATCH_SIZES]
+        w = INFER_WORKLOADS["mobilenet"]
+    seen = rng.sample(keys, 50)
+    tp = np.array([DeviceModel().time_power(w, pm, bs) for pm, bs in seen])
+    feats = np.array([mode_features(pm, bs) for pm, bs in seen])
+    every = np.array([mode_features(pm, bs) for pm, bs in keys])
+    return feats, tp[:, 0], tp[:, 1], every
+
+
+@pytest.mark.parametrize("epochs", [10, 100])
+@pytest.mark.parametrize("width", [4, 5])
+def test_cuda_nn_predictor_matches_cpu(hopper, width, epochs):
+    """From the same initial weights (drawn on the host) the card's fit
+    predicts within 1e-5 of the largest |prediction| of the CPU's."""
+    from repro_torch.core.nn_model import NNPredictor
+    feats, t, p, every = nn_data(width)
+    for y in (t, p):
+        want = NNPredictor.fit(feats, y, epochs=epochs, backend="cpu")
+        got = NNPredictor.fit(feats, y, epochs=epochs, backend="cuda")
+        assert got.mean.is_cuda
+        a, b = want.predict(every), got.predict(every)
+        assert np.abs(b - a).max() <= NN_TOL * np.abs(a).max()
+
+
+def _strategy_problems(P, scenario):
+    if scenario == "train":
+        return [P.TrainProblem(float(b)) for b in range(10, 51, 4)]
+    if scenario == "infer":
+        return [P.InferProblem(float(b), lat, float(r))
+                for b in (15, 30, 45) for lat in (0.1, 0.4) for r in (30, 90)]
+    if scenario == "concurrent":
+        return [P.ConcurrentProblem(float(b), lat, float(r))
+                for b in (15, 30, 45) for lat in (0.5, 2.0) for r in (30, 90)]
+    return [P.MultiTenantProblem(float(b), (
+        P.StreamSpec(40.0, 0.8, INFER_WORKLOADS["mobilenet"]),
+        P.StreamSpec(60.0, 0.5, INFER_WORKLOADS["lstm"])))
+        for b in (25, 40, 55)]
+
+
+def _profiles(strat):
+    """Every profile a strategy took, in order, with its run count and
+    cost."""
+    top = getattr(strat, "profiler", None) or getattr(strat, "cp", None) \
+        or strat.mp
+    profs = [top] if hasattr(strat, "profiler") else \
+        [top.train, top.infer] if hasattr(strat, "cp") else \
+        [top.train] + list(top.streams)
+    return ([list(prof.cache.items()) for prof in profs], top.num_runs,
+            top.profile_cost_s)
+
+
+def _fitted(scenario, name, backend, **kw):
+    from repro_torch.core import problem as P
+    from repro_torch.core.scheduler import Fulcrum
+    f = Fulcrum(backend=backend, **kw)
+    probs = _strategy_problems(P, scenario)
+    ws = (INFER_WORKLOADS["mobilenet"],) if scenario == "infer" else \
+        (TRAIN_WORKLOADS["resnet18"],) if scenario == "train" else \
+        (TRAIN_WORKLOADS["resnet18"], INFER_WORKLOADS["mobilenet"]) \
+        if scenario == "concurrent" else \
+        (TRAIN_WORKLOADS["resnet18"],) + tuple(s.workload
+                                               for s in probs[0].streams)
+    strat = f.strategy_for(scenario, name, *ws)
+    return strat, probs, strat.solve_batch(probs)
+
+
+@pytest.mark.parametrize("scenario,name", [
+    ("train", "rnd50"), ("train", "rnd250"), ("infer", "rnd150"),
+    ("infer", "rnd250"), ("concurrent", "rnd150"),
+    ("multi_tenant", "rnd150")])
+def test_cuda_rnd_is_bitwise_cpu(hopper, scenario, name):
+    """RND-k profiles the same modes on either backend (Python's random),
+    at the same cost, and the card's solvers answer bitwise."""
+    got, _, sols = _fitted(scenario, name, "cuda")
+    ref, _, ref_sols = _fitted(scenario, name, "cpu")
+    assert _profiles(got) == _profiles(ref)
+    assert _solutions(sols) == _solutions(ref_sols)
+    assert any(s is not None for s in sols)
+
+
+@pytest.mark.parametrize("scenario,name", [("train", "als50"),
+                                           ("infer", "als145"),
+                                           ("concurrent", "als145")])
+def test_cuda_als_answers_violate_no_budget(hopper, scenario, name):
+    """ALS fits its NNs on the card but answers from observed profiles
+    only, so no answer breaks its budget by the ground truth."""
+    from repro_torch.core import problem as P
+    from repro_torch.core.device_model import DeviceModel
+    from repro_torch.core.oracle import Oracle
+    oracle = Oracle(DeviceModel())
+    _, probs, sols = _fitted(scenario, name, "cuda", nn_epochs=100)
+    w_tr, w_in = TRAIN_WORKLOADS["resnet18"], INFER_WORKLOADS["mobilenet"]
+    assert any(s is not None for s in sols)
+    for prob, sol in zip(probs, sols):
+        if sol is None:
+            continue
+        if scenario == "train":
+            assert oracle.true_train(w_tr, sol.pm)[1] <= prob.power_budget
+            continue
+        t, p = oracle.true_infer(w_in, sol.pm, sol.bs)
+        if scenario == "concurrent":
+            p = max(p, oracle.true_train(w_tr, sol.pm)[1])
+        assert p <= prob.power_budget + 1e-9
+        assert P.sustainable(sol.bs, prob.arrival_rate, t)
+        assert P.peak_latency(sol.bs, prob.arrival_rate, t) <= \
+            prob.latency_budget + 1e-9
+
+
+def test_cuda_serve_dynamic_with_als145_launches_k1_and_k2(hopper):
+    """The closed loop answered by one fitted ALS model (mobilenet, 30 W,
+    0.1 s, the README's controller) replays its plans through K1 and K2,
+    a plan in every window."""
+    from repro_torch.core.controller import ControllerConfig
+    from repro_torch.core.scheduler import Fulcrum
+    cfg = ControllerConfig(rate_estimator="ewma", rate_margin=1.5,
+                           feedback=True, carry_backlog=True,
+                           mode_switch_s=0.5)
+    n1, n2 = maxplus_scan.launches, lane_sort.launches
+    wins = Fulcrum(nn_epochs=100, backend="cuda").serve_dynamic(
+        INFER_WORKLOADS["mobilenet"], 30.0, 0.1, [45.0, 60.0, 90.0, 50.0],
+        "als145", window_duration=30.0, controller=cfg, backend="cuda")
+    assert maxplus_scan.launches > n1 and lane_sort.launches > n2
+    assert all(w.solution is not None and w.report is not None
+               for w in wins)

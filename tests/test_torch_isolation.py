@@ -45,6 +45,8 @@ def test_importing_every_module_pulls_in_no_jax_and_no_reference():
     assert "repro_torch.core.scheduler" in got["modules"]
     assert "repro_torch.core.fused_window" in got["modules"]
     assert "repro_torch.kernels.fulcrum.fused_window" in got["modules"]
+    for name in ("pareto", "nn_model", "als", "baselines"):
+        assert f"repro_torch.core.{name}" in got["modules"]
     assert got["foreign"] == []
     assert got["cuda_initialized"] is False
 
