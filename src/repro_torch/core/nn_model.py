@@ -8,14 +8,17 @@ by their mean and population std. Training is full-batch: one step of the
 reference's own Adam update per epoch (not ``torch.optim.Adam``, whose eps
 sits elsewhere), the parameter updates as ``torch._foreach_*`` calls.
 
-Float32 throughout; the products run in full float32 (the port never
-enables TF32). It runs on ``backend="cuda"`` (the default) or ``"cpu"``.
-The initial weights are drawn from a ``torch.Generator``, not from
-``jax.random``, so they differ from the reference's; a test starts both
-from the same weights by replacing ``_init_params`` with the reference's
-draws (``convert.nn_params``). Past a few hundred epochs two correct
-float32 runs drift apart (the loss weight flips with the sign of an error
-at the ulp level), so predictions are held to a tolerance, not bitwise.
+Float32 throughout (``DTYPE``); the products run in full float32 (the
+port never enables TF32). It runs on ``backend="cuda"`` (the default) or
+``"cpu"``. The initial weights are drawn from a ``torch.Generator``, not
+from ``jax.random``, so they differ from the reference's; a test starts
+both from the same weights by replacing ``_init_params`` with the
+reference's draws (``convert.nn_params``), and widens ``DTYPE`` to float64
+to hold the arithmetic itself to the reference's run in float64. In
+float32 the predictions are held to a tolerance, not bitwise: a gradient
+entry that cancels to near Adam's eps (1e-8) takes a step anywhere
+between 0 and lr depending on its rounding, and past a few hundred epochs
+the loss weight flips with the sign of an error at the ulp level.
 """
 from __future__ import annotations
 
@@ -30,6 +33,7 @@ from repro_torch.core.backend import resolve_backend, torch_device
 
 LAYERS = (256, 128, 64, 1)
 UNDER_PENALTY = 4.0
+DTYPE = np.float32          # of the data, the weights and Adam's arithmetic
 
 
 def _init_params(seed: int, d_in: int) -> list:
@@ -62,8 +66,8 @@ def _loss(params: list, x: torch.Tensor, y: torch.Tensor,
     return (w * torch.where(err >= 0, err, -err)).mean()
 
 
-def _as_float32(a, dev: torch.device) -> torch.Tensor:
-    return torch.from_numpy(np.asarray(a, np.float32)).to(dev)
+def _as_tensor(a, dev: torch.device) -> torch.Tensor:
+    return torch.from_numpy(np.asarray(a, DTYPE)).to(dev)
 
 
 @dataclasses.dataclass
@@ -77,22 +81,23 @@ class NNPredictor:
             epochs: int = 1000, lr: float = 1e-3, seed: int = 0,
             backend: Optional[str] = None) -> "NNPredictor":
         dev = torch_device(resolve_backend(backend))
-        x = _as_float32(features, dev)
-        y = _as_float32(targets, dev)
+        x = _as_tensor(features, dev)
+        y = _as_tensor(targets, dev)
         mean = x.mean(0)
         std = torch.clamp_min(x.std(0, correction=0), 1e-6)
         xn = (x - mean) / std
         scale = torch.clamp_min(y.abs(), 1e-6)
-        params = [{k: t.to(dev).requires_grad_() for k, t in layer.items()}
+        params = [{k: t.to(dev, x.dtype).requires_grad_()
+                   for k, t in layer.items()}
                   for layer in _init_params(seed, x.shape[1])]
         flat = [t for layer in params for t in layer.values()]
         m = [torch.zeros_like(t) for t in flat]
         v = [torch.zeros_like(t) for t in flat]
         for i in range(epochs):
             g = torch.autograd.grad(_loss(params, xn, y, scale), flat)
-            t = np.float32(i + 1)
-            bc1 = float(np.float32(1) - np.float32(0.9) ** t)
-            bc2 = float(np.float32(1) - np.float32(0.999) ** t)
+            t = DTYPE(i + 1)
+            bc1 = float(DTYPE(1) - DTYPE(0.9) ** t)
+            bc2 = float(DTYPE(1) - DTYPE(0.999) ** t)
             with torch.no_grad():
                 torch._foreach_mul_(m, 0.9)
                 torch._foreach_add_(m, torch._foreach_mul(g, 0.1))
@@ -111,7 +116,7 @@ class NNPredictor:
         return cls(params=params, mean=mean, std=std)
 
     def predict(self, features: np.ndarray) -> np.ndarray:
-        x = (_as_float32(features, self.mean.device) - self.mean) / self.std
+        x = (_as_tensor(features, self.mean.device) - self.mean) / self.std
         with torch.no_grad():
             return _apply(self.params, x).cpu().numpy()
 

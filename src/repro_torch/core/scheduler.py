@@ -13,7 +13,8 @@ never cached (it is profiling), and the fitted ALS / RND / NN strategies
 (``core.als``, ``core.baselines``), cached per workload tuple and reused.
 Those fit their NN predictors and answer through the batched grid solvers
 on ``Fulcrum(backend=...)``'s backend (``"cuda"`` by default, or
-``"cpu"``). RND's plans are the reference's exactly; ALS and NN-k pick
+``"cpu"``), where the engine calls also run unless a call names its own
+``backend``. RND's plans are the reference's exactly; ALS and NN-k pick
 from float32 predictions, held to a tolerance (``core.nn_model``). The
 scheduler has ``execute`` and ``execute_multi_tenant``, ``solve_dynamic``
 and ``solve_dynamic_multi_tenant``, ``serve_dynamic`` in all its forms: the
@@ -114,6 +115,19 @@ def register_strategy(scenario: Scenario, name: str, factory: Callable,
 def available_strategies(scenario: Scenario) -> list[str]:
     canon = scenario.canonical
     return sorted(name for (sc, name) in _REGISTRY if sc is canon)
+
+
+def strategy_profilers(strat) -> tuple:
+    """The profiler a strategy counts its runs and cost on (its
+    ``profiler``, ``cp`` or ``mp``; None for a strategy without one) and
+    every single-workload profiler it feeds, in a fixed order."""
+    if hasattr(strat, "profiler"):
+        return strat.profiler, [strat.profiler]
+    if hasattr(strat, "cp"):
+        return strat.cp, [strat.cp.train, strat.cp.infer]
+    if hasattr(strat, "mp"):
+        return strat.mp, [strat.mp.train] + list(strat.mp.streams)
+    return None, []
 
 
 def _prof(f: "Fulcrum", w: WorkloadProfile) -> Profiler:
@@ -299,7 +313,8 @@ class Fulcrum:
                  quadrants: Optional[QuadrantRanges] = None,
                  nn_epochs: int = 400, backend: Optional[str] = None):
         """``backend`` is where the fitted strategies fit their NNs and
-        solve (None: ``"cuda"``); each engine call takes its own."""
+        solve and where the engine calls run unless a call names its own
+        (None: ``"cuda"``)."""
         self.device = device or DeviceModel()
         self.space = space or PowerModeSpace()
         self.quadrants = quadrants or QuadrantRanges(latency=(0.05, 2.0),
@@ -380,14 +395,16 @@ class Fulcrum:
     def _plan(self, sol, strat, name, scenario=None) -> Optional[Plan]:
         if sol is None:
             return None
-        prof = getattr(strat, "profiler", None) or getattr(strat, "cp", None) \
-            or getattr(strat, "mp", None)
+        prof, _ = strategy_profilers(strat)
         runs = prof.num_runs if prof is not None else 0
         cost = prof.profile_cost_s if prof is not None else 0.0
         return Plan(solution=sol, strategy=name, profiling_runs=runs,
                     profiling_cost_s=cost, scenario=scenario)
 
     # -- execute (trace-driven engine over the device model) ----------------
+    def _backend(self, backend: Optional[str]) -> Optional[str]:
+        return self.backend if backend is None else backend
+
     def execute(self, plan: Plan, w_in: WorkloadProfile,
                 w_tr: Optional[WorkloadProfile] = None,
                 arrival_rate: Optional[float] = None,
@@ -398,6 +415,7 @@ class Fulcrum:
         """Execute a solved plan: its power mode and minibatch size drive the
         engine, managed slack-fill is capped at the committed tau_tr, and
         the report carries the trace that was run."""
+        backend = self._backend(backend)
         if trace is None:
             if arrival_rate is None:
                 raise ValueError("execute() needs an arrival_rate or a trace")
@@ -422,6 +440,7 @@ class Fulcrum:
         """Execute a multi-tenant plan: per-stream minibatch sizes drive the
         N-stream managed engine over one trace per tenant (built from each
         stream's arrival rate unless given), slack-fill capped at tau_tr."""
+        backend = self._backend(backend)
         sol = plan.solution
         if not isinstance(sol, P.MultiTenantSolution):
             raise ValueError(f"plan ({plan.strategy}) is not multi-tenant; "
@@ -605,6 +624,7 @@ class Fulcrum:
         N-stream problem and execute the merged trace, reporting one
         MultiTenantReport per window. Controller state (rate estimates,
         budget feedback) is kept per stream."""
+        backend = self._backend(backend)
         cfg = controller if controller is not None else ControllerConfig()
         if isinstance(w, (list, tuple)) and w \
                 and isinstance(w[0], P.StreamSpec):
@@ -663,6 +683,7 @@ class Fulcrum:
         the same decisions as K sequential single-device loops
         (``fleet.serve_fleet_sequential``) for every feature combination."""
         from repro_torch.core import fleet as F
+        backend = self._backend(backend)
         spec = F.FleetSpec(int(fleet)) if not isinstance(fleet, F.FleetSpec) \
             else fleet
         return F.serve_fleet(w, power_budget, latency_budget, rates, spec,

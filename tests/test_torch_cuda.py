@@ -37,6 +37,8 @@ through TMA and wgmma where rows are 16-byte multiples, else mma.sync).
 Float32 comparisons run with TF32 off for matrix products and cuDNN.
 """
 import dataclasses
+import functools
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -882,27 +884,29 @@ def test_cuda_training_gradients_match_cpu_at_full_width(hopper):
 NN_TOL = 1e-5          # of the largest |prediction|, cuda against cpu
 
 
+@functools.lru_cache(maxsize=None)
+def smoke():
+    """``chip_smoke.py`` loaded as a module, and the table of the port's
+    modules that its data builders read: the one copy of the predictor's
+    test data (``nn_case``, ``drift_case``)."""
+    import importlib.util
+    from repro_torch.core import nn_model, problem
+    from repro_torch.core.device_model import DeviceModel
+    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod, dict(NN=nn_model, P=problem, DeviceModel=DeviceModel,
+                     PowerModeSpace=PowerModeSpace, TRAIN=TRAIN_WORKLOADS,
+                     INFER=INFER_WORKLOADS)
+
+
 def nn_data(width):
     """Profiles of 50 random modes (width 4: resnet18 training) or (mode,
     bs) pairs (width 5: mobilenet inference): features, times, powers, and
     the features of every key to predict."""
-    import random
-    from repro_torch.core.device_model import DeviceModel
-    from repro_torch.core.nn_model import mode_features
-    from repro_torch.core.problem import INFER_BATCH_SIZES
-    rng = random.Random(width)
-    modes = PowerModeSpace().all_modes()
-    if width == 4:
-        keys = [(pm, None) for pm in modes]
-        w = TRAIN_WORKLOADS["resnet18"]
-    else:
-        keys = [(pm, bs) for pm in modes for bs in INFER_BATCH_SIZES]
-        w = INFER_WORKLOADS["mobilenet"]
-    seen = rng.sample(keys, 50)
-    tp = np.array([DeviceModel().time_power(w, pm, bs) for pm, bs in seen])
-    feats = np.array([mode_features(pm, bs) for pm, bs in seen])
-    every = np.array([mode_features(pm, bs) for pm, bs in keys])
-    return feats, tp[:, 0], tp[:, 1], every
+    mod, rt = smoke()
+    return tuple(np.array(a) for a in mod.nn_case(rt, width))
 
 
 @pytest.mark.parametrize("epochs", [10, 100])
@@ -938,11 +942,8 @@ def _strategy_problems(P, scenario):
 def _profiles(strat):
     """Every profile a strategy took, in order, with its run count and
     cost."""
-    top = getattr(strat, "profiler", None) or getattr(strat, "cp", None) \
-        or strat.mp
-    profs = [top] if hasattr(strat, "profiler") else \
-        [top.train, top.infer] if hasattr(strat, "cp") else \
-        [top.train] + list(top.streams)
+    from repro_torch.core.scheduler import strategy_profilers
+    top, profs = strategy_profilers(strat)
     return ([list(prof.cache.items()) for prof in profs], top.num_runs,
             top.profile_cost_s)
 
@@ -1016,7 +1017,7 @@ def test_cuda_serve_dynamic_with_als145_launches_k1_and_k2(hopper):
     n1, n2 = maxplus_scan.launches, lane_sort.launches
     wins = Fulcrum(nn_epochs=100, backend="cuda").serve_dynamic(
         INFER_WORKLOADS["mobilenet"], 30.0, 0.1, [45.0, 60.0, 90.0, 50.0],
-        "als145", window_duration=30.0, controller=cfg, backend="cuda")
+        "als145", window_duration=30.0, controller=cfg)
     assert maxplus_scan.launches > n1 and lane_sort.launches > n2
     assert all(w.solution is not None and w.report is not None
                for w in wins)

@@ -14,6 +14,7 @@ import inspect
 
 import numpy as np
 import pytest
+import torch
 
 from repro.core import als as ref_als
 from repro.core import problem as RP
@@ -186,6 +187,41 @@ def test_fulcrum_takes_the_reference_arguments_and_defaults():
     assert (s.backend, s.nn_epochs, s.ranges) == ("cpu", 7, f.quadrants)
 
 
+def test_engine_calls_run_on_the_facades_backend():
+    """An engine call that names no backend runs where its ``Fulcrum`` was
+    asked to run (here ``"cpu"``), as the same call naming it does; a
+    ``Fulcrum`` asked for nothing runs its engine calls on the card."""
+    f = Fulcrum(DeviceModel(), backend="cpu")
+    w_tr, w_in = TRAIN_WORKLOADS["mobilenet"], INFER_WORKLOADS["mobilenet"]
+    plan = f.solve_concurrent(w_tr, w_in, P.ConcurrentProblem(35.0, 1.0,
+                                                              60.0))
+    runs = {}
+    for kw in ({}, {"backend": "cpu"}):
+        runs[len(kw)] = (
+            f.execute(plan, w_in, w_tr, arrival_rate=60.0, duration=10.0,
+                      **kw).latencies,
+            [w.report.latencies for w in f.serve_dynamic(
+                w_in, 30.0, 0.1, [45.0, 90.0], window_duration=5.0,
+                **kw)])
+    np.testing.assert_array_equal(runs[0][0], runs[1][0])
+    for a, b in zip(runs[0][1], runs[1][1]):
+        np.testing.assert_array_equal(a, b)
+    mprob = P.MultiTenantProblem(45.0, (
+        P.StreamSpec(40.0, 0.8, w_in),
+        P.StreamSpec(60.0, 0.5, INFER_WORKLOADS["lstm"])))
+    mplan = f.solve_multi_tenant(TRAIN_WORKLOADS["resnet18"], mprob)
+    a, b = (f.execute_multi_tenant(mplan, mprob, TRAIN_WORKLOADS["resnet18"],
+                                   duration=10.0, **kw)
+            for kw in ({}, {"backend": "cpu"}))
+    assert a.train_minibatches == b.train_minibatches
+    for x, y in zip(a.streams, b.streams):
+        np.testing.assert_array_equal(x.latencies, y.latencies)
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="cuda"):
+            Fulcrum(DeviceModel()).execute(plan, w_in, w_tr,
+                                           arrival_rate=60.0, duration=10.0)
+
+
 def test_strategy_accepts_scenario_by_value():
     f = Fulcrum(DeviceModel(), backend="cpu")
     s = f.strategy_for("infer", "rnd150", INFER_WORKLOADS["lstm"])
@@ -320,8 +356,7 @@ def test_serve_dynamic_with_als145_matches_the_reference(monkeypatch):
         backend="numpy")
     got = Fulcrum(DeviceModel(), nn_epochs=50, backend="cpu").serve_dynamic(
         INFER_WORKLOADS["mobilenet"], 30.0, 0.1, rates, "als145",
-        window_duration=30.0, controller=ControllerConfig(**ALS_LOOP),
-        backend="cpu")
+        window_duration=30.0, controller=ControllerConfig(**ALS_LOOP))
     assert shared.calls["port"] == shared.calls["ref"]
     assert_windows_match(ref, got)
     assert all(w.solution is not None for w in got)
