@@ -95,7 +95,22 @@ each and stopping with a traceback at the first failure:
     Mamba2 layer). Then a copy cut to 2 layers (still full width) in
     float32 compute, run on ``"cuda"`` and on ``"cpu"``: logits within
     1e-3 and 8 greedy tokens equal.
-12. ``serve_interleaved``: ``ManagedInterleaveRuntime`` (no trainer) over
+12. ``families``: the dense, ssm, vlm and audio configurations
+    (``FAMILIES``), each through ``GenerationServer`` at full width and
+    depth in bf16 (bs 4, a 512-position prompt, internvl2-1b's 256 vision
+    patches and 256 text tokens, 16 greedy tokens): load s and peak
+    memory, wall, prefill ms, decode ms per token, and one K3 launch per
+    attention layer (K4 per Mamba2 layer) per prefill. stablelm-12b's head
+    dim 160 is not one K3 takes: a 2-layer copy on ``"cuda"`` must raise
+    K3's ``ValueError`` and launch nothing. Then a 2-layer full-width
+    float32 copy of each on ``"cuda"`` and on ``"cpu"`` (bs 2, 64 text
+    tokens): logits within 1e-3, 8 greedy tokens equal up to the first
+    step whose top-two logits on ``"cpu"`` lie within that tolerance
+    (reported). mamba2-780m and internvl2-1b also take one float32
+    training step on both (bs 2 x 256 text tokens): losses within 1e-4,
+    gradients within 1e-3 of each leaf's largest |g| (K4's backward at
+    n = 128, K3's under GQA 7).
+13. ``serve_interleaved``: ``ManagedInterleaveRuntime`` (no trainer) over
     ``BatchInferenceServer(zamba2-1.2b, seq_len 2048, bs 8)`` and a uniform
     trace at 80% of the measured minibatch rate for 5 s: p50 / p99 latency
     and the kernels' launches per minibatch; then one minibatch under
@@ -103,7 +118,7 @@ each and stopping with a traceback at the first failure:
     runtime's admission gate: the same server behind
     ``AdmissionPolicy("shed").gate`` on a uniform 5 s trace at 150% of the
     minibatch rate, which must shed exactly the engine mask's count.
-13. ``train``: ``Trainer`` on zamba2-1.2b at full width and depth (remat on,
+14. ``train``: ``Trainer`` on zamba2-1.2b at full width and depth (remat on,
     float32 params, bf16 compute, AdamW) for a few steps of bs 4 x 512
     tokens: ms per step, tokens/s, first and last loss (finite), peak
     memory and every kernel's launches per step (forward, remat's second
@@ -111,13 +126,13 @@ each and stopping with a traceback at the first failure:
     2-layer full-width float32 copy takes one step on ``"cuda"`` and on
     ``"cpu"`` from the same params and batch: losses within 1e-4, every
     gradient leaf within 1e-3 of its largest |g|.
-14. ``serve_train_interleaved``: the runtime with that ``Trainer`` (warm
+15. ``serve_train_interleaved``: the runtime with that ``Trainer`` (warm
     from the train phase) and the ``serve_interleaved`` server on a uniform
     5 s trace whose batch period is the minibatch time plus 2.5 training
     steps: trained minibatches (at least one), p50 / p99 latency with and
     without the trainer, and the largest overrun of a training step past
     its predicted end.
-15. ``tiled_matmul``: the ``kernels.ops.tiled_matmul`` entry point on the
+16. ``tiled_matmul``: the ``kernels.ops.tiled_matmul`` entry point on the
     serving minibatch's MLP up-projection, (16384, 2048) x (2048, 8192)
     bf16, against ``torch.matmul``.
 
@@ -131,7 +146,10 @@ edge shape in both types, its bf16 checks with their per-row share,
 and K4's forward again at edge shapes (``SSD_CHECKS``: a partial last
 tile, head groups that are not full, a one-row chunk), each check with
 its share of ``SSD_TOL``'s ``allclose`` limit for y and the states (at
-``SSD_SHAPE`` the largest over ``SSD_DRAWS`` input draws).
+``SSD_SHAPE`` the largest over ``SSD_DRAWS`` input draws). For the
+families: K4 both ways at mamba2-780m's serving shape (``SSD_N128_SHAPE``,
+n = 128) and K3 at minitron-4b's prefill (``ATTN_GQA_SHAPE``, D = 128),
+timed with their bounds.
 K3 (both ways) and K4's backward are compared element by element, each
 output's share of its limit beside its RMS (``ATTN_TOL``); K3 is timed
 at the main and the train shapes beside SDPA, whose share of the same
@@ -315,6 +333,26 @@ SSD_CHECKS = ((1, 1, 100, 5, 100, 128), (1, 2, 256, 11, 64, 128),
 # K4's forward at SSD_SHAPE on this many input draws: its share of the
 # limit varies with the inputs, and the largest is reported
 SSD_DRAWS = 4
+# the families phase: each configuration of the dense, ssm, vlm and audio
+# families served at full width and depth in bf16 (bs 4, a 512-position
+# prompt: internvl2-1b's is 256 vision patches and 256 text tokens, 16
+# greedy tokens); stablelm-12b (head dim 160, which K3 does not take) shows
+# its refusal on a 2-layer copy. Then each on a 2-layer full-width float32
+# copy, cuda against cpu (bs 2, 64 text tokens after any patches, 8 greedy
+# tokens), and a float32 training step of FAM_TRAIN's two (bs 2 x 256 text
+# tokens after any patches): K4's backward at n = 128, K3's under GQA 7
+FAMILIES = ("stablelm-1.6b", "minitron-4b", "qwen2.5-14b", "stablelm-12b",
+            "mamba2-780m", "internvl2-1b", "musicgen-medium")
+FAM_REFUSED = {"stablelm-12b": "head dims"}
+FAM_BS, FAM_PROMPT, FAM_STEPS = 4, 512, 16
+FAM_PARITY_BS, FAM_PARITY_TEXT, FAM_PARITY_STEPS = 2, 64, 8
+FAM_TRAIN = ("mamba2-780m", "internvl2-1b")
+FAM_TRAIN_BS, FAM_TRAIN_TEXT = 2, 256
+# the kernel phase's checks at those shapes: K4 at mamba2-780m's serving
+# shape (bs 8 x 2048 tokens: 48 heads, p 64, n 128), both ways; K3 at
+# minitron-4b's prefill (bs 4 x 512, 24 heads, D = 128)
+SSD_N128_SHAPE = (8, 8, 256, 48, 64, 128)
+ATTN_GQA_SHAPE = (4, 24, 512, 128)
 # training: bs 4 x 512 tokens at full width; the cuda-vs-cpu step on a
 # 2-layer full-width copy; the interleaved trace's slack per batch
 TRAIN_BS, TRAIN_SEQ, TRAIN_STEPS = 4, 512, 3
@@ -779,22 +817,42 @@ def check_ssd(torch, K4, shape, gen, dev) -> tuple:
                   "max_abs_err_by_output": err, "limit_share": share}
 
 
+def ssd_fwd_work(shape) -> tuple[float, float]:
+    """Bytes and operations K4's forward needs at ``shape``: x, dA, dt, B,
+    C read once, y and the states written once; the least work is C B^T
+    below the diagonal once per (batch, chunk) (it does not depend on the
+    head), then per head the masked product with x below the diagonal and
+    the state product, 2 flops per multiply-add."""
+    b, nc, l, h, p, n = shape
+    tri = l * (l + 1) // 2
+    nbytes = 4.0 * (2 * b * nc * l * h * p + 2 * b * nc * l * h
+                    + 2 * b * nc * l * n + b * nc * h * n * p)
+    return nbytes, 2.0 * b * nc * (tri * n + h * (tri * p + l * n * p))
+
+
+def ssd_bwd_work(shape) -> tuple[float, float]:
+    """Bytes and operations K4's backward needs at ``shape``: x, dy, dA,
+    dt, B, C, dst read once; dx, ddA, ddt, dB, dC written once. Least work:
+    G = C B^T, dC = dG B and dB = dG^T C below the diagonal once per
+    (batch, chunk) (the heads' dG summed first), then per head dy x^T and
+    M^T dy below the diagonal and the two state products, 2 flops per
+    multiply-add."""
+    b, nc, l, h, p, n = shape
+    tri = l * (l + 1) // 2
+    nbytes = 4.0 * (3 * b * nc * l * h * p + 4 * b * nc * l * h
+                    + 4 * b * nc * l * n + b * nc * h * n * p)
+    ops = 2.0 * b * nc * (3 * tri * n + h * (2 * tri * p + 2 * l * n * p))
+    return nbytes, ops
+
+
 def time_ssd(torch, K4, gen, dev, reps: int) -> dict:
     """K4's forward at the serve_interleaved forward's shape (checked on
     ``SSD_DRAWS`` draws, the first timed; the largest share is the
     record's), then checked at ``SSD_CHECKS``."""
-    b, nc, l, h, p, n = SSD_SHAPE
     args, rec = check_ssd(torch, K4, SSD_SHAPE, gen, dev)
     ms = cuda_ms(torch, lambda: K4.ssd_chunk(*args), reps)
     plain_ms = cuda_ms(torch, lambda: K4.ssd_chunk_plain(*args), 2)
-    # x, dA, dt, B, C read once, y and the states written once; the least
-    # work is C B^T below the diagonal once per (batch, chunk) (it does not
-    # depend on the head), then per head the masked product with x below
-    # the diagonal and the state product, 2 flops per multiply-add
-    tri = l * (l + 1) // 2
-    nbytes = 4.0 * (2 * b * nc * l * h * p + 2 * b * nc * l * h
-                    + 2 * b * nc * l * n + b * nc * h * n * p)
-    ops = 2.0 * b * nc * (tri * n + h * (tri * p + l * n * p))
+    nbytes, ops = ssd_fwd_work(SSD_SHAPE)
     b_ms, by, b32_ms = float32_bound(nbytes, ops)
     del args
     torch.cuda.empty_cache()
@@ -815,6 +873,21 @@ def time_ssd(torch, K4, gen, dev, reps: int) -> dict:
             "library": "none: no single PyTorch call computes the SSD chunk",
             "bound_ms": b_ms, "bound_by": by, "bound_float32_ms": b32_ms,
             "tflops": ops / ms / 1e9, "checks": checks}
+
+
+def time_ssd_at(torch, K4, shape, gen, dev, reps: int) -> dict:
+    """K4's forward at ``shape``: checked against its plain version, timed
+    beside it, with its bound."""
+    args, rec = check_ssd(torch, K4, shape, gen, dev)
+    ms = cuda_ms(torch, lambda: K4.ssd_chunk(*args), reps)
+    plain_ms = cuda_ms(torch, lambda: K4.ssd_chunk_plain(*args), 2)
+    nbytes, ops = ssd_fwd_work(shape)
+    b_ms, by, b32_ms = float32_bound(nbytes, ops)
+    del args
+    torch.cuda.empty_cache()
+    return {**rec, "dtype": "float32", "kernel_ms": ms, "plain_ms": plain_ms,
+            "library_ms": None, "bound_ms": b_ms, "bound_by": by,
+            "bound_float32_ms": b32_ms, "tflops": ops / ms / 1e9}
 
 
 def check_grads(torch, what: str, names, got, want, tol: float,
@@ -925,17 +998,18 @@ def time_attention_bwd(torch, K3, gen, dev, reps: int) -> dict:
             "train_shape": train, "checks": recs}
 
 
-def time_ssd_bwd(torch, K4, gen, dev, reps: int) -> dict:
-    """K4's backward at the serve_interleaved forward's shape, with the
-    chunk's |cs| in the hundreds (A in -[1, 16), l = 256)."""
-    b, nc, l, h, p, n = SSD_SHAPE
-    args = ssd_case(torch, SSD_SHAPE, gen, dev)
+def time_ssd_bwd(torch, K4, gen, dev, reps: int, shape=SSD_SHAPE) -> dict:
+    """K4's backward at ``shape`` (the serve_interleaved forward's by
+    default), with the chunk's |cs| in the hundreds (A in -[1, 16), l =
+    256)."""
+    b, nc, l, h, p, n = shape
+    args = ssd_case(torch, shape, gen, dev)
     dy = torch.randn(args[0].shape, generator=gen, device=dev)
     dst = torch.randn((b, nc, h, n, p), generator=gen, device=dev)
     got = K4.ssd_chunk_bwd(*args, dy, dst)
     torch.cuda.synchronize()
     want = K4.ssd_chunk_bwd_plain(*args, dy, dst)
-    rec = check_grads(torch, f"ssd_chunk_bwd {SSD_SHAPE}",
+    rec = check_grads(torch, f"ssd_chunk_bwd {shape}",
                       ("x", "dA", "dt", "B", "C"), got, want, SSD_BWD_TOL)
     del got, want
     ms = cuda_ms(torch, lambda: K4.ssd_chunk_bwd(*args, dy, dst), reps)
@@ -944,19 +1018,11 @@ def time_ssd_bwd(torch, K4, gen, dev, reps: int) -> dict:
     # the kernels' shares of one call
     prof = profile_device(torch, lambda: K4.ssd_chunk_bwd(*args, dy, dst))
     split_ms = {e["name"][:60]: e["device_ms"] for e in prof["top"]}
-    # x, dy, dA, dt, B, C, dst read once; dx, ddA, ddt, dB, dC written
-    # once. Least work: G = C B^T, dC = dG B and dB = dG^T C below the
-    # diagonal once per (batch, chunk) (the heads' dG summed first), then
-    # per head dy x^T and M^T dy below the diagonal and the two state
-    # products, 2 flops per multiply-add
-    tri = l * (l + 1) // 2
-    nbytes = 4.0 * (3 * b * nc * l * h * p + 4 * b * nc * l * h
-                    + 4 * b * nc * l * n + b * nc * h * n * p)
-    ops = 2.0 * b * nc * (3 * tri * n + h * (2 * tri * p + 2 * l * n * p))
+    nbytes, ops = ssd_bwd_work(shape)
     b_ms, by, b32_ms = float32_bound(nbytes, ops)
     del args, dy, dst
     torch.cuda.empty_cache()
-    return {"shape": list(SSD_SHAPE), "dtype": "float32", "kernel_ms": ms,
+    return {"shape": list(shape), "dtype": "float32", "kernel_ms": ms,
             "plain_ms": plain_ms, "library_ms": None,
             "library": "none: no single PyTorch call computes the SSD chunk's "
                        "gradient",
@@ -1071,6 +1137,13 @@ def phase_kernels(torch, np, rt, K1, K2, K3, K4, K5, seed: int) -> dict:
     k3b = time_attention_bwd(torch, K3, gen, dev, reps=5)
     k4b = time_ssd_bwd(torch, K4, gen, dev, reps=5)
     k5 = time_matmul(torch, K5, gen, dev, reps=10)
+    # the families phase's shapes: mamba2-780m's SSD at n = 128, both ways,
+    # and minitron-4b's prefill attention at D = 128 (24 heads from 8 KV
+    # heads)
+    k4_n128 = time_ssd_at(torch, K4, SSD_N128_SHAPE, gen, dev, reps=10)
+    k4b_n128 = time_ssd_bwd(torch, K4, gen, dev, reps=5,
+                            shape=SSD_N128_SHAPE)
+    k3_d128 = attention_fwd_timed(torch, K3, ATTN_GQA_SHAPE, gen, dev, 10, 2)
     kf = time_fused(torch, np, rt, fused_inputs(
         rt, FUSED_K, [30.0 * m * FUSED_K for m in FLEET_RATES[:2]],
         dict(seed=3, dispatch="least-backlog"),
@@ -1088,6 +1161,8 @@ def phase_kernels(torch, np, rt, K1, K2, K3, K4, K5, seed: int) -> dict:
            "flash_attention": k3, "ssd_chunk": k4,
            "flash_attention_bwd": k3b, "ssd_chunk_bwd": k4b,
            "tiled_matmul": k5, "fused_window": kf,
+           "ssd_chunk_n128": k4_n128, "ssd_chunk_bwd_n128": k4b_n128,
+           "flash_attention_d128_gqa": k3_d128,
            "fused_window_library": "no single PyTorch call plans, admits "
                                    "and folds a window"}
     emit(out)
@@ -2301,17 +2376,36 @@ def phase_sweep(torch, np, rt, launches: Launches) -> dict:
     return out
 
 
+def model_sites(cfg) -> tuple[int, int]:
+    """(attention applications, Mamba2 layers) of one forward: every layer
+    of a dense-block stack attends; a hybrid stack attends at its shared
+    block's sites."""
+    if cfg.arch_type == "hybrid":
+        return cfg.n_attn_sites, cfg.num_layers
+    if cfg.arch_type == "ssm":
+        return 0, cfg.num_layers
+    return cfg.num_layers, 0
+
+
+def model_kernels(cfg) -> tuple:
+    """The forward kernels a model of ``cfg`` launches."""
+    attn, ssd = model_sites(cfg)
+    return (("flash_attention",) if attn else ()) + \
+        (("ssd_chunk",) if ssd else ())
+
+
 def check_model_launches(cfg, counts: dict, runs: int, what: str,
                          train_steps: int = 0) -> None:
-    """One attention-kernel launch per shared-attention site and one SSD
+    """One attention-kernel launch per attention application and one SSD
     launch per Mamba2 layer, per prefill or forward; a training step adds
     its forward, with remat a second forward in the backward pass, and one
-    launch of each backward kernel per site and per layer."""
+    launch of each backward kernel per application and per layer."""
     forwards = runs + train_steps * (2 if cfg.remat else 1)
-    want = {"flash_attention": cfg.n_attn_sites * forwards,
-            "ssd_chunk": cfg.num_layers * forwards,
-            "flash_attention_bwd": cfg.n_attn_sites * train_steps,
-            "ssd_chunk_bwd": cfg.num_layers * train_steps}
+    attn, ssd = model_sites(cfg)
+    want = {"flash_attention": attn * forwards,
+            "ssd_chunk": ssd * forwards,
+            "flash_attention_bwd": attn * train_steps,
+            "ssd_chunk_bwd": ssd * train_steps}
     for name, n in want.items():
         if counts[name] != n:
             fail(f"{what}: {name} launched {counts[name]} times, expected "
@@ -2389,6 +2483,200 @@ def phase_generate(torch, np, rt, launches: Launches, seed: int) -> dict:
                       "steps": PARITY_STEPS, "max_abs_logit_err": logit_err,
                       "max_abs_logit": float(lc.abs().max()),
                       "tokens": tg[0].tolist()}}
+    emit(out)
+    return out
+
+
+def prompt_len(cfg, text: int) -> int:
+    """Positions of a prompt of ``text`` tokens: a vlm prompt starts with
+    its ``n_patches`` vision patches."""
+    return text + (cfg.n_patches if cfg.arch_type == "vlm" else 0)
+
+
+def greedy(torch, srv, prompt: dict, steps: int, plen: int) -> tuple:
+    """``GenerationServer.generate``'s greedy loop through the server's
+    ``prefill`` / ``decode`` / ``next_tokens``, keeping what it drops: the
+    tokens (bs, steps) (audio: codebook 0's) and, per step and row, the
+    decided logits' top-two gap and largest |logit| (float32, host)."""
+    logits, cache = srv.prefill(prompt)
+    pos = torch.full((srv.bs,), plen, dtype=torch.int32, device=srv.device)
+    toks, gaps, tops = [], [], []
+    for _ in range(steps):
+        row = logits[:, -1, 0] if logits.dim() == 4 else logits[:, -1]
+        top2 = row.float().topk(2, dim=-1).values.cpu()
+        gaps.append(top2[:, 0] - top2[:, 1])
+        tops.append(top2[:, 0].abs())
+        nxt = srv.next_tokens(logits)
+        toks.append(nxt.reshape(srv.bs, -1)[:, 0].cpu())
+        logits, cache = srv.decode(cache, nxt, pos)
+        pos = pos + 1
+    return (torch.stack(toks, 1).numpy(), torch.stack(gaps, 1).numpy(),
+            torch.stack(tops, 1).numpy())
+
+
+def family_parity(torch, np, rt, cfg, seed: int) -> dict:
+    """A 2-layer full-width float32 copy served on cuda and on cpu from the
+    same weights: prefill logits within MODEL_TOL, then greedy tokens equal
+    up to the first step where the cpu's top-two logits lie within
+    MODEL_TOL of each other (reported; the two may part from there)."""
+    C, SV = rt["C"], rt["SV"]
+    small = dataclasses.replace(cfg, num_layers=PARITY_LAYERS,
+                                compute_dtype=torch.float32)
+    plen = prompt_len(small, FAM_PARITY_TEXT)
+    max_seq = plen + FAM_PARITY_STEPS
+    gpu = SV.GenerationServer(small, max_seq=max_seq, bs=FAM_PARITY_BS,
+                              seed=seed + 1, backend="cuda")
+    cpu = SV.GenerationServer(small, max_seq=max_seq, bs=FAM_PARITY_BS,
+                              backend="cpu", params=gpu.params)
+    prompt = C.make_batch(small, plen, FAM_PARITY_BS, "prefill",
+                          torch.Generator().manual_seed(seed))
+    lg, _ = gpu.prefill(prompt)
+    lc, _ = cpu.prefill(prompt)
+    lg = lg.cpu()
+    logit_err = float((lg - lc).abs().max())
+    if not torch.allclose(lg, lc, **MODEL_TOL):
+        fail(f"families {cfg.name} parity: cuda and cpu prefill logits "
+             f"differ by {logit_err} (tolerance {MODEL_TOL})")
+    tg, _, _ = greedy(torch, gpu, prompt, FAM_PARITY_STEPS, plen)
+    tc, gaps, tops = greedy(torch, cpu, prompt, FAM_PARITY_STEPS, plen)
+    close = gaps < MODEL_TOL["atol"] + MODEL_TOL["rtol"] * tops
+    near_tie = [int(j) for j in np.nonzero(close.any(axis=0))[0]]
+    held = near_tie[0] if near_tie else FAM_PARITY_STEPS
+    parted = [int(j) for j in np.nonzero((tg != tc).any(axis=0))[0]]
+    if parted and parted[0] < held:
+        fail(f"families {cfg.name} parity: greedy tokens differ at step "
+             f"{parted[0]} before any near tie: cuda {tg.tolist()} cpu "
+             f"{tc.tolist()}")
+    del gpu, cpu, lg, lc
+    torch.cuda.empty_cache()
+    return {"layers": PARITY_LAYERS, "bs": FAM_PARITY_BS, "prompt": plen,
+            "steps": FAM_PARITY_STEPS, "max_abs_logit_err": logit_err,
+            "min_top2_gap_cpu": float(gaps.min()),
+            "first_near_tie_step": near_tie[0] if near_tie else None,
+            "first_parted_step": parted[0] if parted else None,
+            "tokens_equal": not parted, "tokens_cpu": tc[0].tolist()}
+
+
+def family_refusal(torch, rt, launches: Launches, cfg, seed: int,
+                   words: str) -> dict:
+    """A 2-layer full-width copy on cuda must refuse at K3 (a ``ValueError``
+    naming ``words``) and launch nothing: no fallback to the plain
+    version."""
+    C, SV = rt["C"], rt["SV"]
+    small = dataclasses.replace(cfg, num_layers=PARITY_LAYERS)
+    srv = SV.GenerationServer(small, max_seq=FAM_PARITY_TEXT + 1,
+                              bs=FAM_PARITY_BS, seed=seed, backend="cuda")
+    prompt = C.make_batch(small, FAM_PARITY_TEXT, FAM_PARITY_BS, "prefill",
+                          torch.Generator().manual_seed(seed))
+    launches.reset()
+    try:
+        srv.prefill(prompt)
+    except ValueError as e:
+        msg = str(e)
+    else:
+        fail(f"families {cfg.name}: prefill on cuda at head dim "
+             f"{cfg.resolved_head_dim} did not raise")
+    counts = launches.read(f"families {cfg.name}", ())
+    if words not in msg or counts["flash_attention"]:
+        fail(f"families {cfg.name}: expected K3's refusal ({words!r}) and "
+             f"no launch, got {msg!r} and {counts['flash_attention']}")
+    del srv
+    torch.cuda.empty_cache()
+    return {"arch": cfg.name, "head_dim": cfg.resolved_head_dim,
+            "refused": msg, "launches": counts}
+
+
+def serve_family(torch, rt, launches: Launches, cfg, seed: int) -> dict:
+    """``GenerationServer`` at full width and depth in bf16: load, one
+    warm-up token, then FAM_STEPS greedy tokens timed; every attention
+    layer (K3) or Mamba2 layer (K4) launched once per prefill."""
+    C, SV = rt["C"], rt["SV"]
+    dev = torch.device("cuda")
+    plen = FAM_PROMPT
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    srv = SV.GenerationServer(cfg, max_seq=plen + FAM_STEPS, bs=FAM_BS,
+                              seed=seed, backend="cuda")
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    load_peak = torch.cuda.max_memory_allocated()
+    prompt = C.make_batch(cfg, plen, FAM_BS, "prefill",
+                          torch.Generator(device=dev).manual_seed(seed))
+    srv.generate(prompt, 1, plen)               # warm-up (library init)
+    torch.cuda.reset_peak_memory_stats()
+    launches.reset()
+    timings = {}
+    t0 = time.perf_counter()
+    tokens = srv.generate(prompt, FAM_STEPS, plen, timings=timings)
+    wall = time.perf_counter() - t0
+    counts = launches.read(f"families {cfg.name}", model_kernels(cfg))
+    peak = torch.cuda.max_memory_allocated()
+    check_model_launches(cfg, counts, 1, f"families {cfg.name}")
+    vocab = cfg.padded_vocab
+    if tokens.shape != (FAM_BS, FAM_STEPS) or tokens.min() < 0 \
+            or tokens.max() >= vocab:
+        fail(f"families {cfg.name}: tokens of shape {tokens.shape} out of "
+             f"the vocab")
+    logits, _ = srv.prefill(prompt)
+    want = (FAM_BS, 1) + ((cfg.n_codebooks,) if cfg.arch_type == "audio"
+                          else ()) + (vocab,)
+    if tuple(logits.shape) != want \
+            or not bool(torch.isfinite(logits.float()).all()):
+        fail(f"families {cfg.name}: prefill logits of shape "
+             f"{tuple(logits.shape)} (want {want}) or not finite")
+    del srv, logits
+    torch.cuda.empty_cache()
+    dec = timings["decode_s"]
+    return {"arch": cfg.name, "arch_type": cfg.arch_type,
+            "layers": cfg.num_layers, "d_model": cfg.d_model,
+            "heads": [cfg.n_heads, cfg.n_kv_heads],
+            "head_dim": cfg.resolved_head_dim if cfg.n_heads else None,
+            "params": cfg.param_count(),
+            "bs": FAM_BS, "prompt": plen, "steps": FAM_STEPS,
+            "load_s": load_s, "load_peak_bytes": load_peak, "wall_s": wall,
+            "prefill_ms": 1e3 * timings["prefill_s"],
+            "decode_ms_per_token": 1e3 * sum(dec) / len(dec),
+            "decode_ms_min": 1e3 * min(dec), "decode_ms_max": 1e3 * max(dec),
+            # a token's least time: every bf16 weight read once (the tied
+            # heads read their whole tables)
+            "decode_weights_bound_ms": 1e3 * 2.0 * cfg.param_count()
+            / HBM_BYTES_PER_S,
+            "tokens_per_s": FAM_BS * FAM_STEPS / wall,
+            "first_tokens": tokens[0][:8].tolist(),
+            "max_memory_allocated_bytes": peak, "launches": counts}
+
+
+def phase_families(torch, np, rt, launches: Launches, seed: int) -> dict:
+    """The dense, ssm, vlm and audio configurations: each served at full
+    width and depth on the card (or refused, where K3 does not take its
+    head dim), a 2-layer float32 copy cuda against cpu, and FAM_TRAIN's
+    float32 training step cuda against cpu."""
+    C = rt["C"]
+    runs, total = {}, {name: 0 for name in launches.wrappers}
+    for arch in FAMILIES:
+        cfg = C.get_config(arch)
+        t0 = time.perf_counter()
+        if arch in FAM_REFUSED:
+            rec = family_refusal(torch, rt, launches, cfg, seed,
+                                 FAM_REFUSED[arch])
+        else:
+            rec = serve_family(torch, rt, launches, cfg, seed)
+            total = add_counts(total, rec["launches"])
+            rec["parity"] = family_parity(torch, np, rt, cfg, seed)
+        if arch in FAM_TRAIN:
+            rec["train_parity"] = train_parity(
+                torch, np, rt, cfg, seed, bs=FAM_TRAIN_BS,
+                seq=prompt_len(cfg, FAM_TRAIN_TEXT), launches=launches)
+        rec["wall_s_all"] = time.perf_counter() - t0
+        runs[arch] = rec
+        emit({"phase": "families." + arch, **rec})
+    out = {"phase": "families", "archs": list(FAMILIES),
+           "launches": total,
+           "summary": {a: {k: r.get(k) for k in
+                           ("prefill_ms", "decode_ms_per_token",
+                            "decode_weights_bound_ms", "load_s",
+                            "max_memory_allocated_bytes", "refused")}
+                       for a, r in runs.items()}}
     emit(out)
     return out
 
@@ -2537,28 +2825,38 @@ def runtime_gate(np, rt, srv, t_mb: float) -> dict:
             "violation_rate": rep.violation_rate(budget)}
 
 
-def train_parity(torch, np, rt, cfg, seed: int) -> dict:
+def train_parity(torch, np, rt, cfg, seed: int, bs: int = 1,
+                 seq: int = PARITY_TRAIN_SEQ, launches=None) -> dict:
     """One training step of a 2-layer full-width float32 copy on cuda and
-    on cpu from the same params and batch: losses within TRAIN_LOSS_TOL,
-    every gradient leaf within TRAIN_GRAD_TOL of its largest |g|."""
+    on cpu from the same params and batch (``bs`` x ``seq`` positions):
+    losses within TRAIN_LOSS_TOL, every gradient leaf within
+    TRAIN_GRAD_TOL of its largest |g|. With ``launches`` given, the cuda
+    step must launch each kernel of its path as ``check_model_launches``
+    counts one training step."""
     ST, T, A = rt["ST"], rt["T"], rt["A"]
     small = dataclasses.replace(cfg, num_layers=PARITY_LAYERS,
                                 compute_dtype=torch.float32)
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(seed + 2)
     base = rt["M"].init_params(small, gen, dev)
-    batch = next(iter(rt["D"].SyntheticTokenSource(small, 1, PARITY_TRAIN_SEQ,
+    batch = next(iter(rt["D"].SyntheticTokenSource(small, bs, seq,
                                                    seed=seed)))
     out = {}
     for name, device in (("cuda", dev), ("cpu", torch.device("cpu"))):
         params = T.tree_map(lambda t: t.detach().to(device).clone()
                             .requires_grad_(), base)
         b = {k: torch.from_numpy(v).to(device) for k, v in batch.items()}
+        if launches is not None and name == "cuda":
+            launches.reset()
         t0 = time.perf_counter()
         metrics, grads = ST.loss_and_grads(params, b, small)
         state = A.init_opt_state(params)
         A.adamw_update(grads, state, params, A.AdamWConfig())
         loss = float(metrics["loss"])
+        if launches is not None and name == "cuda":
+            what = f"{cfg.name} training step"
+            counts = launches.read(what, model_kernels(small))
+            check_model_launches(small, counts, 0, what, 1)
         out[name] = (loss, [g.cpu() for g in T.leaves(grads)],
                      [p.detach().cpu() for p in T.leaves(params)],
                      time.perf_counter() - t0)
@@ -2574,7 +2872,8 @@ def train_parity(torch, np, rt, cfg, seed: int) -> dict:
         if err > TRAIN_GRAD_TOL * scale:
             fail(f"train parity: gradient leaf {i} differs by {err} "
                  f"(tolerance {TRAIN_GRAD_TOL} x {scale})")
-    return {"layers": PARITY_LAYERS, "seq": PARITY_TRAIN_SEQ,
+    return {"layers": PARITY_LAYERS, "bs": bs, "seq": seq,
+            "launches": counts if launches is not None else None,
             "loss_cuda": lg, "loss_cpu": lc, "max_grad_err_share": worst,
             "max_abs_param_diff_after_step": max(
                 float((a - b).abs().max()) for a, b in zip(pg, pc)),
@@ -2830,6 +3129,7 @@ def main() -> int:
     paths["sweep"] = sweep["full_space"]
     paths["sweep_100k"] = sweep["lanes_100k"]
     paths["generate"] = phase_generate(torch, np, rt, launches, args.seed)
+    paths["families"] = phase_families(torch, np, rt, launches, args.seed)
     paths["serve_interleaved"] = phase_serve_interleaved(torch, np, rt,
                                                          launches, args.seed)
     paths["train"], trainer = phase_train(torch, np, rt, launches, args.seed)

@@ -1,11 +1,12 @@
 """Config system of the port: the architecture registry, reduced variants
 and seeded batches.
 
-Counterpart of ``repro.configs.base``. The port registers only the
-configurations whose model family it runs; asking for another raises and
-names the ROADMAP item that ports it. ``make_batch`` draws from an explicit
+Counterpart of ``repro.configs.base``. The port registers every
+configuration of the reference whose model family it runs: the dense, ssm,
+hybrid, vlm and audio families. The two MoE configurations raise and name
+the ROADMAP item that ports them. ``make_batch`` draws from an explicit
 ``torch.Generator`` (the reference draws from a ``jax.random`` key, so the
-two give different tokens for one seed; tests hand both packages the same
+two give different values for one seed; tests hand both packages the same
 NumPy-made batch instead).
 """
 from __future__ import annotations
@@ -17,16 +18,24 @@ import torch
 
 from repro_torch.models.model import ModelConfig
 
-#: Configurations the port runs (the reference's ``ARCH_IDS`` lists ten).
-ARCH_IDS = ["zamba2-1.2b"]
+#: Configurations the port runs: the reference's ``ARCH_IDS`` in its
+#: order, without the MoE pair.
+ARCH_IDS = [
+    "stablelm-12b", "qwen2.5-14b", "zamba2-1.2b", "musicgen-medium",
+    "stablelm-1.6b", "internvl2-1b", "mamba2-780m", "minitron-4b",
+]
+#: The reference's MoE configurations, not ported yet.
+MOE_IDS = ("mixtral-8x22b", "arctic-480b")
 
 
 def get_config(arch_id: str) -> ModelConfig:
-    if arch_id not in ARCH_IDS:
+    if arch_id in MOE_IDS:
         raise NotImplementedError(
-            f"{arch_id!r} is not ported yet: the port registers "
-            f"{ARCH_IDS}; the dense, ssm, moe, vlm and audio families are "
-            f"ROADMAP queue 1 item 7")
+            f"{arch_id!r} is not ported yet: the MoE family "
+            f"(layers.moe_apply) is ROADMAP queue 1 item 7 (MoE)")
+    if arch_id not in ARCH_IDS:
+        raise ValueError(f"unknown architecture {arch_id!r}; the port "
+                         f"registers {ARCH_IDS}")
     mod = importlib.import_module(
         f"repro_torch.configs.{arch_id.replace('-', '_').replace('.', '_')}")
     return mod.config()
@@ -62,18 +71,55 @@ def reduced(cfg: ModelConfig) -> ModelConfig:
     )
 
 
+def batch_shapes(cfg: ModelConfig, seq_len: int, batch: int,
+                 kind: str) -> dict:
+    """``{name: (shape, dtype)}`` of one model-input batch, in the
+    reference's order (``batch_struct``): ``tokens`` (B, S) and, for
+    ``kind="train"``, ``labels``; ``kind="decode"`` gives (B, 1). Audio
+    tokens carry a last axis of ``n_codebooks``; a vlm prompt of
+    ``seq_len`` positions is ``n_patches`` bf16 vision embeddings
+    (``vision``, (B, n_patches, d_vision)) followed by ``seq_len -
+    n_patches`` text tokens."""
+    i32 = torch.int32
+    if kind == "decode":
+        cb = (cfg.n_codebooks,) if cfg.arch_type == "audio" else ()
+        return {"tokens": ((batch, 1) + cb, i32)}
+    if kind not in ("train", "prefill"):
+        raise ValueError(kind)
+    if cfg.arch_type == "audio":
+        tok = ((batch, seq_len, cfg.n_codebooks), i32)
+        out = {"tokens": tok}
+    elif cfg.arch_type == "vlm":
+        if seq_len <= cfg.n_patches:
+            raise ValueError(
+                f"a {cfg.name} sequence of {seq_len} positions holds no "
+                f"text: its first {cfg.n_patches} positions are vision "
+                f"patches, so seq_len must exceed {cfg.n_patches}")
+        tok = ((batch, seq_len - cfg.n_patches), i32)
+        out = {"tokens": tok, "vision": (
+            (batch, cfg.n_patches, cfg.d_vision), torch.bfloat16)}
+    else:
+        tok = ((batch, seq_len), i32)
+        out = {"tokens": tok}
+    if kind == "train":
+        out["labels"] = tok
+    return out
+
+
 def make_batch(cfg: ModelConfig, seq_len: int, batch: int, kind: str,
                generator: torch.Generator) -> dict:
-    """Random token batch on the generator's device: ``tokens`` (B, S) and,
-    for ``kind="train"``, ``labels``; ``kind="decode"`` gives (B, 1)."""
-    if cfg.arch_type in ("vlm", "audio"):
-        raise NotImplementedError(f"{cfg.arch_type} batches are not ported "
-                                  f"yet (ROADMAP queue 1 item 7)")
-    if kind not in ("train", "prefill", "decode"):
-        raise ValueError(kind)
-    s = 1 if kind == "decode" else seq_len
-    names = ("tokens", "labels") if kind == "train" else ("tokens",)
-    return {name: torch.randint(0, cfg.vocab_size, (batch, s),
-                                generator=generator, dtype=torch.int32,
-                                device=generator.device)
-            for name in names}
+    """Random batch of ``batch_shapes`` on the generator's device: token
+    ids uniform in the vocabulary, vision embeddings drawn normal in
+    float32 and cast to bf16."""
+    out = {}
+    for name, (shape, dtype) in batch_shapes(cfg, seq_len, batch,
+                                             kind).items():
+        if dtype == torch.int32:
+            out[name] = torch.randint(0, cfg.vocab_size, shape,
+                                      generator=generator, dtype=dtype,
+                                      device=generator.device)
+        else:
+            out[name] = torch.randn(shape, generator=generator,
+                                    dtype=torch.float32,
+                                    device=generator.device).to(dtype)
+    return out

@@ -24,13 +24,17 @@ class SyntheticTokenSource:
     """Seeded stream of token batches shaped for the given architecture.
 
     Zipf-distributed token ids (more realistic unembedding gradients than
-    uniform) with next-token labels, as NumPy int32 arrays."""
+    uniform) with next-token labels, as NumPy int32 arrays: (B, S) or, for
+    audio, (B, S, n_codebooks). A vlm batch of ``seq_len`` positions holds
+    ``seq_len - n_patches`` text tokens and float32 ``vision`` embeddings
+    (B, n_patches, d_vision), drawn normal from the same generator after
+    the tokens."""
 
     def __init__(self, cfg: ModelConfig, batch: int, seq_len: int,
                  seed: int = 0):
-        if cfg.arch_type in ("vlm", "audio"):
-            raise NotImplementedError(f"{cfg.arch_type} batches are not "
-                                      f"ported yet (ROADMAP queue 1 item 7)")
+        if cfg.arch_type == "vlm" and seq_len <= cfg.n_patches:
+            raise ValueError(f"a vlm sequence of {seq_len} positions holds "
+                             f"no text after its {cfg.n_patches} patches")
         self.cfg, self.batch, self.seq_len = cfg, batch, seq_len
         self._rng = np.random.default_rng(seed)
         zipf = 1.0 / np.arange(1, cfg.vocab_size + 1, dtype=np.float64)
@@ -42,9 +46,23 @@ class SyntheticTokenSource:
         return flat.reshape(shape).astype(np.int32)
 
     def __iter__(self) -> Iterator[dict]:
+        cfg = self.cfg
         while True:
-            toks = self._tokens((self.batch, self.seq_len + 1))
-            yield {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+            if cfg.arch_type == "audio":
+                toks = self._tokens((self.batch, self.seq_len + 1,
+                                     cfg.n_codebooks))
+                yield {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+            elif cfg.arch_type == "vlm":
+                toks = self._tokens((self.batch,
+                                     self.seq_len - cfg.n_patches + 1))
+                vis = self._rng.standard_normal(
+                    (self.batch, cfg.n_patches, cfg.d_vision)
+                ).astype(np.float32)
+                yield {"tokens": toks[:, :-1], "labels": toks[:, 1:],
+                       "vision": vis}
+            else:
+                toks = self._tokens((self.batch, self.seq_len + 1))
+                yield {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
 
 
 _DONE = object()

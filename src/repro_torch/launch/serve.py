@@ -4,6 +4,11 @@ against one architecture, on the card by default.
   PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-1.2b \
       --requests 8 --prompt-len 32 --gen 16 [--reduced] [--backend cpu]
 
+``--arch`` takes every configuration the port registers
+(``configs.base.ARCH_IDS``). A vlm prompt of ``--prompt-len`` positions is
+``n_patches`` random vision embeddings followed by text tokens, so it must
+be longer than ``n_patches`` (256 at full width, 16 reduced).
+
 Unlike the reference launcher (whose ``--reduced`` is on by default and
 cannot be turned off), ``--reduced`` here is a plain flag, off by default:
 without it the configuration runs at its full published width.
@@ -36,6 +41,10 @@ def main(argv=None) -> None:
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = reduce_cfg(cfg)
+    if cfg.arch_type == "vlm" and args.prompt_len <= cfg.n_patches:
+        ap.error(f"--prompt-len {args.prompt_len}: a {cfg.name} prompt "
+                 f"starts with {cfg.n_patches} vision patches, so it must "
+                 f"be longer than {cfg.n_patches} to hold text")
     max_seq = args.prompt_len + args.gen
     server = GenerationServer(cfg, max_seq=max_seq, bs=args.bs,
                               backend=args.backend)

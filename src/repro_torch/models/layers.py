@@ -1,11 +1,14 @@
 """Neural-net building blocks of the port, in PyTorch.
 
-Counterpart of ``repro.models.layers`` for the blocks the hybrid (Zamba2)
-stack runs: RMS/LayerNorm, rotary embeddings with split halves, dense
-projections, causal self-attention with a ring-buffer KV cache, the SwiGLU
-MLP, the Mamba2 SSD mixer and the tied embedding / output head. Params are
-plain nested dicts of tensors with the reference's names and layouts, so a
-JAX parameter tree converts leaf by leaf (``repro_torch.convert``).
+Counterpart of ``repro.models.layers`` for the blocks the dense, ssm,
+hybrid, vlm and audio stacks run: RMS/LayerNorm, rotary embeddings with
+split halves, dense projections, GQA causal self-attention with a
+ring-buffer KV cache (bf16, float32, or int8 with per-(slot, head) bf16
+scales), the SwiGLU and tanh-GELU MLPs, the Mamba2 SSD mixer and the tied
+embedding / output head. The MoE layer waits (ROADMAP queue 1 item 7).
+Params are plain nested dicts of tensors with the reference's names and
+layouts, so a JAX parameter tree converts leaf by leaf
+(``repro_torch.convert``).
 
 Where the reference reaches a Pallas kernel's function, the port calls its
 hand-written kernel: prefill attention goes through ``flash_attention``
@@ -21,9 +24,11 @@ copying the whole cache.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Any, Optional
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -81,9 +86,24 @@ def norm_apply(kind: str, p: Params, x: torch.Tensor) -> torch.Tensor:
 
 def rope_frequencies(head_dim: int, theta: float = DEFAULT_ROPE_THETA,
                      device=None) -> torch.Tensor:
-    exponent = torch.arange(0, head_dim, 2, dtype=torch.float32,
-                            device=device) / head_dim
-    return 1.0 / (theta ** exponent)                     # (head_dim/2,)
+    """``1 / theta ** (2i / head_dim)`` in float32, (head_dim/2,), as the
+    reference's float32 ``theta ** exponent`` gives it: NumPy's float32
+    scalar power is the C library's ``powf``, which XLA's CPU ``pow`` calls
+    too. torch's vectorised float32 ``pow`` parts from it by an ulp on some
+    entries (one of 64 at head dim 128 and ``rope_theta`` 1e6). Made once
+    per (head_dim, theta, device)."""
+    return _rope_table(head_dim, float(theta), torch.device(device or "cpu"))
+
+
+@functools.lru_cache(maxsize=64)
+def _rope_table(head_dim: int, theta: float,
+                device: torch.device) -> torch.Tensor:
+    exponent = np.arange(0, head_dim, 2, dtype=np.float32) / np.float32(
+        head_dim)
+    freqs = np.array([np.float32(1.0) / np.float32(theta) ** e
+                      for e in exponent], np.float32)
+    with torch.inference_mode(False):    # usable later with autograd on
+        return torch.from_numpy(freqs).to(device)
 
 
 def apply_rope(x: torch.Tensor, positions: torch.Tensor,
@@ -130,14 +150,27 @@ class AttnSpec:
 def init_kv_cache(batch: int, spec: AttnSpec, cache_len: int,
                   dtype=torch.bfloat16, device=None) -> Params:
     """Ring-buffer KV cache laid out (B, cache_len, Hkv, D), as in the
-    reference. The int8 cache (``kv_cache_quant``) is not ported yet."""
-    if dtype == torch.int8:
-        raise NotImplementedError(
-            "the int8 KV cache (kv_cache_quant) is not ported yet "
-            "(ROADMAP queue 1 item 7)")
+    reference. ``dtype=torch.int8`` gives the quantized cache: int8 values
+    with per-(slot, head) bf16 scales ``k_scale`` / ``v_scale`` of shape
+    (B, cache_len, Hkv, 1)."""
     shape = (batch, cache_len, spec.n_kv_heads, spec.head_dim)
-    return {"k": torch.zeros(shape, dtype=dtype, device=device),
-            "v": torch.zeros(shape, dtype=dtype, device=device)}
+    cache = {"k": torch.zeros(shape, dtype=dtype, device=device),
+             "v": torch.zeros(shape, dtype=dtype, device=device)}
+    if dtype == torch.int8:
+        for name in ("k_scale", "v_scale"):
+            cache[name] = torch.zeros(shape[:3] + (1,), dtype=torch.bfloat16,
+                                      device=device)
+    return cache
+
+
+def quantize_kv(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """x: (..., D) -> (int8 values, bf16 scale (..., 1)), the reference's
+    rounding: the float32 scale ``max(amax, 1e-6) / 127`` quantizes (round
+    half to even, clipped to +-127) and only then is stored as bf16."""
+    xf = x.float()
+    scale = xf.abs().amax(dim=-1, keepdim=True).clamp_min(1e-6) / 127.0
+    q = torch.round(xf / scale).clamp(-127, 127)
+    return q.to(torch.int8), scale.to(torch.bfloat16)
 
 
 def _repeat_kv(t: torch.Tensor, group: int) -> torch.Tensor:
@@ -145,6 +178,12 @@ def _repeat_kv(t: torch.Tensor, group: int) -> torch.Tensor:
     kv head ``h // group``, the grouping of the reference's
     ``_gqa_scores``."""
     return t if group == 1 else t.repeat_interleave(group, dim=1)
+
+
+def _slot_scale(scale: torch.Tensor) -> torch.Tensor:
+    """(B, T, Hkv, 1) cache scales -> (B, Hkv, 1, 1, T), to multiply the
+    (B, Hkv, group, S, T) scores or probabilities."""
+    return scale[..., 0].transpose(1, 2)[:, :, None, None, :]
 
 
 def attention_apply(p: Params, x: torch.Tensor, positions: torch.Tensor,
@@ -184,17 +223,25 @@ def attention_apply(p: Params, x: torch.Tensor, positions: torch.Tensor,
 
     # --- decode: one new token against the ring buffer -------------------
     cache_len = cache["k"].shape[1]
+    quantized = cache["k"].dtype == torch.int8
     b_idx = torch.arange(b, device=x.device)
     pos = positions[:, 0].long()                          # (B,)
     slot = pos % cache_len
-    cache["k"][b_idx, slot] = k[:, 0].to(cache["k"].dtype)
-    cache["v"][b_idx, slot] = v[:, 0].to(cache["v"].dtype)
+    if quantized:
+        for name, t in (("k", k), ("v", v)):
+            cache[name][b_idx, slot], cache[f"{name}_scale"][b_idx, slot] = \
+                quantize_kv(t[:, 0])
+    else:
+        cache["k"][b_idx, slot] = k[:, 0].to(cache["k"].dtype)
+        cache["v"][b_idx, slot] = v[:, 0].to(cache["v"].dtype)
     cache_positions[b_idx, slot] = pos.to(cache_positions.dtype)
 
     hkv = spec.n_kv_heads
     qg = q.reshape(b, s, hkv, group, hd)
     scores = torch.einsum("bskgd,btkd->bkgst", qg,
                           cache["k"].to(q.dtype)).float() * scale
+    if quantized:   # fold the per-(slot, head) scale into the float32 scores
+        scores = scores * _slot_scale(cache["k_scale"])
     scores = scores.reshape(b, spec.n_heads, s, cache_len)
     cpos = cache_positions.long()
     visible = (cpos >= 0) & (cpos <= pos[:, None])
@@ -203,6 +250,8 @@ def attention_apply(p: Params, x: torch.Tensor, positions: torch.Tensor,
     scores = scores.masked_fill(~visible[:, None, None, :], NEG_INF)
     probs = torch.softmax(scores, dim=-1).to(x.dtype)
     pg = probs.reshape(b, hkv, group, s, cache_len)
+    if quantized:   # and the v scale into the probabilities, in x's dtype
+        pg = pg * _slot_scale(cache["v_scale"]).to(pg.dtype)
     out = torch.einsum("bkgst,btkd->bskgd", pg, cache["v"].to(x.dtype))
     y = dense_apply(p["wo"], out.reshape(b, s, spec.n_heads * hd))
     return y, (cache, cache_positions)

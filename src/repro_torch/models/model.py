@@ -1,18 +1,32 @@
-"""Decoder-LM skeleton of the port: the configuration record and the hybrid
-(Zamba2) stack.
+"""Decoder-LM skeleton of the port: the configuration record and the
+dense, ssm, hybrid, vlm and audio stacks.
 
 Counterpart of ``repro.models.model``. ``ModelConfig`` keeps every field of
-the reference (dtype fields hold torch dtypes), so later families drop in;
-this slice runs the ``hybrid`` architecture only — a Mamba2 stack with one
-shared attention block applied before every layer ``i % attn_every == 0``,
-each application with its own KV cache. Other ``arch_type`` values raise
-``NotImplementedError``.
+the reference (dtype fields hold torch dtypes). Three stacks:
+
+ * dense blocks (``dense``, ``vlm``, ``audio``): pre-norm attention and
+   MLP in every layer, each with its own KV cache. ``vlm`` prepends
+   ``n_patches`` projected vision embeddings to the text; ``audio`` sums
+   ``n_codebooks`` token embeddings per position and emits one logit row
+   per codebook;
+ * Mamba2 blocks only (``ssm``), with an O(1) recurrent decode state;
+ * ``hybrid`` (Zamba2): the Mamba2 stack with one shared attention block
+   applied before every layer ``i % attn_every == 0``, each application
+   with its own KV cache.
+
+``moe`` raises ``NotImplementedError`` (ROADMAP queue 1 item 7). The
+int8 KV cache (``kv_cache_quant``) runs on the dense-block stack; on the
+hybrid stack it raises, because the reference's hybrid prefill keeps no
+scales and its decode fails (ROADMAP queue 3, R4).
 
 The layer stack is a Python loop over ``params["layers"]`` (a list of
 per-layer dicts; the reference stacks them on a leading axis for
 ``lax.scan``). Caches keep the reference's stacked layout:
-``{"ssm": {"conv": (L, B, d_conv-1, C), "ssm": (L, B, H, P, N)},
-"kv": {"k", "v": (sites, B, clen, Hkv, D)}, "kv_pos": (sites, B, clen)}``.
+``{"kv": {"k", "v": (L, B, clen, Hkv, D)}, "kv_pos": (L, B, clen)}`` for
+dense blocks (int8 ``k`` / ``v`` with bf16 ``k_scale`` / ``v_scale`` of
+(L, B, clen, Hkv, 1) when quantized), ``{"ssm": {"conv": (L, B,
+d_conv-1, C), "ssm": (L, B, H, P, N)}}`` for ssm, and both for hybrid, its
+``kv`` stacked over the attention sites.
 
 Entry points:
   init_params(cfg, generator, device)           -> params
@@ -33,9 +47,8 @@ import torch.utils.checkpoint
 
 from repro_torch.models import layers as L
 
-_NOT_PORTED = ("is not ported yet: this slice runs the hybrid (Zamba2) "
-               "stack; the dense, ssm, moe, vlm and audio families are "
-               "ROADMAP queue 1 item 7")
+DENSE_ARCHS = ("dense", "vlm", "audio")
+ARCH_TYPES = DENSE_ARCHS + ("ssm", "hybrid")
 
 
 def round_up(x: int, m: int) -> int:
@@ -162,9 +175,26 @@ class ModelConfig:
         return dense_like + active
 
 
-def _require_hybrid(cfg: ModelConfig) -> None:
-    if cfg.arch_type != "hybrid":
-        raise NotImplementedError(f"arch_type {cfg.arch_type!r} {_NOT_PORTED}")
+def _require_ported(cfg: ModelConfig) -> None:
+    if cfg.arch_type == "moe":
+        raise NotImplementedError(
+            "arch_type 'moe' is not ported yet: the MoE family "
+            "(layers.moe_apply) is ROADMAP queue 1 item 7 (MoE)")
+    if cfg.arch_type not in ARCH_TYPES:
+        raise ValueError(f"unknown arch_type {cfg.arch_type!r}")
+
+
+def _kv_cache_dtype(cfg: ModelConfig, dtype):
+    """The KV cache's dtype: int8 under ``kv_cache_quant`` (dense blocks
+    only), else ``dtype``."""
+    if not cfg.kv_cache_quant:
+        return dtype
+    if cfg.arch_type == "hybrid":
+        raise NotImplementedError(
+            "kv_cache_quant on the hybrid stack is refused: the reference's "
+            "hybrid prefill casts K/V to int8 with no scales and its next "
+            "decode_step raises KeyError 'k_scale' (ROADMAP queue 3, R4)")
+    return torch.int8
 
 
 # ---------------------------------------------------------------------------
@@ -221,6 +251,18 @@ def _ssm_init(gen, spec: L.SSMSpec, device) -> dict:
     }
 
 
+def _layer_init(gen, cfg: ModelConfig, device) -> dict:
+    """Params of one layer of the stack (the reference's ``_layer_init``)."""
+    d = cfg.d_model
+    if cfg.arch_type in DENSE_ARCHS:
+        return {"ln1": L.norm_init(cfg.norm, d, device),
+                "attn": _attention_init(gen, cfg.attn_spec, device),
+                "ln2": L.norm_init(cfg.norm, d, device),
+                "mlp": _mlp_init(gen, d, cfg.d_ff, cfg.activation, device)}
+    return {"ln": L.norm_init(cfg.norm, d, device),
+            "ssm": _ssm_init(gen, cfg.ssm_spec, device)}
+
+
 def cast_params(params: Any, dtype) -> Any:
     """Cast every weight matrix (ndim >= 2) to ``dtype``, keeping 1-D params
     (norms, biases, A_log / D / dt_bias) in float32 — the reference's
@@ -234,83 +276,145 @@ def cast_params(params: Any, dtype) -> Any:
 
 
 def init_params(cfg: ModelConfig, generator: torch.Generator,
-                device=None) -> dict:
+                device=None, cast=None) -> dict:
     """Random weights of the reference's distributions, drawn from
-    ``generator`` on ``device`` (the generator's device by default)."""
-    _require_hybrid(cfg)
+    ``generator`` on ``device`` (the generator's device by default), their
+    matrices in ``cfg.param_dtype``. With ``cast`` given, each piece (the
+    embedding, every layer, the shared block, the frontends) has its
+    matrices cast to ``cast`` as soon as it is drawn: the values of
+    ``cast_params(init_params(...), cast)``, with at most one float32 piece
+    alive at a time."""
+    _require_ported(cfg)
     device = generator.device if device is None else device
     d = cfg.d_model
+
+    def done(tree):
+        if cfg.param_dtype != torch.float32:
+            tree = cast_params(tree, cfg.param_dtype)
+        return tree if cast is None else cast_params(tree, cast)
+
     params = {
-        "embed": {"table": _normal(generator, (cfg.padded_vocab, d), 0.02,
-                                   device)},
-        "layers": [{"ln": L.norm_init(cfg.norm, d, device),
-                    "ssm": _ssm_init(generator, cfg.ssm_spec, device)}
+        "embed": done({"table": _normal(generator, (cfg.padded_vocab, d),
+                                        0.02, device)}),
+        "layers": [done(_layer_init(generator, cfg, device))
                    for _ in range(cfg.num_layers)],
         "final_norm": L.norm_init(cfg.norm, d, device),
-        "shared_attn": {
+    }
+    if cfg.arch_type == "hybrid":
+        params["shared_attn"] = done({
             "ln1": L.norm_init(cfg.norm, d, device),
             "attn": _attention_init(generator, cfg.attn_spec, device),
             "ln2": L.norm_init(cfg.norm, d, device),
             "mlp": _mlp_init(generator, d, cfg.d_ff, cfg.activation, device),
-        },
-    }
-    if cfg.param_dtype != torch.float32:
-        params = cast_params(params, cfg.param_dtype)
+        })
+    if cfg.arch_type == "vlm":
+        params["vision_proj"] = done(_dense_init(generator, cfg.d_vision, d,
+                                                 device))
+    if cfg.arch_type == "audio":
+        # one (CB-1, V, d) table, stacked as the reference's vmap stacks
+        # it; drawn one codebook at a time
+        tables = [done({"table": _normal(generator, (cfg.padded_vocab, d),
+                                         0.02, device)})["table"]
+                  for _ in range(cfg.n_codebooks - 1)]
+        params["embed_cb"] = {"table": torch.stack(tables)}
     return params
 
 
 # ---------------------------------------------------------------------------
-# embedding frontend and output head
+# embedding frontends and output head
 # ---------------------------------------------------------------------------
 
 def embed_inputs(params: dict, batch: dict, cfg: ModelConfig) -> torch.Tensor:
-    """Map a batch to (B, S, d_model) in the compute dtype."""
-    _require_hybrid(cfg)
-    return L.embedding_apply(params["embed"], batch["tokens"],
-                             cfg.compute_dtype)
+    """Map a batch to (B, S, d_model) in the compute dtype: audio sums the
+    codebooks' embeddings (codebook 0 first, in the reference's order: in
+    bf16 the order of the sum matters); vlm puts the projected vision
+    embeddings, where the batch has them, before the text."""
+    _require_ported(cfg)
+    dt = cfg.compute_dtype
+    if cfg.arch_type == "audio":
+        toks = batch["tokens"]                                 # (B, S, CB)
+        x = L.embedding_apply(params["embed"], toks[..., 0], dt)
+        for i in range(cfg.n_codebooks - 1):
+            tab = {"table": params["embed_cb"]["table"][i]}
+            x = x + L.embedding_apply(tab, toks[..., i + 1], dt)
+        return x
+    x = L.embedding_apply(params["embed"], batch["tokens"], dt)
+    if cfg.arch_type == "vlm" and "vision" in batch:      # decode: text only
+        vis = L.dense_apply(params["vision_proj"], batch["vision"].to(dt))
+        x = torch.cat([vis, x], dim=1)
+    return x
 
 
 def output_logits(params: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """(B, S, V) logits of the tied head; audio (B, S, CB, V), one row per
+    codebook."""
     x = L.norm_apply(cfg.norm, params["final_norm"], x)
+    if cfg.arch_type == "audio":
+        tables = params["embed_cb"]["table"]
+        outs = [L.unembed_apply(params["embed"], x)]
+        outs += [L.unembed_apply({"table": tables[i]}, x)
+                 for i in range(cfg.n_codebooks - 1)]
+        return torch.stack(outs, dim=-2)
     return L.unembed_apply(params["embed"], x)
 
 
 # ---------------------------------------------------------------------------
-# the hybrid stack
+# the layers of the three stacks
 # ---------------------------------------------------------------------------
-
-def _shared_block(params: dict, x: torch.Tensor, positions: torch.Tensor,
-                  cfg: ModelConfig, spec: L.AttnSpec, cache=None, cpos=None,
-                  return_kv: bool = False):
-    sp = params["shared_attn"]
-    h, kv = L.attention_apply(sp["attn"], L.norm_apply(cfg.norm, sp["ln1"], x),
-                              positions, spec, cache, cpos, return_kv)
-    x = x + h
-    x = x + L.mlp_apply(sp["mlp"], L.norm_apply(cfg.norm, sp["ln2"], x),
-                        cfg.activation)
-    return x, kv
-
 
 def _positions(b: int, s: int, device) -> torch.Tensor:
     return torch.arange(s, dtype=torch.int32, device=device)[None].expand(b, s)
 
 
-def _hybrid_layer(params: dict, i: int, x: torch.Tensor,
-                  positions: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    """Layer ``i`` of the stack: the shared attention block where
-    ``i % attn_every == 0``, then the Mamba2 block (the reference's scan
-    body)."""
-    if i % cfg.attn_every == 0:
-        x, _ = _shared_block(params, x, positions, cfg, cfg.attn_spec)
-    lp = params["layers"][i]
-    h, _ = L.ssm_apply(lp["ssm"], L.norm_apply(cfg.norm, lp["ln"], x),
-                       cfg.ssm_spec)
-    return x + h
+def _attn_mlp_block(p: dict, x: torch.Tensor, positions: torch.Tensor,
+                    cfg: ModelConfig, spec: L.AttnSpec, cache=None, cpos=None,
+                    return_kv: bool = False):
+    """Pre-norm attention then MLP, with residuals: a dense layer, or the
+    hybrid stack's shared block. Returns (x, kv) as ``attention_apply``."""
+    h, kv = L.attention_apply(p["attn"], L.norm_apply(cfg.norm, p["ln1"], x),
+                              positions, spec, cache, cpos, return_kv)
+    x = x + h
+    x = x + L.mlp_apply(p["mlp"], L.norm_apply(cfg.norm, p["ln2"], x),
+                        cfg.activation)
+    return x, kv
+
+
+def _ssm_block(lp: dict, x: torch.Tensor, cfg: ModelConfig, cache=None,
+               return_state: bool = False):
+    """Pre-norm Mamba2 block with its residual. Returns (x, state) as
+    ``ssm_apply``."""
+    h, st = L.ssm_apply(lp["ssm"], L.norm_apply(cfg.norm, lp["ln"], x),
+                        cfg.ssm_spec, cache, return_state)
+    return x + h, st
+
+
+def _attention_at(params: dict, i: int, cfg: ModelConfig):
+    """The attention block that layer ``i`` applies first: the layer's own
+    in a dense-block stack, the shared block at a hybrid stack's sites
+    (``i % attn_every == 0``), else None."""
+    if cfg.arch_type in DENSE_ARCHS:
+        return params["layers"][i]
+    if cfg.arch_type == "hybrid" and i % cfg.attn_every == 0:
+        return params["shared_attn"]
+    return None
+
+
+def _layer(params: dict, i: int, x: torch.Tensor, positions: torch.Tensor,
+           cfg: ModelConfig) -> torch.Tensor:
+    """Layer ``i`` of the stack (the reference's scan body): its attention
+    block, if any, then for ssm and hybrid the Mamba2 block."""
+    block = _attention_at(params, i, cfg)
+    if block is not None:
+        x, _ = _attn_mlp_block(block, x, positions, cfg, cfg.attn_spec)
+    if cfg.arch_type not in DENSE_ARCHS:
+        x, _ = _ssm_block(params["layers"][i], x, cfg)
+    return x
 
 
 def forward(params: dict, batch: dict, cfg: ModelConfig) -> tuple[torch.Tensor,
                                                                   torch.Tensor]:
-    """Full-sequence forward (train / prefill). Returns (logits, aux).
+    """Full-sequence forward (train / prefill). Returns (logits, aux); aux is
+    the MoE auxiliary loss, 0 for every ported family.
 
     With ``cfg.remat`` and grad enabled each layer runs under
     ``torch.utils.checkpoint`` (non-reentrant): its activations are dropped
@@ -323,10 +427,9 @@ def forward(params: dict, batch: dict, cfg: ModelConfig) -> tuple[torch.Tensor,
     for i in range(len(params["layers"])):
         if remat:
             x = torch.utils.checkpoint.checkpoint(
-                _hybrid_layer, params, i, x, positions, cfg,
-                use_reentrant=False)
+                _layer, params, i, x, positions, cfg, use_reentrant=False)
         else:
-            x = _hybrid_layer(params, i, x, positions, cfg)
+            x = _layer(params, i, x, positions, cfg)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     return output_logits(params, x, cfg), aux
 
@@ -346,10 +449,13 @@ def softmax_xent(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
 
 def train_loss(params: dict, batch: dict, cfg: ModelConfig
                ) -> tuple[torch.Tensor, dict]:
-    """Mean next-token cross entropy of ``batch["tokens"]`` against
-    ``batch["labels"]`` plus the (zero) MoE auxiliary term. Returns
-    (loss, {"loss", "xent", "moe_aux"})."""
+    """Mean next-token cross entropy of the logits against
+    ``batch["labels"]`` (vlm: over the text positions only; audio: over
+    every codebook) plus the (zero) MoE auxiliary term. Returns (loss,
+    {"loss", "xent", "moe_aux"})."""
     logits, aux = forward(params, batch, cfg)
+    if cfg.arch_type == "vlm":
+        logits = logits[:, cfg.n_patches:]
     xent = softmax_xent(logits, batch["labels"]).mean()
     loss = xent + cfg.moe_aux_weight * aux
     return loss, {"loss": loss, "xent": xent, "moe_aux": aux}
@@ -391,35 +497,56 @@ def cache_len_for(cfg: ModelConfig, seq_len: int) -> int:
     return seq_len
 
 
+def _kv_cache(ks: list, vs: list, clen: int, b: int, dtype) -> dict:
+    """The decode cache of per-layer (B, S, Hkv, D) keys and values: cast
+    to ``dtype``, or for int8 quantized per (position, head) with bf16
+    scales (``layers.quantize_kv``), then ring-filled."""
+    if dtype == torch.int8:
+        def quantized(ts: list) -> tuple:
+            qs, scales = zip(*map(L.quantize_kv, ts))
+            return torch.stack(qs), torch.stack(scales)
+        (kq, ksc), (vq, vsc) = quantized(ks), quantized(vs)
+        kc, vc, slot_pos = _ring_fill(kq, vq, clen)
+        kscale, vscale, _ = _ring_fill(ksc, vsc, clen)
+        kv = {"k": kc, "v": vc, "k_scale": kscale, "v_scale": vscale}
+    else:
+        kc, vc, slot_pos = _ring_fill(
+            torch.stack([k.to(dtype) for k in ks]),
+            torch.stack([v.to(dtype) for v in vs]), clen)
+        kv = {"k": kc, "v": vc}
+    return {"kv": kv, "kv_pos": slot_pos[None, None].expand(
+        len(ks), b, clen).contiguous()}
+
+
+def _ssm_cache(states: list) -> dict:
+    return {"ssm": {"conv": torch.stack([st["conv"] for st in states]),
+                    "ssm": torch.stack([st["ssm"].float() for st in states])}}
+
+
 def prefill(params: dict, batch: dict, cfg: ModelConfig, max_seq_len: int,
             cache_dtype=torch.bfloat16) -> tuple[torch.Tensor, dict]:
-    """Process a full prompt; return (last-token logits (B, 1, V), decode
-    cache sized for a total context of max_seq_len)."""
-    if cfg.kv_cache_quant:
-        raise NotImplementedError("the int8 KV cache (kv_cache_quant) is "
-                                  "not ported yet (ROADMAP queue 1 item 7)")
+    """Process a full prompt; return (last-token logits (B, 1, V), or (B,
+    1, CB, V) for audio, and the decode cache sized for a total context of
+    max_seq_len)."""
+    cache_dtype = _kv_cache_dtype(cfg, cache_dtype)
     x = embed_inputs(params, batch, cfg)
     b, s, _ = x.shape
     positions = _positions(b, s, x.device)
     clen = cache_len_for(cfg, max_seq_len)
-    ks, vs, convs, ssms = [], [], [], []
+    ks, vs, states = [], [], []
     for i, lp in enumerate(params["layers"]):
-        if i % cfg.attn_every == 0:
-            x, (k, v) = _shared_block(params, x, positions, cfg,
-                                      cfg.attn_spec, return_kv=True)
-            ks.append(k.to(cache_dtype))
-            vs.append(v.to(cache_dtype))
-        h, st = L.ssm_apply(lp["ssm"], L.norm_apply(cfg.norm, lp["ln"], x),
-                            cfg.ssm_spec, return_state=True)
-        x = x + h
-        convs.append(st["conv"])
-        ssms.append(st["ssm"].float())
-    kc, vc, slot_pos = _ring_fill(torch.stack(ks), torch.stack(vs), clen)
-    cache = {
-        "ssm": {"conv": torch.stack(convs), "ssm": torch.stack(ssms)},
-        "kv": {"k": kc, "v": vc},
-        "kv_pos": slot_pos[None, None].expand(len(ks), b, clen).contiguous(),
-    }
+        block = _attention_at(params, i, cfg)
+        if block is not None:
+            x, (k, v) = _attn_mlp_block(block, x, positions, cfg,
+                                        cfg.attn_spec, return_kv=True)
+            ks.append(k)
+            vs.append(v)
+        if cfg.arch_type not in DENSE_ARCHS:
+            x, st = _ssm_block(lp, x, cfg, return_state=True)
+            states.append(st)
+    cache = _ssm_cache(states) if states else {}
+    if ks:
+        cache.update(_kv_cache(ks, vs, clen, b, cache_dtype))
     return output_logits(params, x[:, -1:], cfg), cache
 
 
@@ -430,19 +557,27 @@ def prefill(params: dict, batch: dict, cfg: ModelConfig, max_seq_len: int,
 def init_cache(cfg: ModelConfig, batch: int, seq_len: int,
                dtype=torch.bfloat16, device=None) -> dict:
     """Decode cache for a maximum context of ``seq_len`` tokens."""
-    _require_hybrid(cfg)
-    clen = cache_len_for(cfg, seq_len)
-    n_sites = cfg.n_attn_sites
-    ssm = L.init_ssm_cache(batch, cfg.ssm_spec, device=device)
-    kv = L.init_kv_cache(batch, cfg.attn_spec, clen, dtype, device)
-    return {
-        "ssm": {k: t[None].repeat((cfg.num_layers,) + (1,) * t.dim())
-                for k, t in ssm.items()},
-        "kv": {k: t[None].repeat((n_sites,) + (1,) * t.dim())
-               for k, t in kv.items()},
-        "kv_pos": torch.full((n_sites, batch, clen), -1, dtype=torch.int32,
-                             device=device),
-    }
+    _require_ported(cfg)
+    dtype = _kv_cache_dtype(cfg, dtype)
+
+    def stacked(tree: dict, n: int) -> dict:
+        return {k: t[None].repeat((n,) + (1,) * t.dim())
+                for k, t in tree.items()}
+
+    cache = {}
+    if cfg.arch_type in ("ssm", "hybrid"):
+        cache["ssm"] = stacked(L.init_ssm_cache(batch, cfg.ssm_spec,
+                                                device=device),
+                               cfg.num_layers)
+    n_kv = (cfg.n_attn_sites if cfg.arch_type == "hybrid" else
+            cfg.num_layers if cfg.arch_type in DENSE_ARCHS else 0)
+    if n_kv:
+        clen = cache_len_for(cfg, seq_len)
+        cache["kv"] = stacked(L.init_kv_cache(batch, cfg.attn_spec, clen,
+                                              dtype, device), n_kv)
+        cache["kv_pos"] = torch.full((n_kv, batch, clen), -1,
+                                     dtype=torch.int32, device=device)
+    return cache
 
 
 def _effective_decode_spec(cfg: ModelConfig) -> L.AttnSpec:
@@ -453,21 +588,21 @@ def _effective_decode_spec(cfg: ModelConfig) -> L.AttnSpec:
 
 def decode_step(params: dict, cache: dict, batch: dict, pos: torch.Tensor,
                 cfg: ModelConfig) -> tuple[torch.Tensor, dict]:
-    """One-token decode. ``batch['tokens']``: (B, 1); ``pos``: (B,) absolute
-    positions. Updates ``cache`` in place and returns (logits (B, 1, V),
-    cache)."""
+    """One-token decode. ``batch['tokens']``: (B, 1), or (B, 1, CB) for
+    audio; ``pos``: (B,) absolute positions. Updates ``cache`` in place and
+    returns (logits (B, 1, V) or (B, 1, CB, V), cache)."""
     x = embed_inputs(params, batch, cfg)                  # (B, 1, d)
     positions = pos[:, None].to(torch.int32)
     spec = _effective_decode_spec(cfg)
     site = 0
     for i, lp in enumerate(params["layers"]):
-        if i % cfg.attn_every == 0:
-            kv_site = {k: t[site] for k, t in cache["kv"].items()}
-            x, _ = _shared_block(params, x, positions, cfg, spec, kv_site,
-                                 cache["kv_pos"][site])
+        block = _attention_at(params, i, cfg)
+        if block is not None:
+            kv = {k: t[site] for k, t in cache["kv"].items()}
+            x, _ = _attn_mlp_block(block, x, positions, cfg, spec, kv,
+                                   cache["kv_pos"][site])
             site += 1
-        sc = {k: t[i] for k, t in cache["ssm"].items()}
-        h, _ = L.ssm_apply(lp["ssm"], L.norm_apply(cfg.norm, lp["ln"], x),
-                           cfg.ssm_spec, sc)
-        x = x + h
+        if cfg.arch_type not in DENSE_ARCHS:
+            sc = {k: t[i] for k, t in cache["ssm"].items()}
+            x, _ = _ssm_block(lp, x, cfg, sc)
     return output_logits(params, x, cfg), cache

@@ -67,12 +67,14 @@ class RequestQueue:
 
 def _load_params(cfg: M.ModelConfig, seed: int, params: Optional[dict],
                  device: torch.device) -> dict:
+    """The server's weights, matrices in the compute dtype. Drawn weights
+    are cast piece by piece as they are drawn (``init_params(cast=)``), so
+    the peak is the cast tree plus one float32 layer, not the whole float32
+    tree beside its cast."""
     if params is None:
         gen = torch.Generator(device=device).manual_seed(seed)
-        params = M.init_params(cfg, gen, device)
-    else:
-        params = _to_device(params, device)
-    return M.cast_params(params, cfg.compute_dtype)
+        return M.init_params(cfg, gen, device, cast=cfg.compute_dtype)
+    return M.cast_params(_to_device(params, device), cfg.compute_dtype)
 
 
 def _to_device(tree, device):
@@ -141,13 +143,27 @@ class GenerationServer:
                                  self.cfg)
 
     def _on_device(self, batch: dict) -> dict:
+        """The prompt's tensors (``tokens``; ``vision`` for vlm) on the
+        server's device."""
         return {k: torch.as_tensor(v).to(self.device) for k, v in batch.items()}
+
+    def next_tokens(self, logits: torch.Tensor) -> torch.Tensor:
+        """The greedy decode input after ``logits``: the argmax of the last
+        position, (bs, 1); for audio the argmax of codebook 0 broadcast
+        over the codebooks, (bs, 1, CB), as the reference does."""
+        last = logits[:, -1:]
+        if self.cfg.arch_type == "audio":
+            nxt = last[:, :, 0].argmax(dim=-1).to(torch.int32)
+            return nxt[..., None].expand(self.bs, 1, self.cfg.n_codebooks)
+        return last.argmax(dim=-1).to(torch.int32)
 
     def generate(self, prompt: dict, steps: int, prompt_len: int,
                  timings: Optional[dict] = None) -> np.ndarray:
-        """Greedy tokens (bs, steps). With ``timings`` given, records the
-        wall seconds of the prefill and of each decode step in it (each
-        ends in a device synchronisation)."""
+        """Greedy tokens (bs, steps) (audio: codebook 0's). With
+        ``timings`` given, records the wall seconds of the prefill and of
+        each decode step in it (each ends in a device synchronisation).
+        ``prompt_len`` is the prompt's length in positions (vlm: patches
+        and text)."""
         clock = WallClock()
         logits, cache = self.prefill(prompt)
         if timings is not None:
@@ -158,12 +174,12 @@ class GenerationServer:
         pos = torch.full((self.bs,), prompt_len, dtype=torch.int32,
                          device=self.device)
         for _ in range(steps):
-            nxt = logits[:, -1:].argmax(dim=-1).to(torch.int32)   # (bs, 1)
+            nxt = self.next_tokens(logits)
             t0 = clock.now()
             logits, cache = self.decode(cache, nxt, pos)
             if timings is not None:
                 sync(logits)
                 timings["decode_s"].append(clock.now() - t0)
             pos = pos + 1
-            tokens.append(nxt[:, 0])
+            tokens.append(nxt.reshape(self.bs, -1)[:, 0])
         return torch.stack(tokens, dim=1).cpu().numpy()

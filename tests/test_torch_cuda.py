@@ -747,6 +747,93 @@ def test_cuda_generation_matches_cpu_on_the_reduced_model(hopper):
                                   cpu.generate({"tokens": toks}, 8, 70))
 
 
+FAMILIES = ["stablelm-1.6b", "minitron-4b", "qwen2.5-14b", "stablelm-12b",
+            "mamba2-780m", "internvl2-1b", "musicgen-medium"]
+
+
+@pytest.mark.parametrize("arch", FAMILIES)
+def test_cuda_family_generation_matches_cpu_on_the_reduced_model(hopper,
+                                                                 arch):
+    """The dense, ssm, vlm and audio families' reduced models in float32
+    on cuda (K3 / K4) against cpu: prefill logits within 1e-3, 8 greedy
+    tokens equal, every attention or Mamba2 layer launching its kernel
+    once per prefill."""
+    cfg = dataclasses.replace(TC.reduced(TC.get_config(arch)),
+                              compute_dtype=torch.float32)
+    gpu = GenerationServer(cfg, max_seq=80, bs=2, backend="cuda")
+    cpu = GenerationServer(cfg, max_seq=80, bs=2, backend="cpu",
+                           params=gpu.params)
+    prompt = TC.make_batch(cfg, 70, 2, "prefill",
+                           torch.Generator().manual_seed(1))
+    kernel = K4.ssd_chunk if cfg.arch_type == "ssm" else K3.flash_attention
+    n0 = kernel.launches
+    lg, _ = gpu.prefill(prompt)
+    torch.cuda.synchronize()
+    assert kernel.launches == n0 + cfg.num_layers
+    lc, _ = cpu.prefill(prompt)
+    torch.testing.assert_close(lg.cpu(), lc, rtol=1e-3, atol=1e-3)
+    np.testing.assert_array_equal(gpu.generate(prompt, 8, 70),
+                                  cpu.generate(prompt, 8, 70))
+
+
+def test_cuda_int8_cache_decodes_as_cpu(hopper):
+    """The int8 KV cache on cuda against cpu: prefill logits within 1e-3
+    and 8 greedy tokens equal on the reduced stablelm-1.6b."""
+    cfg = dataclasses.replace(TC.reduced(TC.get_config("stablelm-1.6b")),
+                              compute_dtype=torch.float32,
+                              kv_cache_quant=True)
+    gpu = GenerationServer(cfg, max_seq=80, bs=2, backend="cuda")
+    cpu = GenerationServer(cfg, max_seq=80, bs=2, backend="cpu",
+                           params=gpu.params)
+    prompt = TC.make_batch(cfg, 70, 2, "prefill",
+                           torch.Generator().manual_seed(2))
+    lg, cache = gpu.prefill(prompt)
+    assert cache["kv"]["k"].dtype == torch.int8
+    torch.testing.assert_close(lg.cpu(), cpu.prefill(prompt)[0], rtol=1e-3,
+                               atol=1e-3)
+    np.testing.assert_array_equal(gpu.generate(prompt, 8, 70),
+                                  cpu.generate(prompt, 8, 70))
+
+
+def test_cuda_refuses_head_dim_160_without_a_fallback(hopper):
+    """stablelm-12b's head dim (5120 / 32 = 160) is not one K3 takes: a
+    narrow copy at that head dim raises on cuda and launches nothing."""
+    cfg = dataclasses.replace(TC.reduced(TC.get_config("stablelm-12b")),
+                              d_model=320, n_heads=2, n_kv_heads=2,
+                              head_dim=0)
+    assert cfg.resolved_head_dim == 160
+    srv = GenerationServer(cfg, max_seq=40, bs=1, backend="cuda")
+    prompt = TC.make_batch(cfg, 32, 1, "prefill",
+                           torch.Generator().manual_seed(3))
+    n0 = K3.flash_attention.launches
+    with pytest.raises(ValueError, match="head dims"):
+        srv.prefill(prompt)
+    assert K3.flash_attention.launches == n0
+
+
+@pytest.mark.parametrize("shape", [(1, 2, 256, 48, 64, 128),
+                                   (2, 1, 200, 48, 64, 128)])
+def test_cuda_ssd_chunk_at_n128_matches_plain_both_ways(hopper, shape):
+    """K4 at mamba2-780m's heads, head dim and state (48, 64, 128), full
+    and partial chunks, forward and backward."""
+    x, dA, dt, B, C = _ssd_inputs(shape, hopper, sum(shape) + 2)
+    leaves = [t.clone().requires_grad_() for t in (x, dA, dt, B, C)]
+    y, st = K4.ssd_chunk(*leaves)
+    yp, stp = K4.ssd_chunk_plain(x, dA, dt, B, C)
+    torch.testing.assert_close(y.detach(), yp, rtol=2e-4, atol=1e-4)
+    torch.testing.assert_close(st.detach(), stp, rtol=2e-4, atol=1e-4)
+    gen = torch.Generator(device=hopper).manual_seed(8)
+    dy = torch.randn(y.shape, generator=gen, device=hopper)
+    dst = torch.randn(st.shape, generator=gen, device=hopper)
+    n0 = K4.ssd_chunk_bwd.launches
+    torch.autograd.backward((y, st), (dy, dst))
+    torch.cuda.synchronize()
+    assert K4.ssd_chunk_bwd.launches == n0 + 1
+    want = K4.ssd_chunk_bwd_plain(x, dA, dt, B, C, dy, dst)
+    for name, leaf, w in zip(("x", "dA", "dt", "B", "C"), leaves, want):
+        _close(leaf.grad, w, 2e-4, f"d{name}")
+
+
 def _close(got, want, tol, what):
     """Element by element, |got - want| <= tol (|want| + scale), the scale
     being want's RMS or 0.1, whichever is larger (a kernel gradient that is

@@ -55,21 +55,27 @@ def _tokens(seed, b, s, vocab):
 
 
 def test_config_matches_the_reference_and_refuses_unported_families():
-    jcfg = j_get_config("zamba2-1.2b")
+    """Every registered configuration holds the reference's fields; the
+    MoE configurations and ``arch_type="moe"`` are refused (ROADMAP queue
+    1 item 7)."""
+    for arch in TC.ARCH_IDS:
+        jcfg, tcfg = j_get_config(arch), TC.get_config(arch)
+        for f in dataclasses.fields(jcfg):
+            if f.name not in ("param_dtype", "compute_dtype"):
+                assert getattr(tcfg, f.name) == getattr(jcfg, f.name), \
+                    (arch, f.name)
+        assert (tcfg.param_dtype, tcfg.compute_dtype) == (torch.float32,
+                                                          torch.bfloat16)
+        assert tcfg.padded_vocab == jcfg.padded_vocab, arch
+        assert tcfg.n_attn_sites == jcfg.n_attn_sites, arch
+        assert tcfg.param_count() == jcfg.param_count(), arch
     tcfg = TC.get_config("zamba2-1.2b")
-    for f in dataclasses.fields(jcfg):
-        if f.name not in ("param_dtype", "compute_dtype"):
-            assert getattr(tcfg, f.name) == getattr(jcfg, f.name), f.name
-    assert (tcfg.param_dtype, tcfg.compute_dtype) == (torch.float32,
-                                                      torch.bfloat16)
-    assert tcfg.padded_vocab == jcfg.padded_vocab == 32768
-    assert tcfg.n_attn_sites == jcfg.n_attn_sites == 7
-    assert tcfg.param_count() == jcfg.param_count()
-    for arch in ("stablelm-1.6b", "mamba2-780m"):
+    assert tcfg.padded_vocab == 32768 and tcfg.n_attn_sites == 7
+    for arch in ("mixtral-8x22b", "arctic-480b"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             TC.get_config(arch)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TM.init_params(dataclasses.replace(tcfg, arch_type="dense"),
+        TM.init_params(dataclasses.replace(tcfg, arch_type="moe"),
                        torch.Generator())
 
 
