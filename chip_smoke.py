@@ -101,8 +101,8 @@ each and stopping with a traceback at the first failure:
     patches and 256 text tokens, 16 greedy tokens): load s and peak
     memory, wall, prefill ms, decode ms per token, and one K3 launch per
     attention layer (K4 per Mamba2 layer) per prefill. stablelm-12b's head
-    dim 160 is not one K3 takes: a 2-layer copy on ``"cuda"`` must raise
-    K3's ``ValueError`` and launch nothing. Then a 2-layer full-width
+    dim 160 is not one K3 takes: a 1-layer copy on ``"cuda"`` must raise
+    K3's ``ValueError`` and launch nothing. Then a 1-layer full-width
     float32 copy of each on ``"cuda"`` and on ``"cpu"`` (bs 2, 64 text
     tokens): logits within 1e-3, 8 greedy tokens equal up to the first
     step whose top-two logits on ``"cpu"`` lie within that tolerance
@@ -110,7 +110,25 @@ each and stopping with a traceback at the first failure:
     training step on both (bs 2 x 256 text tokens): losses within 1e-4,
     gradients within 1e-3 of each leaf's largest |g| (K4's backward at
     n = 128, K3's under GQA 7).
-13. ``serve_interleaved``: ``ManagedInterleaveRuntime`` (no trainer) over
+13. ``moe``: mixtral-8x22b and arctic-480b at full published width with
+    their depth cut to fit the card (``MOE_LAYERS``: 12 of 56 and 2 of 35
+    layers), each served as the families are, in bf16: load s, peak
+    memory, prefill ms, decode ms per token, one K3 launch per layer per
+    prefill. The served layer 0, all its experts, on a (4, 512, d) bf16
+    input: ``moe_apply`` twice on cuda, bitwise equal; its routing (expert,
+    queue position, keep mask, drops: Arctic's 128 experts hold 10 slots a
+    group) equal to cpu's from the same float32 router away from near ties
+    (counted), and y within 2e-2 of its largest |y| of a plain dispatch on
+    the card (a loop over experts) from cpu's routing. Mixtral again on
+    one prompt of 8704 tokens, past its 8192-token window (its dispatch in
+    8 groups of 1088): K3 launched once per layer with that window, a KV
+    cache of 8192 slots, finite logits, 8 greedy tokens. Then float32
+    copies cuda against cpu as the families' (2 Mixtral layers; 1 Arctic
+    layer with 16 of its 128 experts), and one
+    layer's ``moe_apply`` on a (4, 512, d) input: twice on cuda, bitwise
+    equal, and its routing, drops and y equal to cpu's away from near
+    ties (counted).
+14. ``serve_interleaved``: ``ManagedInterleaveRuntime`` (no trainer) over
     ``BatchInferenceServer(zamba2-1.2b, seq_len 2048, bs 8)`` and a uniform
     trace at 80% of the measured minibatch rate for 5 s: p50 / p99 latency
     and the kernels' launches per minibatch; then one minibatch under
@@ -118,7 +136,7 @@ each and stopping with a traceback at the first failure:
     runtime's admission gate: the same server behind
     ``AdmissionPolicy("shed").gate`` on a uniform 5 s trace at 150% of the
     minibatch rate, which must shed exactly the engine mask's count.
-14. ``train``: ``Trainer`` on zamba2-1.2b at full width and depth (remat on,
+15. ``train``: ``Trainer`` on zamba2-1.2b at full width and depth (remat on,
     float32 params, bf16 compute, AdamW) for a few steps of bs 4 x 512
     tokens: ms per step, tokens/s, first and last loss (finite), peak
     memory and every kernel's launches per step (forward, remat's second
@@ -126,13 +144,13 @@ each and stopping with a traceback at the first failure:
     2-layer full-width float32 copy takes one step on ``"cuda"`` and on
     ``"cpu"`` from the same params and batch: losses within 1e-4, every
     gradient leaf within 1e-3 of its largest |g|.
-15. ``serve_train_interleaved``: the runtime with that ``Trainer`` (warm
+16. ``serve_train_interleaved``: the runtime with that ``Trainer`` (warm
     from the train phase) and the ``serve_interleaved`` server on a uniform
     5 s trace whose batch period is the minibatch time plus 2.5 training
     steps: trained minibatches (at least one), p50 / p99 latency with and
     without the trainer, and the largest overrun of a training step past
     its predicted end.
-16. ``tiled_matmul``: the ``kernels.ops.tiled_matmul`` entry point on the
+17. ``tiled_matmul``: the ``kernels.ops.tiled_matmul`` entry point on the
     serving minibatch's MLP up-projection, (16384, 2048) x (2048, 8192)
     bf16, against ``torch.matmul``.
 
@@ -149,7 +167,10 @@ its share of ``SSD_TOL``'s ``allclose`` limit for y and the states (at
 ``SSD_SHAPE`` the largest over ``SSD_DRAWS`` input draws). For the
 families: K4 both ways at mamba2-780m's serving shape (``SSD_N128_SHAPE``,
 n = 128) and K3 at minitron-4b's prefill (``ATTN_GQA_SHAPE``, D = 128),
-timed with their bounds.
+timed with their bounds; for the MoE pair, K3 at each configuration's
+prefill (``moe_attention_shapes``: Mixtral's GQA 6 and Arctic's GQA 7)
+and at Mixtral's windowed prompt, beside SDPA (given the window as a
+mask).
 K3 (both ways) and K4's backward are compared element by element, each
 output's share of its limit beside its RMS (``ATTN_TOL``); K3 is timed
 at the main and the train shapes beside SDPA, whose share of the same
@@ -166,6 +187,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import functools
 import json
 import math
 import random
@@ -337,15 +359,17 @@ SSD_DRAWS = 4
 # families served at full width and depth in bf16 (bs 4, a 512-position
 # prompt: internvl2-1b's is 256 vision patches and 256 text tokens, 16
 # greedy tokens); stablelm-12b (head dim 160, which K3 does not take) shows
-# its refusal on a 2-layer copy. Then each on a 2-layer full-width float32
-# copy, cuda against cpu (bs 2, 64 text tokens after any patches, 8 greedy
-# tokens), and a float32 training step of FAM_TRAIN's two (bs 2 x 256 text
-# tokens after any patches): K4's backward at n = 128, K3's under GQA 7
+# its refusal on a FAM_PARITY_LAYERS copy. Then each on such a full-width
+# float32 copy, cuda against cpu (bs 2, 64 text tokens after any patches,
+# 8 greedy tokens), and a float32 training step of FAM_TRAIN's two (bs 2 x
+# 256 text tokens after any patches): K4's backward at n = 128, K3's under
+# GQA 7. The copies are one layer deep to keep the script's time
 FAMILIES = ("stablelm-1.6b", "minitron-4b", "qwen2.5-14b", "stablelm-12b",
             "mamba2-780m", "internvl2-1b", "musicgen-medium")
 FAM_REFUSED = {"stablelm-12b": "head dims"}
 FAM_BS, FAM_PROMPT, FAM_STEPS = 4, 512, 16
 FAM_PARITY_BS, FAM_PARITY_TEXT, FAM_PARITY_STEPS = 2, 64, 8
+FAM_PARITY_LAYERS = 1
 FAM_TRAIN = ("mamba2-780m", "internvl2-1b")
 FAM_TRAIN_BS, FAM_TRAIN_TEXT = 2, 256
 # the kernel phase's checks at those shapes: K4 at mamba2-780m's serving
@@ -353,6 +377,24 @@ FAM_TRAIN_BS, FAM_TRAIN_TEXT = 2, 256
 # minitron-4b's prefill (bs 4 x 512, 24 heads, D = 128)
 SSD_N128_SHAPE = (8, 8, 256, 48, 64, 128)
 ATTN_GQA_SHAPE = (4, 24, 512, 128)
+# the moe phase: mixtral-8x22b and arctic-480b at full published width with
+# the depth cut to fit one card (bf16 layers of 5.01 and 27.2 GB), each
+# served as the families are (FAM_BS, FAM_PROMPT, FAM_STEPS); Mixtral's
+# sliding window at full width (bs 1, a prompt past its 8192-token window,
+# whose dispatch falls into 8 groups of 1088 tokens, then greedy tokens);
+# float32 copies cuda against cpu as the families' are, cut further (a
+# float32 Arctic layer with 128 experts is 54.4 GB), and one layer's
+# moe_apply on a (B, S, d) input on both, whose routing is held equal
+# except for choices within MOE_NEAR_TIE of a tie
+MOE_LAYERS = {"mixtral-8x22b": 12, "arctic-480b": 2}
+MOE_WINDOW_PROMPT, MOE_WINDOW_STEPS = 8704, 8
+MOE_PARITY_CUTS = {"mixtral-8x22b": dict(num_layers=2),
+                   "arctic-480b": dict(num_layers=1, n_experts=16)}
+MOE_APPLY_SHAPE = (4, 512)
+MOE_NEAR_TIE = 1e-6
+# the served bf16 layer's moe_apply against a plain dispatch on the card:
+# y within this share of its largest |y| (bf16 products of other shapes)
+MOE_SERVED_TOL = 2e-2
 # training: bs 4 x 512 tokens at full width; the cuda-vs-cpu step on a
 # 2-layer full-width copy; the interleaved trace's slack per batch
 TRAIN_BS, TRAIN_SEQ, TRAIN_STEPS = 4, 512, 3
@@ -733,23 +775,30 @@ def sdpa_share(torch, got, want) -> float:
 
 
 def attention_fwd_timed(torch, K3, shape, gen, dev, reps: int,
-                        plain_reps: int) -> dict:
-    """K3's bf16 causal forward at ``shape``: checked, timed beside its
-    plain version and SDPA, with its bound and TFLOP/s of the least work."""
+                        plain_reps: int, window=None) -> dict:
+    """K3's bf16 causal (windowed) forward at ``shape``: checked, timed
+    beside its plain version and SDPA (given the window as a boolean mask),
+    with its bound and TFLOP/s of the least work."""
     B, H, S, D = shape
     (q, k, v, want), rec = check_attention(torch, K3, shape, torch.bfloat16,
-                                           None, gen, dev)
-    sdpa = torch.nn.functional.scaled_dot_product_attention
-    rec["sdpa_limit_share"] = sdpa_share(torch, sdpa(q, k, v, is_causal=True),
-                                         want)
+                                           window, gen, dev)
+    sdpa_kw = dict(is_causal=True)
+    if window is not None:
+        pos = torch.arange(S, device=dev)
+        gap = pos[:, None] - pos[None, :]
+        sdpa_kw = dict(attn_mask=(gap >= 0) & (gap < window))
+    sdpa = functools.partial(torch.nn.functional.scaled_dot_product_attention,
+                             **sdpa_kw)
+    rec["sdpa_limit_share"] = sdpa_share(torch, sdpa(q, k, v), want)
     del want
-    ms = cuda_ms(torch, lambda: K3.flash_attention(q, k, v), reps)
-    plain_ms = cuda_ms(torch, lambda: K3.flash_attention_plain(q, k, v),
-                       plain_reps)
-    library_ms = cuda_ms(torch, lambda: sdpa(q, k, v, is_causal=True), reps)
+    ms = cuda_ms(torch, lambda: K3.flash_attention(q, k, v, window=window),
+                 reps)
+    plain_ms = cuda_ms(torch, lambda: K3.flash_attention_plain(
+        q, k, v, window=window), plain_reps)
+    library_ms = cuda_ms(torch, lambda: sdpa(q, k, v), reps)
     # q, k, v read once and o written once; 4 D flops (QK^T and PV) per
     # visible (query, key) pair, at the bf16 tensor rate
-    flops = 4.0 * D * B * H * attention_pairs(S, None)
+    flops = 4.0 * D * B * H * attention_pairs(S, window)
     b_ms, by = bound(4.0 * B * H * S * D * q.element_size(), flops,
                      OPS_PER_S["bfloat16"])
     del q, k, v
@@ -1120,6 +1169,22 @@ def phase_device(torch, build) -> dict:
     return out
 
 
+def moe_attention_shapes(C) -> dict:
+    """K3's (shape, window) on the moe phase's path, from the MOE_LAYERS
+    configurations: each one's prefill (FAM_BS x FAM_PROMPT, its query
+    heads, its head dim) and, where it has a window, its prompt past it
+    (bs 1 x MOE_WINDOW_PROMPT)."""
+    shapes = {}
+    for arch in MOE_LAYERS:
+        cfg = C.get_config(arch)
+        h, d = cfg.n_heads, cfg.resolved_head_dim
+        shapes[arch] = ((FAM_BS, h, FAM_PROMPT, d), None)
+        if cfg.sliding_window is not None:
+            shapes[arch + ".window"] = ((1, h, MOE_WINDOW_PROMPT, d),
+                                        cfg.sliding_window)
+    return shapes
+
+
 def phase_kernels(torch, np, rt, K1, K2, K3, K4, K5, seed: int) -> dict:
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(seed)
@@ -1144,6 +1209,13 @@ def phase_kernels(torch, np, rt, K1, K2, K3, K4, K5, seed: int) -> dict:
     k4b_n128 = time_ssd_bwd(torch, K4, gen, dev, reps=5,
                             shape=SSD_N128_SHAPE)
     k3_d128 = attention_fwd_timed(torch, K3, ATTN_GQA_SHAPE, gen, dev, 10, 2)
+    # the moe phase's: each configuration's prefill, and Mixtral's prompt
+    # past its window
+    k3_moe = {name: attention_fwd_timed(torch, K3, shape, gen, dev,
+                                        *((10, 2) if window is None
+                                          else (3, 1)), window=window)
+              for name, (shape, window)
+              in moe_attention_shapes(rt["C"]).items()}
     kf = time_fused(torch, np, rt, fused_inputs(
         rt, FUSED_K, [30.0 * m * FUSED_K for m in FLEET_RATES[:2]],
         dict(seed=3, dispatch="least-backlog"),
@@ -1163,6 +1235,7 @@ def phase_kernels(torch, np, rt, K1, K2, K3, K4, K5, seed: int) -> dict:
            "tiled_matmul": k5, "fused_window": kf,
            "ssd_chunk_n128": k4_n128, "ssd_chunk_bwd_n128": k4b_n128,
            "flash_attention_d128_gqa": k3_d128,
+           "flash_attention_moe": k3_moe,
            "fused_window_library": "no single PyTorch call plans, admits "
                                    "and folds a window"}
     emit(out)
@@ -2497,8 +2570,10 @@ def greedy(torch, srv, prompt: dict, steps: int, plen: int) -> tuple:
     """``GenerationServer.generate``'s greedy loop through the server's
     ``prefill`` / ``decode`` / ``next_tokens``, keeping what it drops: the
     tokens (bs, steps) (audio: codebook 0's) and, per step and row, the
-    decided logits' top-two gap and largest |logit| (float32, host)."""
+    decided logits' top-two gap and largest |logit| (float32, host), and
+    the prefill's logits (host)."""
     logits, cache = srv.prefill(prompt)
+    first = logits.cpu()
     pos = torch.full((srv.bs,), plen, dtype=torch.int32, device=srv.device)
     toks, gaps, tops = [], [], []
     for _ in range(steps):
@@ -2511,46 +2586,51 @@ def greedy(torch, srv, prompt: dict, steps: int, plen: int) -> tuple:
         logits, cache = srv.decode(cache, nxt, pos)
         pos = pos + 1
     return (torch.stack(toks, 1).numpy(), torch.stack(gaps, 1).numpy(),
-            torch.stack(tops, 1).numpy())
+            torch.stack(tops, 1).numpy(), first)
 
 
-def family_parity(torch, np, rt, cfg, seed: int) -> dict:
-    """A 2-layer full-width float32 copy served on cuda and on cpu from the
-    same weights: prefill logits within MODEL_TOL, then greedy tokens equal
-    up to the first step where the cpu's top-two logits lie within
-    MODEL_TOL of each other (reported; the two may part from there)."""
-    C, SV = rt["C"], rt["SV"]
-    small = dataclasses.replace(cfg, num_layers=PARITY_LAYERS,
-                                compute_dtype=torch.float32)
-    plen = prompt_len(small, FAM_PARITY_TEXT)
-    max_seq = plen + FAM_PARITY_STEPS
+def parity_servers(torch, rt, cfg, seed: int, **cut) -> tuple:
+    """A FAM_PARITY_LAYERS full-width float32 copy of ``cfg`` (or one cut
+    as ``cut`` says) served on cuda, and on cpu from the same weights."""
+    SV = rt["SV"]
+    small = dataclasses.replace(cfg, compute_dtype=torch.float32,
+                                **{"num_layers": FAM_PARITY_LAYERS, **cut})
+    max_seq = prompt_len(small, FAM_PARITY_TEXT) + FAM_PARITY_STEPS
     gpu = SV.GenerationServer(small, max_seq=max_seq, bs=FAM_PARITY_BS,
                               seed=seed + 1, backend="cuda")
     cpu = SV.GenerationServer(small, max_seq=max_seq, bs=FAM_PARITY_BS,
                               backend="cpu", params=gpu.params)
+    return gpu, cpu
+
+
+def family_parity(torch, np, rt, gpu, cpu, seed: int) -> dict:
+    """The ``parity_servers`` pair: prefill logits within MODEL_TOL, then
+    greedy tokens equal up to the first step where the cpu's top-two
+    logits lie within MODEL_TOL of each other (reported; the two may part
+    from there)."""
+    C, small = rt["C"], gpu.cfg
+    plen = prompt_len(small, FAM_PARITY_TEXT)
     prompt = C.make_batch(small, plen, FAM_PARITY_BS, "prefill",
                           torch.Generator().manual_seed(seed))
-    lg, _ = gpu.prefill(prompt)
-    lc, _ = cpu.prefill(prompt)
-    lg = lg.cpu()
+    tg, _, _, lg = greedy(torch, gpu, prompt, FAM_PARITY_STEPS, plen)
+    tc, gaps, tops, lc = greedy(torch, cpu, prompt, FAM_PARITY_STEPS, plen)
     logit_err = float((lg - lc).abs().max())
     if not torch.allclose(lg, lc, **MODEL_TOL):
-        fail(f"families {cfg.name} parity: cuda and cpu prefill logits "
+        fail(f"families {small.name} parity: cuda and cpu prefill logits "
              f"differ by {logit_err} (tolerance {MODEL_TOL})")
-    tg, _, _ = greedy(torch, gpu, prompt, FAM_PARITY_STEPS, plen)
-    tc, gaps, tops = greedy(torch, cpu, prompt, FAM_PARITY_STEPS, plen)
     close = gaps < MODEL_TOL["atol"] + MODEL_TOL["rtol"] * tops
     near_tie = [int(j) for j in np.nonzero(close.any(axis=0))[0]]
     held = near_tie[0] if near_tie else FAM_PARITY_STEPS
     parted = [int(j) for j in np.nonzero((tg != tc).any(axis=0))[0]]
     if parted and parted[0] < held:
-        fail(f"families {cfg.name} parity: greedy tokens differ at step "
+        fail(f"families {small.name} parity: greedy tokens differ at step "
              f"{parted[0]} before any near tie: cuda {tg.tolist()} cpu "
              f"{tc.tolist()}")
-    del gpu, cpu, lg, lc
-    torch.cuda.empty_cache()
-    return {"layers": PARITY_LAYERS, "bs": FAM_PARITY_BS, "prompt": plen,
-            "steps": FAM_PARITY_STEPS, "max_abs_logit_err": logit_err,
+    del lg, lc
+    return {"layers": small.num_layers,
+            **({"experts": small.n_experts} if small.n_experts else {}),
+            "bs": FAM_PARITY_BS, "prompt": plen, "steps": FAM_PARITY_STEPS,
+            "max_abs_logit_err": logit_err,
             "min_top2_gap_cpu": float(gaps.min()),
             "first_near_tie_step": near_tie[0] if near_tie else None,
             "first_parted_step": parted[0] if parted else None,
@@ -2559,11 +2639,12 @@ def family_parity(torch, np, rt, cfg, seed: int) -> dict:
 
 def family_refusal(torch, rt, launches: Launches, cfg, seed: int,
                    words: str) -> dict:
-    """A 2-layer full-width copy on cuda must refuse at K3 (a ``ValueError``
+    """A FAM_PARITY_LAYERS full-width copy on cuda must refuse at K3 (a
+    ``ValueError``
     naming ``words``) and launch nothing: no fallback to the plain
     version."""
     C, SV = rt["C"], rt["SV"]
-    small = dataclasses.replace(cfg, num_layers=PARITY_LAYERS)
+    small = dataclasses.replace(cfg, num_layers=FAM_PARITY_LAYERS)
     srv = SV.GenerationServer(small, max_seq=FAM_PARITY_TEXT + 1,
                               bs=FAM_PARITY_BS, seed=seed, backend="cuda")
     prompt = C.make_batch(small, FAM_PARITY_TEXT, FAM_PARITY_BS, "prefill",
@@ -2586,10 +2667,13 @@ def family_refusal(torch, rt, launches: Launches, cfg, seed: int,
             "refused": msg, "launches": counts}
 
 
-def serve_family(torch, rt, launches: Launches, cfg, seed: int) -> dict:
+def serve_family(torch, rt, launches: Launches, cfg, seed: int,
+                 check=None) -> dict:
     """``GenerationServer`` at full width and depth in bf16: load, one
     warm-up token, then FAM_STEPS greedy tokens timed; every attention
-    layer (K3) or Mamba2 layer (K4) launched once per prefill."""
+    layer (K3) or Mamba2 layer (K4) launched once per prefill. ``check``,
+    where given, takes the server before it is freed; its record is kept
+    as ``served_layer``."""
     C, SV = rt["C"], rt["SV"]
     dev = torch.device("cuda")
     plen = FAM_PROMPT
@@ -2624,7 +2708,9 @@ def serve_family(torch, rt, launches: Launches, cfg, seed: int) -> dict:
             or not bool(torch.isfinite(logits.float()).all()):
         fail(f"families {cfg.name}: prefill logits of shape "
              f"{tuple(logits.shape)} (want {want}) or not finite")
-    del srv, logits
+    del logits
+    served = {} if check is None else {"served_layer": check(srv)}
+    del srv
     torch.cuda.empty_cache()
     dec = timings["decode_s"]
     return {"arch": cfg.name, "arch_type": cfg.arch_type,
@@ -2643,14 +2729,15 @@ def serve_family(torch, rt, launches: Launches, cfg, seed: int) -> dict:
             / HBM_BYTES_PER_S,
             "tokens_per_s": FAM_BS * FAM_STEPS / wall,
             "first_tokens": tokens[0][:8].tolist(),
-            "max_memory_allocated_bytes": peak, "launches": counts}
+            "max_memory_allocated_bytes": peak, "launches": counts,
+            **served}
 
 
 def phase_families(torch, np, rt, launches: Launches, seed: int) -> dict:
     """The dense, ssm, vlm and audio configurations: each served at full
     width and depth on the card (or refused, where K3 does not take its
-    head dim), a 2-layer float32 copy cuda against cpu, and FAM_TRAIN's
-    float32 training step cuda against cpu."""
+    head dim), a FAM_PARITY_LAYERS float32 copy cuda against cpu, and
+    FAM_TRAIN's float32 training step cuda against cpu."""
     C = rt["C"]
     runs, total = {}, {name: 0 for name in launches.wrappers}
     for arch in FAMILIES:
@@ -2662,11 +2749,15 @@ def phase_families(torch, np, rt, launches: Launches, seed: int) -> dict:
         else:
             rec = serve_family(torch, rt, launches, cfg, seed)
             total = add_counts(total, rec["launches"])
-            rec["parity"] = family_parity(torch, np, rt, cfg, seed)
+            gpu, cpu = parity_servers(torch, rt, cfg, seed)
+            rec["parity"] = family_parity(torch, np, rt, gpu, cpu, seed)
+            del gpu, cpu
+            torch.cuda.empty_cache()
         if arch in FAM_TRAIN:
             rec["train_parity"] = train_parity(
                 torch, np, rt, cfg, seed, bs=FAM_TRAIN_BS,
-                seq=prompt_len(cfg, FAM_TRAIN_TEXT), launches=launches)
+                seq=prompt_len(cfg, FAM_TRAIN_TEXT), launches=launches,
+                layers=FAM_PARITY_LAYERS)
         rec["wall_s_all"] = time.perf_counter() - t0
         runs[arch] = rec
         emit({"phase": "families." + arch, **rec})
@@ -2676,6 +2767,264 @@ def phase_families(torch, np, rt, launches: Launches, seed: int) -> dict:
                            ("prefill_ms", "decode_ms_per_token",
                             "decode_weights_bound_ms", "load_s",
                             "max_memory_allocated_bytes", "refused")}
+                       for a, r in runs.items()}}
+    emit(out)
+    return out
+
+
+def moe_window(torch, rt, launches: Launches, cfg, seed: int) -> dict:
+    """Mixtral at full width (its depth cut) in bf16 on one prompt of
+    MOE_WINDOW_PROMPT tokens, past its sliding window: one K3 launch per
+    layer, each with the configuration's window, a ring-buffer KV cache of
+    the window's length, finite logits, then MOE_WINDOW_STEPS greedy tokens
+    in the vocabulary."""
+    C, SV, L = rt["C"], rt["SV"], rt["L"]
+    dev = torch.device("cuda")
+    plen, steps = MOE_WINDOW_PROMPT, MOE_WINDOW_STEPS
+    window = cfg.sliding_window
+    g_row = L.moe_groups(plen, cfg.moe_group_size)
+    if plen <= window or (g_row, plen // g_row) != (8, 1088):
+        fail(f"moe window: a {plen}-token prompt must pass the {window} "
+             f"window in 8 groups of 1088, got {g_row} of {plen // g_row}")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    srv = SV.GenerationServer(cfg, max_seq=plen + steps, bs=1, seed=seed,
+                              backend="cuda")
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    prompt = C.make_batch(cfg, plen, 1, "prefill",
+                          torch.Generator(device=dev).manual_seed(seed + 3))
+    windows, kernel = [], L.flash_attention
+
+    def recording(q, k, v, window=None):
+        windows.append(window)
+        return kernel(q, k, v, window=window)
+
+    L.flash_attention = recording          # the model's name for K3
+    try:
+        launches.reset()
+        t0 = time.perf_counter()
+        logits, cache = srv.prefill(prompt)
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t0
+        counts = launches.read("moe window", ("flash_attention",))
+    finally:
+        L.flash_attention = kernel
+    check_model_launches(cfg, counts, 1, "moe window")
+    clen = cache["kv"]["k"].shape[2]
+    if windows != [window] * cfg.num_layers or clen != window:
+        fail(f"moe window: K3 took windows {windows}, the cache {clen} "
+             f"slots; expected {window} for each of {cfg.num_layers} layers")
+    vocab = cfg.padded_vocab
+    if tuple(logits.shape) != (1, 1, vocab) \
+            or not bool(torch.isfinite(logits.float()).all()):
+        fail("moe window: prefill logits not finite of shape (1, 1, V)")
+    pos = torch.full((1,), plen, dtype=torch.int32, device=dev)
+    toks, dec = [], []
+    for _ in range(steps):
+        nxt = srv.next_tokens(logits)
+        toks.append(int(nxt[0, 0]))
+        t0 = time.perf_counter()
+        logits, cache = srv.decode(cache, nxt, pos)
+        torch.cuda.synchronize()
+        dec.append(time.perf_counter() - t0)
+        pos = pos + 1
+    if min(toks) < 0 or max(toks) >= vocab \
+            or not bool(torch.isfinite(logits.float()).all()):
+        fail(f"moe window: greedy tokens {toks} or logits out of range")
+    peak = torch.cuda.max_memory_allocated()
+    del srv, logits, cache
+    torch.cuda.empty_cache()
+    return {"bs": 1, "prompt": plen, "steps": steps, "window": window,
+            "cache_len": clen, "groups_per_row": g_row,
+            "tokens_per_group": plen // g_row, "load_s": load_s,
+            "prefill_ms": 1e3 * prefill_s,
+            "decode_ms_per_token": 1e3 * sum(dec) / len(dec),
+            "tokens": toks, "max_memory_allocated_bytes": peak,
+            "launches": counts}
+
+
+def near_tie_groups(torch, r, k: int) -> tuple:
+    """Per group of routing ``r``: the count of choices whose probability
+    lies within MOE_NEAR_TIE of the next one among a token's k + 1 largest
+    (exact ties are decided alike on both backends and are not counted),
+    whether the group holds none, and the smallest positive margin."""
+    top = r.probs.sort(dim=-1, descending=True).values[..., :k + 1]
+    gaps = top[..., :-1] - top[..., 1:]
+    near = ((gaps <= MOE_NEAR_TIE) & (gaps > 0)).sum(dim=(1, 2))
+    return near, near == 0, float(gaps[gaps > 0].min())
+
+
+def compare_routing(torch, what: str, rg, rc) -> dict:
+    """Routing ``rg`` (cuda) against ``rc`` (cpu) of the same tokens and
+    router: each choice's expert, queue position and keep mask equal in
+    every group with no near tie (``near_tie_groups``), the dropped counts
+    equal where no group holds one."""
+    near, held, margin = near_tie_groups(torch, rc, rc.expert.shape[-1])
+    if not bool(held.any()):
+        fail(f"{what}: every group holds a near tie")
+    for name in ("expert", "pos", "keep"):
+        if not torch.equal(getattr(rg, name).cpu()[held],
+                           getattr(rc, name)[held]):
+            fail(f"{what}: {name} differs between cuda and cpu away from "
+                 f"any near tie")
+    dropped = (int((~rg.keep).sum()), int((~rc.keep).sum()))
+    if bool(held.all()) and dropped[0] != dropped[1]:
+        fail(f"{what}: dropped {dropped} (cuda, cpu)")
+    return {"groups": int(held.numel()), "capacity": rc.capacity,
+            "dropped_cuda": dropped[0], "dropped_cpu": dropped[1],
+            "choices": int(rc.expert.numel()),
+            "near_tie_choices": int(near.sum()),
+            "groups_compared": int(held.sum()), "smallest_margin": margin,
+            "held": held}
+
+
+def plain_moe(torch, L, p, xg, r, spec):
+    """The plain version of ``moe_apply``'s dispatch and combine on grouped
+    tokens ``xg`` (G, T, d) routed by ``r``: one expert at a time, its
+    SwiGLU FFN in xg's dtype on the tokens of its kept choices, times
+    their gates in xg's dtype, summed in float32 and rounded once, then
+    the dense residual. No slot table, no capacity layout."""
+    F = torch.nn.functional
+    g, t, d = xg.shape
+    dt, k = xg.dtype, r.expert.shape[-1]
+    flat = xg.reshape(g * t, d)
+    expert = r.expert.to(xg.device).reshape(g * t, k)
+    gate = r.gate.to(xg.device).reshape(g * t, k)
+    y = torch.zeros((g * t, d), dtype=torch.float32, device=xg.device)
+    for e in range(spec.n_experts):
+        rows, cols = torch.nonzero((expert == e) & (gate > 0), as_tuple=True)
+        if not rows.numel():
+            continue
+        xe = flat[rows]
+        h = F.silu(xe @ p["w1"][e].to(dt)) * (xe @ p["w3"][e].to(dt))
+        ye = h @ p["w2"][e].to(dt)
+        y.index_add_(0, rows, gate[rows, cols].to(dt).float()[:, None]
+                     * ye.float())           # one row per token and expert
+    y = y.to(dt).reshape(g, t, d)
+    if spec.dense_residual:
+        y = y + L.mlp_apply(p["dense"], xg)
+    return y
+
+
+def moe_served_check(torch, rt, srv, seed: int) -> dict:
+    """The served configuration's layer 0, every expert at its served
+    dtype, on a MOE_APPLY_SHAPE input in that dtype: ``moe_apply`` twice
+    on cuda (bitwise equal: no atomics); its routing against cpu's from
+    the same float32 router (``compare_routing``), and y within
+    MOE_SERVED_TOL of its largest |y| of ``plain_moe`` on the card from
+    cpu's routing, in the groups compared."""
+    L, cfg = rt["L"], srv.cfg
+    dev = torch.device("cuda")
+    spec = cfg.moe_spec
+    p = srv.params["layers"][0]["moe"]
+    b, s = MOE_APPLY_SHAPE
+    g_row = L.moe_groups(s, spec.group_size)
+    g, t, d = b * g_row, s // g_row, cfg.d_model
+    x = torch.randn((b, s, d), device=dev, generator=torch.Generator(
+        device=dev).manual_seed(seed + 4)).to(cfg.compute_dtype)
+    y, _ = L.moe_apply(p, x, spec)
+    again, _ = L.moe_apply(p, x, spec)
+    if not torch.equal(y, again):
+        fail(f"moe {cfg.name} served layer: two cuda runs differ")
+    ms = cuda_ms(torch, lambda: L.moe_apply(p, x, spec), 3)
+    xg = x.reshape(g, t, d)
+    rg = L.moe_route(p["router"], xg, spec)
+    rc = L.moe_route(p["router"].cpu(), xg.cpu(), spec)
+    rec = compare_routing(torch, f"moe {cfg.name} served layer", rg, rc)
+    held = rec.pop("held").to(dev)
+    want = plain_moe(torch, L, p, xg, rc, spec)[held].float()
+    got = y.reshape(g, t, d)[held].float()
+    err, scale = float((got - want).abs().max()), float(want.abs().max())
+    if not err <= MOE_SERVED_TOL * scale:
+        fail(f"moe {cfg.name} served layer: y differs from the plain "
+             f"dispatch by {err} (limit {MOE_SERVED_TOL} x {scale})")
+    out = {"shape": [b, s, d], "dtype": str(x.dtype).split(".")[-1],
+           "experts": spec.n_experts, **rec,
+           "occupied_experts": int(rc.expert[rc.keep].unique().numel()),
+           "max_abs_y_err": err, "max_abs_y": scale,
+           "deterministic": True, "cuda_ms": ms}
+    del x, y, again, rg, want, got
+    return out
+
+
+def moe_apply_parity(torch, rt, gpu, cpu, seed: int) -> dict:
+    """The first layer's ``moe_apply`` of a ``parity_servers`` pair on a
+    MOE_APPLY_SHAPE input, twice on cuda (bitwise equal: no atomics) and
+    once on cpu: the routing as ``compare_routing`` holds it, y within
+    MODEL_TOL in the groups it compares."""
+    L, cfg = rt["L"], gpu.cfg
+    dev = torch.device("cuda")
+    spec = cfg.moe_spec
+    pg, pc = (srv.params["layers"][0]["moe"] for srv in (gpu, cpu))
+    b, s = MOE_APPLY_SHAPE
+    x = torch.randn((b, s, cfg.d_model), device=dev,
+                    generator=torch.Generator(device=dev).manual_seed(seed))
+    yg, aux_g = L.moe_apply(pg, x, spec)
+    again, _ = L.moe_apply(pg, x, spec)
+    if not torch.equal(yg, again):
+        fail(f"moe {cfg.name} moe_apply: two cuda runs differ")
+    ms = cuda_ms(torch, lambda: L.moe_apply(pg, x, spec), 3)
+    t0 = time.perf_counter()
+    yc, aux_c = L.moe_apply(pc, x.cpu(), spec)
+    cpu_s = time.perf_counter() - t0
+    g_row = L.moe_groups(s, spec.group_size)
+    xg = x.reshape(b * g_row, s // g_row, cfg.d_model)
+    rg = L.moe_route(pg["router"], xg, spec)
+    rc = L.moe_route(pc["router"], xg.cpu(), spec)
+    rec = compare_routing(torch, f"moe {cfg.name} moe_apply", rg, rc)
+    held = rec.pop("held")
+    rows = held.reshape(b, g_row).repeat_interleave(s // g_row, dim=1)
+    ygc = yg.cpu()
+    err = float((ygc - yc).abs()[rows].max())
+    if not torch.allclose(ygc[rows], yc[rows], **MODEL_TOL):
+        fail(f"moe {cfg.name} moe_apply: y differs by {err} (tolerance "
+             f"{MODEL_TOL})")
+    out = {"shape": [b, s, cfg.d_model], "experts": spec.n_experts, **rec,
+           "max_abs_y_err": err, "max_abs_y": float(yc.abs().max()),
+           "aux_cuda": float(aux_g), "aux_cpu": float(aux_c),
+           "deterministic": True, "cuda_ms": ms, "cpu_s": cpu_s}
+    del x, yg, again, rg
+    return out
+
+
+def phase_moe(torch, np, rt, launches: Launches, seed: int) -> dict:
+    """The MoE configurations at full published width with their depth cut
+    to MOE_LAYERS: each served as the families are, its served layer 0
+    held against cpu's routing and a plain dispatch, Mixtral's window on a
+    prompt past it, a float32 copy cuda against cpu, and that copy's
+    moe_apply cuda against cpu."""
+    C = rt["C"]
+    runs, total = {}, {name: 0 for name in launches.wrappers}
+    for arch, layers in MOE_LAYERS.items():
+        full = C.get_config(arch)
+        cfg = dataclasses.replace(full, num_layers=layers)
+        t0 = time.perf_counter()
+        rec = serve_family(torch, rt, launches, cfg, seed,
+                           check=lambda srv: moe_served_check(torch, rt, srv,
+                                                              seed))
+        rec["cut"] = {"layers": layers, "of": full.num_layers}
+        rec["experts"], rec["top_k"] = cfg.n_experts, cfg.top_k
+        total = add_counts(total, rec["launches"])
+        if cfg.sliding_window is not None:
+            rec["window_run"] = moe_window(torch, rt, launches, cfg, seed)
+            total = add_counts(total, rec["window_run"]["launches"])
+        t1 = time.perf_counter()
+        gpu, cpu = parity_servers(torch, rt, full, seed,
+                                  **MOE_PARITY_CUTS[arch])
+        rec["parity"] = family_parity(torch, np, rt, gpu, cpu, seed)
+        rec["moe_apply"] = moe_apply_parity(torch, rt, gpu, cpu, seed)
+        rec["parity_s"] = time.perf_counter() - t1
+        del gpu, cpu
+        torch.cuda.empty_cache()
+        rec["wall_s_all"] = time.perf_counter() - t0
+        runs[arch] = rec
+        emit({"phase": "moe." + arch, **rec})
+    out = {"phase": "moe", "archs": list(MOE_LAYERS), "launches": total,
+           "summary": {a: {k: r.get(k) for k in
+                           ("cut", "prefill_ms", "decode_ms_per_token",
+                            "decode_weights_bound_ms", "load_s",
+                            "max_memory_allocated_bytes")}
                        for a, r in runs.items()}}
     emit(out)
     return out
@@ -2826,15 +3175,17 @@ def runtime_gate(np, rt, srv, t_mb: float) -> dict:
 
 
 def train_parity(torch, np, rt, cfg, seed: int, bs: int = 1,
-                 seq: int = PARITY_TRAIN_SEQ, launches=None) -> dict:
-    """One training step of a 2-layer full-width float32 copy on cuda and
-    on cpu from the same params and batch (``bs`` x ``seq`` positions):
+                 seq: int = PARITY_TRAIN_SEQ, launches=None,
+                 layers: int = PARITY_LAYERS) -> dict:
+    """One training step of a ``layers``-deep full-width float32 copy on
+    cuda and on cpu from the same params and batch (``bs`` x ``seq``
+    positions):
     losses within TRAIN_LOSS_TOL, every gradient leaf within
     TRAIN_GRAD_TOL of its largest |g|. With ``launches`` given, the cuda
     step must launch each kernel of its path as ``check_model_launches``
     counts one training step."""
     ST, T, A = rt["ST"], rt["T"], rt["A"]
-    small = dataclasses.replace(cfg, num_layers=PARITY_LAYERS,
+    small = dataclasses.replace(cfg, num_layers=layers,
                                 compute_dtype=torch.float32)
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(seed + 2)
@@ -2872,7 +3223,7 @@ def train_parity(torch, np, rt, cfg, seed: int, bs: int = 1,
         if err > TRAIN_GRAD_TOL * scale:
             fail(f"train parity: gradient leaf {i} differs by {err} "
                  f"(tolerance {TRAIN_GRAD_TOL} x {scale})")
-    return {"layers": PARITY_LAYERS, "bs": bs, "seq": seq,
+    return {"layers": layers, "bs": bs, "seq": seq,
             "launches": counts if launches is not None else None,
             "loss_cuda": lg, "loss_cpu": lc, "max_grad_err_share": worst,
             "max_abs_param_diff_after_step": max(
@@ -3095,6 +3446,7 @@ def main() -> int:
     from repro_torch.kernels import build
     from repro_torch.kernels import ops as OPS
     from repro_torch.launch import steps as ST
+    from repro_torch.models import layers as L
     from repro_torch.models import model as M
     from repro_torch.optim import adamw as A
     from repro_torch.runtime import interleave_runtime as IR
@@ -3103,7 +3455,7 @@ def main() -> int:
     rt = dict(P=P, S=S, K1=K1, K2=K2, Fulcrum=Fulcrum, DeviceModel=DeviceModel,
               PowerModeSpace=PowerModeSpace, TRAIN=TRAIN_WORKLOADS,
               INFER=INFER_WORKLOADS, C=C, SV=SV, IR=IR, TL=TL, A=A, ST=ST,
-              T=T, M=M, D=D, OPS=OPS, CC=CC, B=B, F=F, Oracle=Oracle,
+              T=T, M=M, L=L, D=D, OPS=OPS, CC=CC, B=B, F=F, Oracle=Oracle,
               KF=KF, FW=FW, NN=NN, QuadrantRanges=QuadrantRanges,
               strategy_profilers=strategy_profilers)
 
@@ -3130,6 +3482,7 @@ def main() -> int:
     paths["sweep_100k"] = sweep["lanes_100k"]
     paths["generate"] = phase_generate(torch, np, rt, launches, args.seed)
     paths["families"] = phase_families(torch, np, rt, launches, args.seed)
+    paths["moe"] = phase_moe(torch, np, rt, launches, args.seed)
     paths["serve_interleaved"] = phase_serve_interleaved(torch, np, rt,
                                                          launches, args.seed)
     paths["train"], trainer = phase_train(torch, np, rt, launches, args.seed)

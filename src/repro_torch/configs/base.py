@@ -2,9 +2,8 @@
 and seeded batches.
 
 Counterpart of ``repro.configs.base``. The port registers every
-configuration of the reference whose model family it runs: the dense, ssm,
-hybrid, vlm and audio families. The two MoE configurations raise and name
-the ROADMAP item that ports them. ``make_batch`` draws from an explicit
+configuration of the reference: the dense, moe, ssm, hybrid, vlm and audio
+families. ``make_batch`` draws from an explicit
 ``torch.Generator`` (the reference draws from a ``jax.random`` key, so the
 two give different values for one seed; tests hand both packages the same
 NumPy-made batch instead).
@@ -18,21 +17,15 @@ import torch
 
 from repro_torch.models.model import ModelConfig
 
-#: Configurations the port runs: the reference's ``ARCH_IDS`` in its
-#: order, without the MoE pair.
+#: Configurations the port runs: the reference's ``ARCH_IDS``, in its order.
 ARCH_IDS = [
-    "stablelm-12b", "qwen2.5-14b", "zamba2-1.2b", "musicgen-medium",
-    "stablelm-1.6b", "internvl2-1b", "mamba2-780m", "minitron-4b",
+    "mixtral-8x22b", "stablelm-12b", "arctic-480b", "qwen2.5-14b",
+    "zamba2-1.2b", "musicgen-medium", "stablelm-1.6b", "internvl2-1b",
+    "mamba2-780m", "minitron-4b",
 ]
-#: The reference's MoE configurations, not ported yet.
-MOE_IDS = ("mixtral-8x22b", "arctic-480b")
 
 
 def get_config(arch_id: str) -> ModelConfig:
-    if arch_id in MOE_IDS:
-        raise NotImplementedError(
-            f"{arch_id!r} is not ported yet: the MoE family "
-            f"(layers.moe_apply) is ROADMAP queue 1 item 7 (MoE)")
     if arch_id not in ARCH_IDS:
         raise ValueError(f"unknown architecture {arch_id!r}; the port "
                          f"registers {ARCH_IDS}")

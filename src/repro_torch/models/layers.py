@@ -1,11 +1,10 @@
 """Neural-net building blocks of the port, in PyTorch.
 
-Counterpart of ``repro.models.layers`` for the blocks the dense, ssm,
-hybrid, vlm and audio stacks run: RMS/LayerNorm, rotary embeddings with
-split halves, dense projections, GQA causal self-attention with a
+Counterpart of ``repro.models.layers``: RMS/LayerNorm, rotary embeddings
+with split halves, dense projections, GQA causal self-attention with a
 ring-buffer KV cache (bf16, float32, or int8 with per-(slot, head) bf16
-scales), the SwiGLU and tanh-GELU MLPs, the Mamba2 SSD mixer and the tied
-embedding / output head. The MoE layer waits (ROADMAP queue 1 item 7).
+scales), the SwiGLU and tanh-GELU MLPs, the top-k capacity-factor mixture
+of experts, the Mamba2 SSD mixer and the tied embedding / output head.
 Params are plain nested dicts of tensors with the reference's names and
 layouts, so a JAX parameter tree converts leaf by leaf
 (``repro_torch.convert``).
@@ -15,7 +14,9 @@ hand-written kernel: prefill attention goes through ``flash_attention``
 (K3) and the prefill SSD scan through ``ops.ssd_scan`` (K4 plus the
 inter-chunk recurrence). Each kernel wrapper launches CUDA for CUDA tensors
 and runs its plain version for CPU tensors, so a layer runs wherever its
-inputs lie. Decode paths are plain torch ops, as in the reference.
+inputs lie. Decode paths are plain torch ops, as in the reference. The
+reference computes the MoE with ``einsum`` (no Pallas kernel): the port's
+expert products are ``torch.bmm``.
 
 The decode paths update the caches they are given in place (the reference
 returns fresh arrays): a step touches O(B * H * D) cache entries instead of
@@ -271,6 +272,132 @@ def mlp_apply(p: Params, x: torch.Tensor, activation: str = "swiglu") -> torch.T
 
 
 # ---------------------------------------------------------------------------
+# mixture of experts (top-k, capacity-factor dispatch)
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class MoeSpec:
+    d_model: int
+    d_ff: int
+    n_experts: int
+    top_k: int = 2
+    capacity_factor: float = 1.25
+    group_size: int = 1024        # tokens per dispatch group (memory control)
+    dense_residual: bool = False  # Arctic-style always-on dense branch
+    dense_residual_ff: int = 0
+
+
+def moe_groups(s: int, group_size: int) -> int:
+    """Dispatch groups per batch row of ``s`` tokens: ``s // group_size``
+    (at least 1), lowered to the largest divisor of ``s`` not above it.
+    Groups never span rows, so one sequence's drops never depend on
+    another's tokens."""
+    g_row = max(1, s // group_size) if s >= group_size else 1
+    while s % g_row:
+        g_row -= 1
+    return g_row
+
+
+def moe_capacity(t: int, spec: MoeSpec) -> int:
+    """Slots per expert and group of ``t`` tokens, in Python floats as the
+    reference computes it."""
+    return max(int(math.ceil(t * spec.top_k / spec.n_experts
+                             * spec.capacity_factor)), spec.top_k)
+
+
+@dataclasses.dataclass
+class MoeRouting:
+    """The routing of G groups of T tokens: float32 router ``probs`` (G, T,
+    E); each (token, k) choice's ``expert`` (G, T, K), its ``gate``
+    (normalised top-k probability, zeroed where dropped) and its ``pos``
+    in the expert's queue; ``keep`` = ``pos < capacity``; the load-balance
+    ``aux`` loss (float32 scalar)."""
+    probs: torch.Tensor
+    expert: torch.Tensor
+    gate: torch.Tensor
+    pos: torch.Tensor
+    keep: torch.Tensor
+    capacity: int
+    aux: torch.Tensor
+
+
+def moe_route(router: torch.Tensor, xg: torch.Tensor,
+              spec: MoeSpec) -> MoeRouting:
+    """Route grouped tokens ``xg`` (G, T, d), the reference's steps: logits
+    of ``xg`` in float32 by the float32 router, softmax; the Switch aux
+    loss ``E * mean_g sum_e mean_t(probs) mean_t(one_hot(argmax))`` (first
+    maximum); the top-k by a stable descending sort, so ties go to the
+    lower expert index as ``lax.top_k`` breaks them (``torch.topk`` promises
+    no order on ties); gates over their clipped sum; a choice's queue
+    position is the count of earlier choices to its expert in flattened (t,
+    k) order, dropped ones included, and it is kept iff below capacity."""
+    g, t, _ = xg.shape
+    e, k = spec.n_experts, spec.top_k
+    probs = torch.softmax(xg.float() @ router.float(), dim=-1)
+    usage = F.one_hot(probs.argmax(dim=-1), e).float().mean(dim=1)
+    aux = (probs.mean(dim=1) * usage).sum(dim=-1).mean() * e
+    vals, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
+    gate, expert = vals[..., :k], idx[..., :k]
+    gate = gate / gate.sum(dim=-1, keepdim=True).clamp_min(1e-9)
+    sel = F.one_hot(expert.reshape(g, t * k), e)              # (G, T*K, E)
+    pos = ((sel.cumsum(dim=1) - sel) * sel).sum(dim=-1).reshape(g, t, k)
+    capacity = moe_capacity(t, spec)
+    keep = pos < capacity
+    return MoeRouting(probs, expert, gate * keep, pos, keep, capacity, aux)
+
+
+def moe_apply(p: Params, x: torch.Tensor,
+              spec: MoeSpec) -> tuple[torch.Tensor, torch.Tensor]:
+    """Top-k mixture of experts with capacity-factor dispatch. x: (B, S, d).
+    Returns (y (B, S, d) in x's dtype, the float32 aux loss).
+
+    Dispatch and combine are index gathers with the values of the
+    reference's one-hot (G, T, E, C) einsums: a choice is dispatched iff
+    its gate after the keep mask is > 0, to slot ``pos`` of its expert in
+    its group; each expert runs ``silu(xe w1) * (xe w3) w2`` on its (G, C)
+    slots (empty ones zero) in one batched product over (E, G * C, d) with
+    the weights in x's dtype; a token's output is the sum of its choices'
+    ``gate.to(x.dtype) * ye`` in float32, rounded once. No atomics: the
+    slot table is written at distinct indices only, so ``"cuda"`` is
+    deterministic. Arctic's dense residual adds the SwiGLU MLP of the same
+    normed input after the combine."""
+    b, s, d = x.shape
+    g_row = moe_groups(s, spec.group_size)
+    g, t = b * g_row, s // g_row
+    e, k = spec.n_experts, spec.top_k
+    xg = x.reshape(g, t, d)
+    r = moe_route(p["router"], xg, spec)
+    cap = r.capacity
+    dev = x.device
+
+    # (token, k) -> slot in the (E, G, C) expert batch
+    sent = r.gate > 0
+    group = torch.arange(g, device=dev)[:, None, None]
+    slot = (r.expert * g + group) * cap + r.pos.clamp(max=cap - 1)
+    # slot -> token (g * t: a zero row); a choice not sent writes an index
+    # of its own past the slots, so every index is written once
+    n_slots = e * g * cap
+    spare = n_slots + torch.arange(g * t * k, device=dev).reshape(g, t, k)
+    token = torch.arange(g * t, device=dev).reshape(g, t, 1).expand(g, t, k)
+    src = torch.full((n_slots + g * t * k,), g * t, dtype=torch.long,
+                     device=dev)
+    src[torch.where(sent, slot, spare).reshape(-1)] = token.reshape(-1)
+    xpad = torch.cat([xg.reshape(g * t, d), xg.new_zeros((1, d))])
+    xe = xpad[src[:n_slots]].reshape(e, g * cap, d)
+
+    h = F.silu(torch.bmm(xe, p["w1"].to(x.dtype))) \
+        * torch.bmm(xe, p["w3"].to(x.dtype))
+    ye = torch.bmm(h, p["w2"].to(x.dtype)).reshape(n_slots, d)
+
+    picked = ye[torch.where(sent, slot, 0)]                  # (G, T, K, d)
+    weight = r.gate.to(x.dtype).float()[..., None]
+    y = (weight * picked.float()).sum(dim=2).to(x.dtype)
+    if spec.dense_residual:
+        y = y + mlp_apply(p["dense"], xg)
+    return y.reshape(b, s, d), r.aux
+
+
+# ---------------------------------------------------------------------------
 # Mamba2 / SSD mixer
 # ---------------------------------------------------------------------------
 
@@ -320,10 +447,10 @@ def ssm_apply(p: Params, x: torch.Tensor, spec: SSMSpec,
     """Mamba2 block: prefill when ``cache`` is None, else one-token decode.
 
     ``cache = {"conv": (B, d_conv-1, conv_dim), "ssm": (B, H, P, N)}``;
-    decode writes the new state into it in place and returns it."""
-    if spec.n_groups != 1:
-        raise NotImplementedError("the SSD kernel takes one SSM group; "
-                                  "grouped B/C waits (ROADMAP queue 1 item 7)")
+    decode writes the new state into it in place and returns it. With
+    ``n_groups`` G > 1, head ``h`` reads group ``h // (H / G)``'s B and C
+    (the reference's ``repeat``): prefill runs one SSD scan per group of
+    heads."""
     b, s, _ = x.shape
     din = spec.d_inner
     gn = spec.n_groups * spec.d_state
@@ -343,8 +470,9 @@ def ssm_apply(p: Params, x: torch.Tensor, spec: SSMSpec,
     xbc = F.silu(_causal_conv(xin, conv_w, s) + p["conv_b"].to(x.dtype))
 
     xi = xbc[..., :din].reshape(b, s, spec.n_heads, spec.head_dim)
-    Bm = xbc[..., din:din + gn]                          # (B, S, N): one group
-    Cm = xbc[..., din + gn:]
+    ng = spec.n_groups
+    Bm = xbc[..., din:din + gn].reshape(b, s, ng, spec.d_state)
+    Cm = xbc[..., din + gn:].reshape(b, s, ng, spec.d_state)
     dt = F.softplus(dt.float() + p["dt_bias"])           # (B, S, H)
     A = -torch.exp(p["A_log"])                           # (H,)
 
@@ -356,24 +484,32 @@ def ssm_apply(p: Params, x: torch.Tensor, spec: SSMSpec,
                                 for t in (xi, dt, Bm, Cm))
         nc = (s + pad_s) // spec.chunk
         l = spec.chunk
-        y, final_state = ops.ssd_scan(
-            xi_p.float().reshape(b, nc, l, spec.n_heads, spec.head_dim),
-            dt_p.reshape(b, nc, l, spec.n_heads), A,
-            B_p.float().reshape(b, nc, l, gn),
-            C_p.float().reshape(b, nc, l, gn))
+        xs = xi_p.float().reshape(b, nc, l, spec.n_heads, spec.head_dim)
+        dts = dt_p.reshape(b, nc, l, spec.n_heads)
+        rep = spec.n_heads // ng
+        parts = [ops.ssd_scan(
+            xs[..., j * rep:(j + 1) * rep, :], dts[..., j * rep:(j + 1) * rep],
+            A[j * rep:(j + 1) * rep],
+            B_p[:, :, j].float().reshape(b, nc, l, spec.d_state),
+            C_p[:, :, j].float().reshape(b, nc, l, spec.d_state))
+            for j in range(ng)]
+        y, final_state = (parts[0] if ng == 1 else
+                          (torch.cat([q[0] for q in parts], dim=3),
+                           torch.cat([q[1] for q in parts], dim=1)))
         y = y.reshape(b, nc * l, spec.n_heads, spec.head_dim)[:, :s]
         new_cache = ({"conv": new_conv, "ssm": final_state}
                      if return_state else None)
     else:
         # one step: h' = h * exp(dt A) + dt * x B ; y = C h'
-        B1 = Bm[:, 0].float()[:, None, None, :]          # (B, 1, 1, N)
-        C1 = Cm[:, 0].float()                            # (B, N)
+        rep = spec.n_heads // ng                         # head h: group h // rep
+        B1 = Bm[:, 0].float().repeat_interleave(rep, dim=1)[:, :, None, :]
+        C1 = Cm[:, 0].float().repeat_interleave(rep, dim=1)  # (B, H, N)
         dt1 = dt[:, 0]                                   # (B, H)
         xv = xi[:, 0].float()                            # (B, H, P)
         decay = torch.exp(dt1 * A[None, :])[..., None, None]
         upd = dt1[..., None, None] * xv[..., None] * B1
         h_new = cache["ssm"].float() * decay + upd       # (B, H, P, N)
-        y = torch.einsum("bhpn,bn->bhp", h_new, C1)[:, None]
+        y = torch.einsum("bhpn,bhn->bhp", h_new, C1)[:, None]
         cache["ssm"].copy_(h_new)
         cache["conv"].copy_(new_conv)
         new_cache = cache

@@ -1,21 +1,22 @@
 """Decoder-LM skeleton of the port: the configuration record and the
-dense, ssm, hybrid, vlm and audio stacks.
+dense, moe, ssm, hybrid, vlm and audio stacks.
 
 Counterpart of ``repro.models.model``. ``ModelConfig`` keeps every field of
 the reference (dtype fields hold torch dtypes). Three stacks:
 
- * dense blocks (``dense``, ``vlm``, ``audio``): pre-norm attention and
-   MLP in every layer, each with its own KV cache. ``vlm`` prepends
-   ``n_patches`` projected vision embeddings to the text; ``audio`` sums
-   ``n_codebooks`` token embeddings per position and emits one logit row
-   per codebook;
+ * dense blocks (``dense``, ``moe``, ``vlm``, ``audio``): pre-norm
+   attention and MLP in every layer, each with its own KV cache; ``moe``
+   layers put the mixture of experts (``layers.moe_apply``) in the MLP's
+   place, and ``forward`` returns the mean of their load-balance losses.
+   ``vlm`` prepends ``n_patches`` projected vision embeddings to the text;
+   ``audio`` sums ``n_codebooks`` token embeddings per position and emits
+   one logit row per codebook;
  * Mamba2 blocks only (``ssm``), with an O(1) recurrent decode state;
  * ``hybrid`` (Zamba2): the Mamba2 stack with one shared attention block
    applied before every layer ``i % attn_every == 0``, each application
    with its own KV cache.
 
-``moe`` raises ``NotImplementedError`` (ROADMAP queue 1 item 7). The
-int8 KV cache (``kv_cache_quant``) runs on the dense-block stack; on the
+The int8 KV cache (``kv_cache_quant``) runs on the dense-block stack; on the
 hybrid stack it raises, because the reference's hybrid prefill keeps no
 scales and its decode fails (ROADMAP queue 3, R4).
 
@@ -47,7 +48,7 @@ import torch.utils.checkpoint
 
 from repro_torch.models import layers as L
 
-DENSE_ARCHS = ("dense", "vlm", "audio")
+DENSE_ARCHS = ("dense", "moe", "vlm", "audio")
 ARCH_TYPES = DENSE_ARCHS + ("ssm", "hybrid")
 
 
@@ -122,6 +123,15 @@ class ModelConfig:
             rope_theta=self.rope_theta, unroll=self.unroll)
 
     @property
+    def moe_spec(self) -> L.MoeSpec:
+        return L.MoeSpec(
+            d_model=self.d_model, d_ff=self.d_ff, n_experts=self.n_experts,
+            top_k=self.top_k, capacity_factor=self.capacity_factor,
+            group_size=self.moe_group_size,
+            dense_residual=self.moe_dense_residual,
+            dense_residual_ff=self.d_ff)
+
+    @property
     def ssm_spec(self) -> L.SSMSpec:
         return L.SSMSpec(
             d_model=self.d_model, d_state=self.ssm_state,
@@ -175,11 +185,7 @@ class ModelConfig:
         return dense_like + active
 
 
-def _require_ported(cfg: ModelConfig) -> None:
-    if cfg.arch_type == "moe":
-        raise NotImplementedError(
-            "arch_type 'moe' is not ported yet: the MoE family "
-            "(layers.moe_apply) is ROADMAP queue 1 item 7 (MoE)")
+def _require_known(cfg: ModelConfig) -> None:
     if cfg.arch_type not in ARCH_TYPES:
         raise ValueError(f"unknown arch_type {cfg.arch_type!r}")
 
@@ -251,52 +257,99 @@ def _ssm_init(gen, spec: L.SSMSpec, device) -> dict:
     }
 
 
-def _layer_init(gen, cfg: ModelConfig, device) -> dict:
-    """Params of one layer of the stack (the reference's ``_layer_init``)."""
+def _experts(gen, spec: L.MoeSpec, d_in: int, d_out: int, device,
+             to) -> torch.Tensor:
+    """(E, d_in, d_out) expert matrices drawn one expert at a time at scale
+    ``1 / sqrt(d_in)``, each cast by ``to`` as soon as it is drawn, into a
+    tensor of the cast's dtype: the peak is the cast stack plus one float32
+    expert matrix."""
+    scale = 1.0 / math.sqrt(d_in)
+    first = to(_normal(gen, (d_in, d_out), scale, device))
+    out = first.new_empty((spec.n_experts, d_in, d_out))
+    out[0] = first
+    for i in range(1, spec.n_experts):
+        out[i] = to(_normal(gen, (d_in, d_out), scale, device))
+    return out
+
+
+def _moe_init(gen, spec: L.MoeSpec, device, to) -> dict:
+    p = {"router": _normal(gen, (spec.d_model, spec.n_experts),
+                           1.0 / math.sqrt(spec.d_model), device),
+         "w1": _experts(gen, spec, spec.d_model, spec.d_ff, device, to),
+         "w3": _experts(gen, spec, spec.d_model, spec.d_ff, device, to),
+         "w2": _experts(gen, spec, spec.d_ff, spec.d_model, device, to)}
+    if spec.dense_residual:
+        p["dense"] = _mlp_init(gen, spec.d_model,
+                               spec.dense_residual_ff or spec.d_ff,
+                               "swiglu", device)
+    return p
+
+
+def _layer_init(gen, cfg: ModelConfig, device, to=lambda t: t) -> dict:
+    """Params of one layer of the stack (the reference's ``_layer_init``).
+    ``to`` casts an MoE layer's expert matrices as they are drawn."""
     d = cfg.d_model
     if cfg.arch_type in DENSE_ARCHS:
-        return {"ln1": L.norm_init(cfg.norm, d, device),
-                "attn": _attention_init(gen, cfg.attn_spec, device),
-                "ln2": L.norm_init(cfg.norm, d, device),
-                "mlp": _mlp_init(gen, d, cfg.d_ff, cfg.activation, device)}
+        p = {"ln1": L.norm_init(cfg.norm, d, device),
+             "attn": _attention_init(gen, cfg.attn_spec, device),
+             "ln2": L.norm_init(cfg.norm, d, device)}
+        if cfg.arch_type == "moe":
+            p["moe"] = _moe_init(gen, cfg.moe_spec, device, to)
+        else:
+            p["mlp"] = _mlp_init(gen, d, cfg.d_ff, cfg.activation, device)
+        return p
     return {"ln": L.norm_init(cfg.norm, d, device),
             "ssm": _ssm_init(gen, cfg.ssm_spec, device)}
 
 
-def cast_params(params: Any, dtype) -> Any:
-    """Cast every weight matrix (ndim >= 2) to ``dtype``, keeping 1-D params
-    (norms, biases, A_log / D / dt_bias) in float32 — the reference's
-    ``_apply_param_dtype``. Casting to ``cfg.compute_dtype`` once at load
-    gives the values every ``dense_apply`` would cast to."""
+def _cast_matrices(params: Any, dtype, keep: tuple = ()) -> Any:
     if isinstance(params, dict):
-        return {k: cast_params(v, dtype) for k, v in params.items()}
+        return {k: v if k in keep else _cast_matrices(v, dtype, keep)
+                for k, v in params.items()}
     if isinstance(params, list):
-        return [cast_params(v, dtype) for v in params]
+        return [_cast_matrices(v, dtype, keep) for v in params]
     return params.to(dtype) if params.dim() >= 2 else params
+
+
+def cast_params(params: Any, dtype) -> Any:
+    """The load-time cast: every weight matrix (ndim >= 2) to ``dtype``,
+    keeping 1-D params (norms, biases, A_log / D / dt_bias) in float32 and
+    the MoE ``router`` as it is. Casting to ``cfg.compute_dtype`` once at
+    load gives the values every ``dense_apply`` would cast to; the
+    reference never casts the router (``moe_apply`` multiplies float32
+    activations by it), and a bf16 router would move the routing."""
+    return _cast_matrices(params, dtype, keep=("router",))
 
 
 def init_params(cfg: ModelConfig, generator: torch.Generator,
                 device=None, cast=None) -> dict:
     """Random weights of the reference's distributions, drawn from
     ``generator`` on ``device`` (the generator's device by default), their
-    matrices in ``cfg.param_dtype``. With ``cast`` given, each piece (the
-    embedding, every layer, the shared block, the frontends) has its
-    matrices cast to ``cast`` as soon as it is drawn: the values of
+    matrices in ``cfg.param_dtype`` (the router too, as the reference's
+    ``_apply_param_dtype`` casts it). With ``cast`` given, each piece (the
+    embedding, every layer, the shared block, the frontends; an MoE
+    layer's expert matrices one expert at a time) has its matrices cast to
+    ``cast`` as soon as it is drawn: the values of
     ``cast_params(init_params(...), cast)``, with at most one float32 piece
     alive at a time."""
-    _require_ported(cfg)
+    _require_known(cfg)
     device = generator.device if device is None else device
     d = cfg.d_model
 
+    def to(t):
+        if cfg.param_dtype != torch.float32:
+            t = t.to(cfg.param_dtype)
+        return t if cast is None else t.to(cast)
+
     def done(tree):
         if cfg.param_dtype != torch.float32:
-            tree = cast_params(tree, cfg.param_dtype)
+            tree = _cast_matrices(tree, cfg.param_dtype)
         return tree if cast is None else cast_params(tree, cast)
 
     params = {
         "embed": done({"table": _normal(generator, (cfg.padded_vocab, d),
                                         0.02, device)}),
-        "layers": [done(_layer_init(generator, cfg, device))
+        "layers": [done(_layer_init(generator, cfg, device, to))
                    for _ in range(cfg.num_layers)],
         "final_norm": L.norm_init(cfg.norm, d, device),
     }
@@ -329,7 +382,7 @@ def embed_inputs(params: dict, batch: dict, cfg: ModelConfig) -> torch.Tensor:
     codebooks' embeddings (codebook 0 first, in the reference's order: in
     bf16 the order of the sum matters); vlm puts the projected vision
     embeddings, where the batch has them, before the text."""
-    _require_ported(cfg)
+    _require_known(cfg)
     dt = cfg.compute_dtype
     if cfg.arch_type == "audio":
         toks = batch["tokens"]                                 # (B, S, CB)
@@ -369,14 +422,18 @@ def _positions(b: int, s: int, device) -> torch.Tensor:
 def _attn_mlp_block(p: dict, x: torch.Tensor, positions: torch.Tensor,
                     cfg: ModelConfig, spec: L.AttnSpec, cache=None, cpos=None,
                     return_kv: bool = False):
-    """Pre-norm attention then MLP, with residuals: a dense layer, or the
-    hybrid stack's shared block. Returns (x, kv) as ``attention_apply``."""
+    """Pre-norm attention then MLP (an MoE layer: its mixture of experts),
+    with residuals: a dense-block layer, or the hybrid stack's shared
+    block. Returns (x, kv as ``attention_apply``, the MoE aux loss or
+    None)."""
     h, kv = L.attention_apply(p["attn"], L.norm_apply(cfg.norm, p["ln1"], x),
                               positions, spec, cache, cpos, return_kv)
     x = x + h
-    x = x + L.mlp_apply(p["mlp"], L.norm_apply(cfg.norm, p["ln2"], x),
-                        cfg.activation)
-    return x, kv
+    normed = L.norm_apply(cfg.norm, p["ln2"], x)
+    if "moe" in p:
+        h, aux = L.moe_apply(p["moe"], normed, cfg.moe_spec)
+        return x + h, kv, aux
+    return x + L.mlp_apply(p["mlp"], normed, cfg.activation), kv, None
 
 
 def _ssm_block(lp: dict, x: torch.Tensor, cfg: ModelConfig, cache=None,
@@ -400,21 +457,24 @@ def _attention_at(params: dict, i: int, cfg: ModelConfig):
 
 
 def _layer(params: dict, i: int, x: torch.Tensor, positions: torch.Tensor,
-           cfg: ModelConfig) -> torch.Tensor:
+           cfg: ModelConfig) -> tuple[torch.Tensor, Optional[torch.Tensor]]:
     """Layer ``i`` of the stack (the reference's scan body): its attention
-    block, if any, then for ssm and hybrid the Mamba2 block."""
+    block, if any, then for ssm and hybrid the Mamba2 block. Returns (x,
+    the MoE aux loss or None)."""
+    aux = None
     block = _attention_at(params, i, cfg)
     if block is not None:
-        x, _ = _attn_mlp_block(block, x, positions, cfg, cfg.attn_spec)
+        x, _, aux = _attn_mlp_block(block, x, positions, cfg, cfg.attn_spec)
     if cfg.arch_type not in DENSE_ARCHS:
         x, _ = _ssm_block(params["layers"][i], x, cfg)
-    return x
+    return x, aux
 
 
 def forward(params: dict, batch: dict, cfg: ModelConfig) -> tuple[torch.Tensor,
                                                                   torch.Tensor]:
     """Full-sequence forward (train / prefill). Returns (logits, aux); aux is
-    the MoE auxiliary loss, 0 for every ported family.
+    the mean of the MoE layers' load-balance losses, 0 for the other
+    families.
 
     With ``cfg.remat`` and grad enabled each layer runs under
     ``torch.utils.checkpoint`` (non-reentrant): its activations are dropped
@@ -424,13 +484,17 @@ def forward(params: dict, batch: dict, cfg: ModelConfig) -> tuple[torch.Tensor,
     b, s, _ = x.shape
     positions = _positions(b, s, x.device)
     remat = cfg.remat and torch.is_grad_enabled()
+    auxs = []
     for i in range(len(params["layers"])):
         if remat:
-            x = torch.utils.checkpoint.checkpoint(
+            x, aux = torch.utils.checkpoint.checkpoint(
                 _layer, params, i, x, positions, cfg, use_reentrant=False)
         else:
-            x = _layer(params, i, x, positions, cfg)
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+            x, aux = _layer(params, i, x, positions, cfg)
+        if aux is not None:
+            auxs.append(aux)
+    aux = torch.stack(auxs).mean() if auxs else \
+        torch.zeros((), dtype=torch.float32, device=x.device)
     return output_logits(params, x, cfg), aux
 
 
@@ -451,7 +515,7 @@ def train_loss(params: dict, batch: dict, cfg: ModelConfig
                ) -> tuple[torch.Tensor, dict]:
     """Mean next-token cross entropy of the logits against
     ``batch["labels"]`` (vlm: over the text positions only; audio: over
-    every codebook) plus the (zero) MoE auxiliary term. Returns (loss,
+    every codebook) plus ``moe_aux_weight`` times the MoE auxiliary loss. Returns (loss,
     {"loss", "xent", "moe_aux"})."""
     logits, aux = forward(params, batch, cfg)
     if cfg.arch_type == "vlm":
@@ -537,8 +601,8 @@ def prefill(params: dict, batch: dict, cfg: ModelConfig, max_seq_len: int,
     for i, lp in enumerate(params["layers"]):
         block = _attention_at(params, i, cfg)
         if block is not None:
-            x, (k, v) = _attn_mlp_block(block, x, positions, cfg,
-                                        cfg.attn_spec, return_kv=True)
+            x, (k, v), _ = _attn_mlp_block(block, x, positions, cfg,
+                                           cfg.attn_spec, return_kv=True)
             ks.append(k)
             vs.append(v)
         if cfg.arch_type not in DENSE_ARCHS:
@@ -557,7 +621,7 @@ def prefill(params: dict, batch: dict, cfg: ModelConfig, max_seq_len: int,
 def init_cache(cfg: ModelConfig, batch: int, seq_len: int,
                dtype=torch.bfloat16, device=None) -> dict:
     """Decode cache for a maximum context of ``seq_len`` tokens."""
-    _require_ported(cfg)
+    _require_known(cfg)
     dtype = _kv_cache_dtype(cfg, dtype)
 
     def stacked(tree: dict, n: int) -> dict:
@@ -599,8 +663,8 @@ def decode_step(params: dict, cache: dict, batch: dict, pos: torch.Tensor,
         block = _attention_at(params, i, cfg)
         if block is not None:
             kv = {k: t[site] for k, t in cache["kv"].items()}
-            x, _ = _attn_mlp_block(block, x, positions, cfg, spec, kv,
-                                   cache["kv_pos"][site])
+            x, _, _ = _attn_mlp_block(block, x, positions, cfg, spec, kv,
+                                      cache["kv_pos"][site])
             site += 1
         if cfg.arch_type not in DENSE_ARCHS:
             sc = {k: t[i] for k, t in cache["ssm"].items()}

@@ -776,6 +776,122 @@ def test_cuda_family_generation_matches_cpu_on_the_reduced_model(hopper,
                                   cpu.generate(prompt, 8, 70))
 
 
+MOE_ARCHS = ["mixtral-8x22b", "arctic-480b"]
+
+
+@pytest.mark.parametrize("arch", MOE_ARCHS)
+def test_cuda_moe_generation_matches_cpu_on_the_reduced_model(hopper, arch):
+    """The reduced MoE models in float32 on cuda against cpu, a 70-token
+    prompt past Mixtral's reduced window of 64: prefill logits within
+    1e-3, 8 greedy tokens equal, one K3 launch per layer per prefill."""
+    cfg = dataclasses.replace(TC.reduced(TC.get_config(arch)),
+                              compute_dtype=torch.float32)
+    gpu = GenerationServer(cfg, max_seq=80, bs=2, backend="cuda")
+    cpu = GenerationServer(cfg, max_seq=80, bs=2, backend="cpu",
+                           params=gpu.params)
+    assert gpu.params["layers"][0]["moe"]["router"].dtype == torch.float32
+    prompt = TC.make_batch(cfg, 70, 2, "prefill",
+                           torch.Generator().manual_seed(4))
+    n0 = K3.flash_attention.launches
+    lg, _ = gpu.prefill(prompt)
+    torch.cuda.synchronize()
+    assert K3.flash_attention.launches == n0 + cfg.num_layers
+    lc, _ = cpu.prefill(prompt)
+    torch.testing.assert_close(lg.cpu(), lc, rtol=1e-3, atol=1e-3)
+    np.testing.assert_array_equal(gpu.generate(prompt, 8, 70),
+                                  cpu.generate(prompt, 8, 70))
+
+
+@pytest.mark.parametrize("capacity_factor", [1.25, 0.5])
+@pytest.mark.parametrize("arch", MOE_ARCHS)
+def test_cuda_moe_apply_is_deterministic_and_matches_cpu(hopper, arch,
+                                                         capacity_factor):
+    """``moe_apply`` on cuda equals itself bitwise over two runs (its
+    dispatch writes distinct indices only: no atomics) and meets cpu
+    within 1e-3 with the same routing and drops, in float32, at s = 300
+    (two dispatch groups a row)."""
+    cfg = dataclasses.replace(TC.reduced(TC.get_config(arch)),
+                              compute_dtype=torch.float32,
+                              capacity_factor=capacity_factor)
+    spec = cfg.moe_spec
+    pg = TM.init_params(cfg, torch.Generator(device=hopper).manual_seed(5),
+                        hopper)["layers"][0]["moe"]
+    pc = T.tree_map(lambda t: t.cpu(), pg)
+    x = torch.randn((4, 300, cfg.d_model),
+                    generator=torch.Generator().manual_seed(6))
+    y1, aux1 = TM.L.moe_apply(pg, x.to(hopper), spec)
+    y2, aux2 = TM.L.moe_apply(pg, x.to(hopper), spec)
+    assert torch.equal(y1, y2) and torch.equal(aux1, aux2)
+    yc, auxc = TM.L.moe_apply(pc, x, spec)
+    torch.testing.assert_close(y1.cpu(), yc, rtol=1e-3, atol=1e-3)
+    torch.testing.assert_close(aux1.cpu(), auxc, rtol=1e-5, atol=1e-6)
+    xg = x.reshape(8, 150, cfg.d_model)
+    rg = TM.L.moe_route(pg["router"], xg.to(hopper), spec)
+    rc = TM.L.moe_route(pc["router"], xg, spec)
+    assert torch.equal(rg.expert.cpu(), rc.expert)
+    assert torch.equal(rg.keep.cpu(), rc.keep)
+    if capacity_factor == 0.5:
+        assert int((~rc.keep).sum()) > 0
+
+
+@pytest.mark.parametrize("capacity_factor", [1.25, 0.5])
+def test_cuda_moe_apply_matches_cpu_over_arctic_experts(hopper,
+                                                        capacity_factor):
+    """Arctic's routing at its served size, 128 experts over one group of
+    512 tokens a row (10 slots an expert, 4 at factor 0.5), at the reduced
+    width in float32: each choice's expert, queue position and keep mask
+    equal to cpu's in every group with no choice within 1e-6 of a tie,
+    choices dropped, y within 1e-3."""
+    cfg = dataclasses.replace(TC.reduced(TC.get_config("arctic-480b")),
+                              compute_dtype=torch.float32, n_experts=128,
+                              moe_group_size=1024,
+                              capacity_factor=capacity_factor)
+    spec = cfg.moe_spec
+    pg = TM.init_params(cfg, torch.Generator(device=hopper).manual_seed(9),
+                        hopper)["layers"][0]["moe"]
+    pc = T.tree_map(lambda t: t.cpu(), pg)
+    x = torch.randn((4, 512, cfg.d_model),
+                    generator=torch.Generator().manual_seed(10))
+    rg = TM.L.moe_route(pg["router"], x.to(hopper), spec)
+    rc = TM.L.moe_route(pc["router"], x, spec)
+    assert rc.capacity == {1.25: 10, 0.5: 4}[capacity_factor]
+    top = rc.probs.sort(dim=-1, descending=True).values[..., :3]
+    gaps = top[..., :-1] - top[..., 1:]
+    held = ((gaps <= 1e-6) & (gaps > 0)).sum(dim=(1, 2)) == 0
+    assert held.any()
+    for name in ("expert", "pos", "keep"):
+        assert torch.equal(getattr(rg, name).cpu()[held],
+                           getattr(rc, name)[held])
+    assert int((~rc.keep).sum()) > 0
+    yg, _ = TM.L.moe_apply(pg, x.to(hopper), spec)
+    yc, _ = TM.L.moe_apply(pc, x, spec)
+    torch.testing.assert_close(yg.cpu()[held], yc[held], rtol=1e-3,
+                               atol=1e-3)
+
+
+def test_cuda_grouped_ssm_matches_cpu(hopper):
+    """Two B/C groups: one K4 launch per group of heads in prefill, y and
+    the states within 1e-3 of cpu; then one decode step."""
+    spec = TM.L.SSMSpec(d_model=64, d_state=16, expand=2, head_dim=16,
+                        n_groups=2, chunk=32)
+    pc = TM._ssm_init(torch.Generator().manual_seed(7), spec, None)
+    pg = T.tree_map(lambda t: t.to(hopper), pc)
+    x = torch.randn((2, 70, 64), generator=torch.Generator().manual_seed(8))
+    n0 = K4.ssd_chunk.launches
+    yg, sg = TM.L.ssm_apply(pg, x.to(hopper), spec, return_state=True)
+    torch.cuda.synchronize()
+    assert K4.ssd_chunk.launches == n0 + 2
+    yc, sc = TM.L.ssm_apply(pc, x, spec, return_state=True)
+    torch.testing.assert_close(yg.cpu(), yc, rtol=1e-3, atol=1e-3)
+    for name in ("conv", "ssm"):
+        torch.testing.assert_close(sg[name].cpu(), sc[name], rtol=1e-3,
+                                   atol=1e-3)
+    x1 = torch.randn((2, 1, 64), generator=torch.Generator().manual_seed(9))
+    dg, _ = TM.L.ssm_apply(pg, x1.to(hopper), spec, sg)
+    dc, _ = TM.L.ssm_apply(pc, x1, spec, sc)
+    torch.testing.assert_close(dg.cpu(), dc, rtol=1e-3, atol=1e-3)
+
+
 def test_cuda_int8_cache_decodes_as_cpu(hopper):
     """The int8 KV cache on cuda against cpu: prefill logits within 1e-3
     and 8 greedy tokens equal on the reduced stablelm-1.6b."""

@@ -136,8 +136,10 @@ def family(request):
 # configurations and trees
 # ---------------------------------------------------------------------------
 
-def test_configs_match_the_reference_and_moe_is_refused():
-    assert TC.ARCH_IDS == [a for a in J_ARCH_IDS if a not in TC.MOE_IDS]
+def test_configs_match_the_reference_for_all_ten():
+    """``ARCH_IDS`` is the reference's list, in its order, and every
+    configuration (the MoE pair included) holds the reference's fields."""
+    assert TC.ARCH_IDS == J_ARCH_IDS and len(TC.ARCH_IDS) == 10
     for arch in TC.ARCH_IDS:
         jcfg, tcfg = j_get_config(arch), TC.get_config(arch)
         for f in dataclasses.fields(jcfg):
@@ -145,11 +147,9 @@ def test_configs_match_the_reference_and_moe_is_refused():
                 assert getattr(tcfg, f.name) == getattr(jcfg, f.name), \
                     (arch, f.name)
         assert tcfg.param_count() == jcfg.param_count(), arch
+        assert tcfg.active_param_count() == jcfg.active_param_count(), arch
         assert tcfg.padded_vocab == jcfg.padded_vocab, arch
         assert tcfg.resolved_head_dim == jcfg.resolved_head_dim, arch
-    for arch in TC.MOE_IDS:
-        with pytest.raises(NotImplementedError, match="queue 1 item 7"):
-            TC.get_config(arch)
     with pytest.raises(ValueError, match="unknown"):
         TC.get_config("gpt-5")
 
@@ -200,16 +200,6 @@ def test_rope_frequencies_are_the_references(theta, head_dim):
     np.testing.assert_array_equal(
         TL.rope_frequencies(head_dim, theta).numpy(),
         np.asarray(JL.rope_frequencies(head_dim, theta)))
-
-
-def test_moe_arch_type_is_refused():
-    _, tcfg = cfgs("stablelm-1.6b")
-    moe = dataclasses.replace(tcfg, arch_type="moe")
-    for fn in (lambda: TM.init_params(moe, torch.Generator()),
-               lambda: TM.init_cache(moe, 1, 8),
-               lambda: TM.embed_inputs({}, {}, moe)):
-        with pytest.raises(NotImplementedError, match="queue 1 item 7"):
-            fn()
 
 
 # ---------------------------------------------------------------------------

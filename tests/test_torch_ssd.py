@@ -6,7 +6,8 @@ to the Pallas kernel in interpret mode within rtol 2e-4, atol 1e-4 (the
 tolerance ``tests/test_kernels.py`` sets for the kernel); the full scan is
 held to ``repro.kernels.ops.ssd_scan`` and ``layers.ssd_chunked``, and the
 Mamba2 block (prefill at a length that is not a chunk multiple, and the
-one-step decode) to ``layers.ssm_apply``, all in float32. The plain
+one-step decode, with one B/C group and with two) to ``layers.ssm_apply``,
+all in float32. The plain
 backward (``ssd_chunk_bwd_plain``) is held to ``jax.vjp`` of
 ``ssd_chunk_ref``, and the gradient of ``ops.ssd_scan`` to ``jax.grad`` of
 ``layers.ssd_chunked``, element by element within 2e-4 of |value| plus
@@ -222,6 +223,46 @@ def test_ssm_decode_step_matches_the_reference_block():
           "ssm": torch.from_numpy(ssm.copy())}
     ty, tc2 = TL.ssm_apply(tp, torch.from_numpy(x), TL.SSMSpec(**SPEC), tc)
     assert tc2 is tc                                  # updated in place
+    np.testing.assert_allclose(ty.numpy(), np.asarray(jy), **TOL)
+    for name in ("conv", "ssm"):
+        np.testing.assert_allclose(tc[name].numpy(), np.asarray(jc[name]),
+                                   **TOL)
+
+
+GROUPED = dict(SPEC, n_groups=2)          # 8 heads: 0-3 read group 0
+
+
+@pytest.mark.parametrize("s", [37, 32])
+def test_grouped_ssm_prefill_matches_the_reference_block(s):
+    """Two B/C groups: one SSD scan per group of heads, y and the final
+    state as the reference's ``repeat`` of B and C gives them."""
+    spec = JL.SSMSpec(**GROUPED)
+    jp = JL.ssm_init(jax.random.key(2), spec)
+    tp = jax.tree.map(lambda a: torch.from_numpy(np.array(a)), jp)
+    x = np.random.default_rng(7).standard_normal((2, s, 64)).astype(np.float32)
+    jy, jst = JL.ssm_apply(jp, jnp.asarray(x), spec, return_state=True)
+    ty, tst = TL.ssm_apply(tp, torch.from_numpy(x), TL.SSMSpec(**GROUPED),
+                           return_state=True)
+    np.testing.assert_allclose(ty.numpy(), np.asarray(jy), **TOL)
+    for name in ("conv", "ssm"):
+        np.testing.assert_allclose(tst[name].numpy(), np.asarray(jst[name]),
+                                   **TOL)
+
+
+def test_grouped_ssm_decode_step_matches_the_reference_block():
+    spec = JL.SSMSpec(**GROUPED)
+    jp = JL.ssm_init(jax.random.key(3), spec)
+    tp = jax.tree.map(lambda a: torch.from_numpy(np.array(a)), jp)
+    rng = np.random.default_rng(8)
+    conv = rng.standard_normal((2, 3, spec.d_inner + 2 * 2 * 16)).astype(
+        np.float32)
+    ssm = rng.standard_normal((2, spec.n_heads, 16, 16)).astype(np.float32)
+    x = rng.standard_normal((2, 1, 64)).astype(np.float32)
+    jy, jc = JL.ssm_apply(jp, jnp.asarray(x), spec,
+                          {"conv": jnp.asarray(conv), "ssm": jnp.asarray(ssm)})
+    tc = {"conv": torch.from_numpy(conv.copy()),
+          "ssm": torch.from_numpy(ssm.copy())}
+    ty, _ = TL.ssm_apply(tp, torch.from_numpy(x), TL.SSMSpec(**GROUPED), tc)
     np.testing.assert_allclose(ty.numpy(), np.asarray(jy), **TOL)
     for name in ("conv", "ssm"):
         np.testing.assert_allclose(tc[name].numpy(), np.asarray(jc[name]),
