@@ -99,17 +99,19 @@ each and stopping with a traceback at the first failure:
     (``FAMILIES``), each through ``GenerationServer`` at full width and
     depth in bf16 (bs 4, a 512-position prompt, internvl2-1b's 256 vision
     patches and 256 text tokens, 16 greedy tokens): load s and peak
-    memory, wall, prefill ms, decode ms per token, and one K3 launch per
-    attention layer (K4 per Mamba2 layer) per prefill. stablelm-12b's head
-    dim 160 is not one K3 takes: a 1-layer copy on ``"cuda"`` must raise
-    K3's ``ValueError`` and launch nothing. Then a 1-layer full-width
-    float32 copy of each on ``"cuda"`` and on ``"cpu"`` (bs 2, 64 text
-    tokens): logits within 1e-3, 8 greedy tokens equal up to the first
-    step whose top-two logits on ``"cpu"`` lie within that tolerance
-    (reported). mamba2-780m and internvl2-1b also take one float32
-    training step on both (bs 2 x 256 text tokens): losses within 1e-4,
-    gradients within 1e-3 of each leaf's largest |g| (K4's backward at
-    n = 128, K3's under GQA 7).
+    memory, wall, prefill ms, decode ms per token beside their bounds
+    (every weight outside the vocabulary tables times every prompt token
+    at the bf16 rate; every bf16 weight read once a token), and one K3
+    launch per attention layer (K4 per Mamba2 layer) per prefill;
+    stablelm-12b's at head dim 160. Then a 1-layer full-width float32 copy
+    of each on ``"cuda"`` and on ``"cpu"`` (bs 2, 64 text tokens): logits
+    within 1e-3, 8 greedy tokens equal up to the first step whose top-two
+    logits on ``"cpu"`` lie within that tolerance (reported).
+    mamba2-780m, internvl2-1b and stablelm-12b also take one float32
+    training step on both (``FAM_TRAIN``'s batch x 256 text tokens):
+    losses within 1e-4, gradients within 1e-3 of each leaf's largest |g|
+    (K4's backward at n = 128, K3's under GQA 7 and at D = 160 under GQA
+    4).
 13. ``moe``: mixtral-8x22b and arctic-480b at full published width with
     their depth cut to fit the card (``MOE_LAYERS``: 12 of 56 and 2 of 35
     layers), each served as the families are, in bf16: load s, peak
@@ -123,11 +125,10 @@ each and stopping with a traceback at the first failure:
     one prompt of 8704 tokens, past its 8192-token window (its dispatch in
     8 groups of 1088): K3 launched once per layer with that window, a KV
     cache of 8192 slots, finite logits, 8 greedy tokens. Then float32
-    copies cuda against cpu as the families' (2 Mixtral layers; 1 Arctic
-    layer with 16 of its 128 experts), and one
-    layer's ``moe_apply`` on a (4, 512, d) input: twice on cuda, bitwise
-    equal, and its routing, drops and y equal to cpu's away from near
-    ties (counted).
+    copies cuda against cpu as the families' (1 Mixtral layer; 1 Arctic
+    layer with 16 of its 128 experts), and one layer's ``moe_apply`` on a
+    (2, 512, d) input: twice on cuda, bitwise equal, and its routing,
+    drops and y equal to cpu's away from near ties (counted).
 14. ``serve_interleaved``: ``ManagedInterleaveRuntime`` (no trainer) over
     ``BatchInferenceServer(zamba2-1.2b, seq_len 2048, bs 8)`` and a uniform
     trace at 80% of the measured minibatch rate for 5 s: p50 / p99 latency
@@ -167,7 +168,10 @@ its share of ``SSD_TOL``'s ``allclose`` limit for y and the states (at
 ``SSD_SHAPE`` the largest over ``SSD_DRAWS`` input draws). For the
 families: K4 both ways at mamba2-780m's serving shape (``SSD_N128_SHAPE``,
 n = 128) and K3 at minitron-4b's prefill (``ATTN_GQA_SHAPE``, D = 128),
-timed with their bounds; for the MoE pair, K3 at each configuration's
+timed with their bounds; K3 at stablelm-12b's head dim 160, both ways at
+its prefill (``ATTN_D160_SHAPE``) beside SDPA and its backward, and at
+a ragged windowed shape (``ATTN_D160_CHECKS``) in both types, and a head
+dim outside ``HEAD_DIMS`` refused with no launch; for the MoE pair, K3 at each configuration's
 prefill (``moe_attention_shapes``: Mixtral's GQA 6 and Arctic's GQA 7)
 and at Mixtral's windowed prompt, beside SDPA (given the window as a
 mask).
@@ -358,25 +362,34 @@ SSD_DRAWS = 4
 # the families phase: each configuration of the dense, ssm, vlm and audio
 # families served at full width and depth in bf16 (bs 4, a 512-position
 # prompt: internvl2-1b's is 256 vision patches and 256 text tokens, 16
-# greedy tokens); stablelm-12b (head dim 160, which K3 does not take) shows
-# its refusal on a FAM_PARITY_LAYERS copy. Then each on such a full-width
-# float32 copy, cuda against cpu (bs 2, 64 text tokens after any patches,
-# 8 greedy tokens), and a float32 training step of FAM_TRAIN's two (bs 2 x
-# 256 text tokens after any patches): K4's backward at n = 128, K3's under
-# GQA 7. The copies are one layer deep to keep the script's time
+# greedy tokens; stablelm-12b's K3 at head dim 160). Then each on such a
+# full-width float32 copy, cuda against cpu (bs 2, 64 text tokens after any
+# patches, 8 greedy tokens), and a float32 training step of FAM_TRAIN's
+# three (the batch given x 256 text tokens after any patches): K4's
+# backward at n = 128, K3's under GQA 7 and at D = 160 under GQA 4
+# (stablelm-12b's step on cpu, 1.31 B float32 parameters with AdamW's m
+# and v, takes ~20 s, so its batch is 1). The copies are one layer deep to
+# keep the script's time
 FAMILIES = ("stablelm-1.6b", "minitron-4b", "qwen2.5-14b", "stablelm-12b",
             "mamba2-780m", "internvl2-1b", "musicgen-medium")
-FAM_REFUSED = {"stablelm-12b": "head dims"}
 FAM_BS, FAM_PROMPT, FAM_STEPS = 4, 512, 16
 FAM_PARITY_BS, FAM_PARITY_TEXT, FAM_PARITY_STEPS = 2, 64, 8
 FAM_PARITY_LAYERS = 1
-FAM_TRAIN = ("mamba2-780m", "internvl2-1b")
-FAM_TRAIN_BS, FAM_TRAIN_TEXT = 2, 256
+FAM_TRAIN = {"mamba2-780m": 2, "internvl2-1b": 2, "stablelm-12b": 1}
+FAM_TRAIN_TEXT = 256
 # the kernel phase's checks at those shapes: K4 at mamba2-780m's serving
 # shape (bs 8 x 2048 tokens: 48 heads, p 64, n 128), both ways; K3 at
 # minitron-4b's prefill (bs 4 x 512, 24 heads, D = 128)
 SSD_N128_SHAPE = (8, 8, 256, 48, 64, 128)
 ATTN_GQA_SHAPE = (4, 24, 512, 128)
+# K3 at stablelm-12b's head dim (5120 / 32 = 160): its prefill after
+# _repeat_kv (bs 4 x 512, 32 heads from 8 KV heads), both ways, timed; a
+# ragged S with a window, both ways in float32 and bf16 (the forward in
+# bf16 timed beside SDPA given the window as a mask); and a head dim
+# outside HEAD_DIMS, which must raise and launch nothing
+ATTN_D160_SHAPE = (FAM_BS, 32, FAM_PROMPT, 160)
+ATTN_D160_CHECKS = ((1, 32, 300, 160, 64),)
+ATTN_REFUSED_D = 96
 # the moe phase: mixtral-8x22b and arctic-480b at full published width with
 # the depth cut to fit one card (bf16 layers of 5.01 and 27.2 GB), each
 # served as the families are (FAM_BS, FAM_PROMPT, FAM_STEPS); Mixtral's
@@ -384,13 +397,17 @@ ATTN_GQA_SHAPE = (4, 24, 512, 128)
 # whose dispatch falls into 8 groups of 1088 tokens, then greedy tokens);
 # float32 copies cuda against cpu as the families' are, cut further (a
 # float32 Arctic layer with 128 experts is 54.4 GB), and one layer's
-# moe_apply on a (B, S, d) input on both, whose routing is held equal
-# except for choices within MOE_NEAR_TIE of a tie
+# moe_apply on a (B, S, d) input on both (MOE_PARITY_APPLY_SHAPE; the
+# served bf16 layer's on the card at MOE_APPLY_SHAPE), whose routing is
+# held equal except for choices within MOE_NEAR_TIE of a tie. The float32
+# copies' cpu halves are most of the phase's time: the Mixtral copy is one
+# layer deep and the parity input bs 2, to keep the script's time
 MOE_LAYERS = {"mixtral-8x22b": 12, "arctic-480b": 2}
 MOE_WINDOW_PROMPT, MOE_WINDOW_STEPS = 8704, 8
-MOE_PARITY_CUTS = {"mixtral-8x22b": dict(num_layers=2),
+MOE_PARITY_CUTS = {"mixtral-8x22b": dict(num_layers=1),
                    "arctic-480b": dict(num_layers=1, n_experts=16)}
 MOE_APPLY_SHAPE = (4, 512)
+MOE_PARITY_APPLY_SHAPE = (2, 512)
 MOE_NEAR_TIE = 1e-6
 # the served bf16 layer's moe_apply against a plain dispatch on the card:
 # y within this share of its largest |y| (bf16 products of other shapes)
@@ -827,6 +844,49 @@ def time_attention(torch, K3, gen, dev, reps: int) -> dict:
             "train_shape": train, "checks": checks}
 
 
+def check_head_dim_refused(torch, K3, dev) -> dict:
+    """K3 on a head dim outside ``HEAD_DIMS`` (``ATTN_REFUSED_D``): a
+    ``ValueError`` naming the head dims it takes, and no launch — no
+    fallback to the plain version."""
+    q = torch.zeros((1, 2, 64, ATTN_REFUSED_D), dtype=torch.bfloat16,
+                    device=dev)
+    n0 = K3.flash_attention.launches
+    try:
+        K3.flash_attention(q, q, q)
+    except ValueError as e:
+        msg = str(e)
+    else:
+        fail(f"flash_attention at head dim {ATTN_REFUSED_D} did not raise")
+    if str(K3.HEAD_DIMS) not in msg or K3.flash_attention.launches != n0:
+        fail(f"flash_attention at head dim {ATTN_REFUSED_D}: expected a "
+             f"refusal naming {K3.HEAD_DIMS} and no launch, got {msg!r} and "
+             f"{K3.flash_attention.launches - n0} launch(es)")
+    return {"head_dim": ATTN_REFUSED_D, "refused": msg}
+
+
+def time_attention_d160(torch, K3, gen, dev) -> dict:
+    """K3 at head dim 160: forward and backward in bf16 at
+    ``ATTN_D160_SHAPE``, timed beside SDPA and its backward; the
+    ``ATTN_D160_CHECKS`` shapes both ways in float32 and bf16, the bf16
+    forward timed beside SDPA with the window as a mask; and
+    ``check_head_dim_refused``."""
+    fwd = attention_fwd_timed(torch, K3, ATTN_D160_SHAPE, gen, dev, 10, 2)
+    bwd = attention_bwd_timed(torch, K3, ATTN_D160_SHAPE, gen, dev, 10, 1)
+    edges, checks = [], []
+    for (b, h, s, d, window) in ATTN_D160_CHECKS:
+        edges.append(attention_fwd_timed(torch, K3, (b, h, s, d), gen, dev,
+                                         10, 2, window=window))
+        for dtype in (torch.float32, torch.bfloat16):
+            checks.append(check_attention(torch, K3, (b, h, s, d), dtype,
+                                          window, gen, dev)[1])
+            checks.append({"backward": True, **check_attention_bwd(
+                torch, K3, (b, h, s, d), dtype, window, gen, dev)[1]})
+    torch.cuda.empty_cache()
+    return {"forward": fwd, "backward": bwd, "edges": edges,
+            "checks": checks, "refusal": check_head_dim_refused(torch, K3,
+                                                                dev)}
+
+
 def ssd_case(torch, shape, gen, dev):
     """Mamba2-like SSD inputs: dt = softplus(N(0,1) - 2), A in -[1, 16)."""
     b, nc, l, h, p, n = shape
@@ -1209,6 +1269,8 @@ def phase_kernels(torch, np, rt, K1, K2, K3, K4, K5, seed: int) -> dict:
     k4b_n128 = time_ssd_bwd(torch, K4, gen, dev, reps=5,
                             shape=SSD_N128_SHAPE)
     k3_d128 = attention_fwd_timed(torch, K3, ATTN_GQA_SHAPE, gen, dev, 10, 2)
+    # stablelm-12b's: K3 at head dim 160, both ways
+    k3_d160 = time_attention_d160(torch, K3, gen, dev)
     # the moe phase's: each configuration's prefill, and Mixtral's prompt
     # past its window
     k3_moe = {name: attention_fwd_timed(torch, K3, shape, gen, dev,
@@ -1235,6 +1297,7 @@ def phase_kernels(torch, np, rt, K1, K2, K3, K4, K5, seed: int) -> dict:
            "tiled_matmul": k5, "fused_window": kf,
            "ssd_chunk_n128": k4_n128, "ssd_chunk_bwd_n128": k4b_n128,
            "flash_attention_d128_gqa": k3_d128,
+           "flash_attention_d160": k3_d160,
            "flash_attention_moe": k3_moe,
            "fused_window_library": "no single PyTorch call plans, admits "
                                    "and folds a window"}
@@ -2637,36 +2700,6 @@ def family_parity(torch, np, rt, gpu, cpu, seed: int) -> dict:
             "tokens_equal": not parted, "tokens_cpu": tc[0].tolist()}
 
 
-def family_refusal(torch, rt, launches: Launches, cfg, seed: int,
-                   words: str) -> dict:
-    """A FAM_PARITY_LAYERS full-width copy on cuda must refuse at K3 (a
-    ``ValueError``
-    naming ``words``) and launch nothing: no fallback to the plain
-    version."""
-    C, SV = rt["C"], rt["SV"]
-    small = dataclasses.replace(cfg, num_layers=FAM_PARITY_LAYERS)
-    srv = SV.GenerationServer(small, max_seq=FAM_PARITY_TEXT + 1,
-                              bs=FAM_PARITY_BS, seed=seed, backend="cuda")
-    prompt = C.make_batch(small, FAM_PARITY_TEXT, FAM_PARITY_BS, "prefill",
-                          torch.Generator().manual_seed(seed))
-    launches.reset()
-    try:
-        srv.prefill(prompt)
-    except ValueError as e:
-        msg = str(e)
-    else:
-        fail(f"families {cfg.name}: prefill on cuda at head dim "
-             f"{cfg.resolved_head_dim} did not raise")
-    counts = launches.read(f"families {cfg.name}", ())
-    if words not in msg or counts["flash_attention"]:
-        fail(f"families {cfg.name}: expected K3's refusal ({words!r}) and "
-             f"no launch, got {msg!r} and {counts['flash_attention']}")
-    del srv
-    torch.cuda.empty_cache()
-    return {"arch": cfg.name, "head_dim": cfg.resolved_head_dim,
-            "refused": msg, "launches": counts}
-
-
 def serve_family(torch, rt, launches: Launches, cfg, seed: int,
                  check=None) -> dict:
     """``GenerationServer`` at full width and depth in bf16: load, one
@@ -2733,40 +2766,50 @@ def serve_family(torch, rt, launches: Launches, cfg, seed: int,
             **served}
 
 
+def prefill_bound_ms(cfg, bs: int, plen: int) -> float:
+    """A prefill's least time on the card: every weight outside the
+    vocabulary tables (``param_count`` counts one table, audio one a
+    codebook) times every prompt position, 2 flops each, at the bf16
+    rate. Attention's own products and the last position's head are left
+    out, so it is a lower bound."""
+    tables = cfg.padded_vocab * cfg.d_model * (
+        cfg.n_codebooks if cfg.arch_type == "audio" else 1)
+    flops = 2.0 * (cfg.param_count() - tables) * bs * plen
+    return 1e3 * flops / OPS_PER_S["bfloat16"]
+
+
 def phase_families(torch, np, rt, launches: Launches, seed: int) -> dict:
     """The dense, ssm, vlm and audio configurations: each served at full
-    width and depth on the card (or refused, where K3 does not take its
-    head dim), a FAM_PARITY_LAYERS float32 copy cuda against cpu, and
-    FAM_TRAIN's float32 training step cuda against cpu."""
+    width and depth on the card, a FAM_PARITY_LAYERS float32 copy cuda
+    against cpu, and FAM_TRAIN's float32 training step cuda against
+    cpu."""
     C = rt["C"]
     runs, total = {}, {name: 0 for name in launches.wrappers}
     for arch in FAMILIES:
         cfg = C.get_config(arch)
         t0 = time.perf_counter()
-        if arch in FAM_REFUSED:
-            rec = family_refusal(torch, rt, launches, cfg, seed,
-                                 FAM_REFUSED[arch])
-        else:
-            rec = serve_family(torch, rt, launches, cfg, seed)
-            total = add_counts(total, rec["launches"])
-            gpu, cpu = parity_servers(torch, rt, cfg, seed)
-            rec["parity"] = family_parity(torch, np, rt, gpu, cpu, seed)
-            del gpu, cpu
-            torch.cuda.empty_cache()
+        rec = serve_family(torch, rt, launches, cfg, seed)
+        rec["prefill_bound_ms"] = prefill_bound_ms(cfg, FAM_BS, FAM_PROMPT)
+        total = add_counts(total, rec["launches"])
+        gpu, cpu = parity_servers(torch, rt, cfg, seed)
+        rec["parity"] = family_parity(torch, np, rt, gpu, cpu, seed)
+        del gpu, cpu
+        torch.cuda.empty_cache()
         if arch in FAM_TRAIN:
             rec["train_parity"] = train_parity(
-                torch, np, rt, cfg, seed, bs=FAM_TRAIN_BS,
+                torch, np, rt, cfg, seed, bs=FAM_TRAIN[arch],
                 seq=prompt_len(cfg, FAM_TRAIN_TEXT), launches=launches,
                 layers=FAM_PARITY_LAYERS)
+            torch.cuda.empty_cache()
         rec["wall_s_all"] = time.perf_counter() - t0
         runs[arch] = rec
         emit({"phase": "families." + arch, **rec})
     out = {"phase": "families", "archs": list(FAMILIES),
            "launches": total,
            "summary": {a: {k: r.get(k) for k in
-                           ("prefill_ms", "decode_ms_per_token",
-                            "decode_weights_bound_ms", "load_s",
-                            "max_memory_allocated_bytes", "refused")}
+                           ("prefill_ms", "prefill_bound_ms",
+                            "decode_ms_per_token", "decode_weights_bound_ms",
+                            "load_s", "max_memory_allocated_bytes")}
                        for a, r in runs.items()}}
     emit(out)
     return out
@@ -2950,14 +2993,14 @@ def moe_served_check(torch, rt, srv, seed: int) -> dict:
 
 def moe_apply_parity(torch, rt, gpu, cpu, seed: int) -> dict:
     """The first layer's ``moe_apply`` of a ``parity_servers`` pair on a
-    MOE_APPLY_SHAPE input, twice on cuda (bitwise equal: no atomics) and
-    once on cpu: the routing as ``compare_routing`` holds it, y within
-    MODEL_TOL in the groups it compares."""
+    MOE_PARITY_APPLY_SHAPE input, twice on cuda (bitwise equal: no
+    atomics) and once on cpu: the routing as ``compare_routing`` holds it,
+    y within MODEL_TOL in the groups it compares."""
     L, cfg = rt["L"], gpu.cfg
     dev = torch.device("cuda")
     spec = cfg.moe_spec
     pg, pc = (srv.params["layers"][0]["moe"] for srv in (gpu, cpu))
-    b, s = MOE_APPLY_SHAPE
+    b, s = MOE_PARITY_APPLY_SHAPE
     x = torch.randn((b, s, cfg.d_model), device=dev,
                     generator=torch.Generator(device=dev).manual_seed(seed))
     yg, aux_g = L.moe_apply(pg, x, spec)

@@ -16,8 +16,12 @@
 // consumer warpgroups and one producer warp owns (one batch x head, one
 // 128-query tile), 64 query rows per warpgroup; on the TPU the KV axis is
 // the innermost grid axis with m, l, acc in VMEM scratch, here the block
-// loops over key tiles itself (128 keys at D = 64, 64 at D = 128, where
-// the accumulators need the registers) and m, l, acc stay in registers.
+// loops over key tiles itself (128 keys at D = 64, 64 at D = 128 and 160,
+// where the accumulators need the registers) and m, l, acc stay in
+// registers. D = 160 fills whole 64-column blocks (hopper.cuh): TMA
+// zero-fills columns 160-191, Q K^T steps over the 160 real columns, and
+// P V is one wgmma at N = 192 whose 16 padded accumulator registers a
+// thread (96 in all, against 64 at D = 128) are never stored.
 // The producer loads Q once and streams K and V through a two-stage ring
 // in shared memory with TMA (hopper.cuh's layout: 128-byte swizzle, rows
 // past S as zeros), completing on mbarriers, so the next tile loads while
@@ -37,9 +41,11 @@
 // float32, on CUDA cores (flash_attention_kernel): one block of 256
 // threads per (batch x head, 64-query tile) loops over 64-key tiles;
 // each thread holds 4 query rows x 4 key columns of the score tile and
-// 4 rows x D/16 output columns, and Q, K (transposed), V and the tile's
-// probabilities sit in shared memory as float32. TF32 would miss the
-// float32 tolerance; float32 runs only in the port's parity tests.
+// 4 rows x D/16 output columns (4 in each 64-column group and, at D = 160,
+// 2 of the last 32 columns), and Q, K (transposed), V and the tile's
+// probabilities sit in shared memory as float32 (141,824 bytes at 160).
+// TF32 would miss the float32 tolerance; float32 runs only in the port's
+// parity tests.
 //
 // What bounds it: operations, 4 D flops per visible (query, key) pair at
 // the bf16 tensor-core rate (device memory sees q, k, v and o about once
@@ -88,6 +94,8 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                        float* __restrict__ lse, int64_t S, int window,
                        float scale) {
   constexpr int NC = D / 64;         // 64-column groups of the output
+  constexpr int TAIL = D % 64 / 16;  // columns a thread owns past them
+  constexpr int NA = 4 * NC + TAIL;
   extern __shared__ float4 smem4[];
   float* Qt = reinterpret_cast<float*>(smem4);   // [D][kBQ]
   float* Kt = Qt + D * kBQ;                      // [D][kLDK]
@@ -108,13 +116,13 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     Qt[d * kBQ + r] = row < S ? to_f(qb[row * D + d]) : 0.f;
   }
 
-  float m[4], l[4], acc[4][4 * NC];
+  float m[4], l[4], acc[4][NA];
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     m[i] = kNegInf;
     l[i] = 0.f;
 #pragma unroll
-    for (int c = 0; c < 4 * NC; ++c) acc[i][c] = 0.f;
+    for (int c = 0; c < NA; ++c) acc[i][c] = 0.f;
   }
 
   // key tiles that hold a key visible to some query of this tile
@@ -176,7 +184,7 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
       l[i] = l[i] * alpha + row_sum(ps);
       m[i] = m_new;
 #pragma unroll
-      for (int c = 0; c < 4 * NC; ++c) acc[i][c] *= alpha;
+      for (int c = 0; c < NA; ++c) acc[i][c] *= alpha;
       *reinterpret_cast<float4*>(&Ps[(ty * 4 + i) * kBK + tx * 4]) =
           make_float4(s[i][0], s[i][1], s[i][2], s[i][3]);
     }
@@ -205,6 +213,12 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
             acc[i][g * 4 + 3] = fmaf(pv[i][u], w.w, acc[i][g * 4 + 3]);
           }
         }
+        const float* wt = &Vs[(kk + u) * D + NC * 64 + tx * TAIL];
+#pragma unroll
+        for (int c = 0; c < TAIL; ++c)
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+            acc[i][4 * NC + c] = fmaf(pv[i][u], wt[c], acc[i][4 * NC + c]);
       }
     }
   }
@@ -221,6 +235,9 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
       for (int u = 0; u < 4; ++u)
         from_f(&ob[row * D + g * 64 + tx * 4 + u], acc[i][g * 4 + u] * inv);
+#pragma unroll
+    for (int c = 0; c < TAIL; ++c)
+      from_f(&ob[row * D + NC * 64 + tx * TAIL + c], acc[i][4 * NC + c] * inv);
   }
 }
 
@@ -251,9 +268,10 @@ constexpr float kLn2 = 0.6931471805599453f;
 
 template <int D>
 struct TcFwd {
+  static constexpr int DP = hopper::padded_cols(D);   // columns in smem
   static constexpr int BK = D == 64 ? 128 : 64;   // keys per tile
-  static constexpr int Q_BYTES = kTcBQ * D * 2;
-  static constexpr int KV_BYTES = BK * D * 2;     // one K or V tile
+  static constexpr int Q_BYTES = kTcBQ * DP * 2;
+  static constexpr int KV_BYTES = BK * DP * 2;    // one K or V tile
   static constexpr int TILES = Q_BYTES + 2 * kStages * KV_BYTES;
   // tiles, then full[kStages], empty[kStages] and the Q barrier, and
   // 1024 bytes to align the tiles for the swizzle
@@ -268,7 +286,7 @@ flash_attention_tc(const __grid_constant__ CUtensorMap tq,
                    __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
                    int S, int window, float scale_log2) {
   using C = TcFwd<D>;
-  constexpr int BK = C::BK;
+  constexpr int BK = C::BK, DP = C::DP;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* base = smem_raw + ((1024 - (hopper::smem_u32(smem_raw) & 1023))
                               & 1023);
@@ -321,9 +339,9 @@ flash_attention_tc(const __grid_constant__ CUtensorMap tq,
   const int qr[2] = {qlo + row0, qlo + row0 + 8};
   const uint32_t uQ = hopper::smem_u32(sQ);
 
-  float acc[D / 2];
+  float acc[DP / 2];                 // D's columns, then the padding's
 #pragma unroll
-  for (int j = 0; j < D / 2; ++j) acc[j] = 0.f;
+  for (int j = 0; j < DP / 2; ++j) acc[j] = 0.f;
   float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
 
   hopper::mbar_wait(qbar, 0);
@@ -378,7 +396,7 @@ flash_attention_tc(const __grid_constant__ CUtensorMap tq,
         l[h] += s[j];
       }
 #pragma unroll
-      for (int j = 0; j < D / 2; ++j) acc[j] *= alpha[(j >> 1) & 1];
+      for (int j = 0; j < DP / 2; ++j) acc[j] *= alpha[(j >> 1) & 1];
       uint32_t p[BK / 16][4];
 #pragma unroll
       for (int kk = 0; kk < BK / 16; ++kk)
@@ -389,7 +407,7 @@ flash_attention_tc(const __grid_constant__ CUtensorMap tq,
       hopper::wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < BK / 16; ++kk)
-        hopper::wgmma_rs<D>(acc, p[kk], hopper::desc_mnmajor(uV, BK, kk), 1);
+        hopper::wgmma_rs<DP>(acc, p[kk], hopper::desc_mnmajor(uV, BK, kk), 1);
       hopper::wgmma_commit();
       hopper::wgmma_wait_all();
       hopper::fence_regs(acc);
@@ -406,7 +424,7 @@ flash_attention_tc(const __grid_constant__ CUtensorMap tq,
   const float inv[2] = {1.f / fmaxf(l[0], 1e-30f), 1.f / fmaxf(l[1], 1e-30f)};
   __nv_bfloat16* ob = o + (int64_t)bh * S * D;
 #pragma unroll
-  for (int j = 0; j < D / 2; j += 2) {
+  for (int j = 0; j < D / 2; j += 2) {     // the real columns only
     const int h = (j >> 1) & 1;
     if (qr[h] >= S) continue;
     const int col = 8 * (j >> 2) + 2 * (lane & 3);
@@ -445,8 +463,8 @@ cudaError_t launch_tc(const void* q, const void* k, const void* v, void* o,
 }  // namespace
 
 // dtype: 0 = float32 (CUDA cores), 1 = bf16 (tensor cores; q, k, v 16-byte
-// aligned). window <= 0: no window. lse: null, or float32 (B*H, S) for the
-// rows' logsumexp.
+// aligned). D in {64, 128, 160}. window <= 0: no window. lse: null, or
+// float32 (B*H, S) for the rows' logsumexp.
 extern "C" int flash_attention_launch(const void* q, const void* k,
                                       const void* v, void* o, void* lse,
                                       int64_t BH,
@@ -466,6 +484,10 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
     return (int)launch_tc<64>(q, k, v, o, ls, BH, S, w, st);
   if (dtype == 1 && D == 128)
     return (int)launch_tc<128>(q, k, v, o, ls, BH, S, w, st);
+  if (dtype == 0 && D == 160)
+    return (int)launch<float, 160>(q, k, v, o, ls, BH, S, w, st);
+  if (dtype == 1 && D == 160)
+    return (int)launch_tc<160>(q, k, v, o, ls, BH, S, w, st);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -43,11 +43,23 @@
 // never see are skipped. The tensor cores take bf16 operands, so P and dS
 // are rounded to bf16 before their products.
 //
+// D = 160 fills whole 64-column blocks (hopper.cuh): tiles hold 192
+// columns, the padding zero-filled by TMA, and the products whose N is D
+// (dV, dK, dQ) are one wgmma at N = 192, 96 accumulator registers a thread
+// of which 16 are padding and never stored. dK and dV together (192) and
+// the S, dP tiles (64) with their bf16 fragments (32) would exceed the 224
+// registers a thread of a 288-thread block can have, so at 160 the dk/dv
+// pass runs as two launches of one kernel: one accumulates dV (S, P^T, 96
+// accumulators), the other dK (S, dP, dS^T, 96); each recomputes S, the
+// second dP. That is 10 D flops per visible pair in the dk/dv passes
+// against 8 D at 64 and 128 (16 D in all with the dq pass, against 14 D).
+//
 // float32, on CUDA cores (dkdv_kernel, dq_kernel): 256 threads per
 // 64-row tile, each holding 4 rows x 4 columns of the 64 x 64 score tile
 // (rows ty + 16 r, columns tx + 16 u) and 4 rows x D/16 columns of its
 // output; tiles sit in shared memory as float32, rows padded to D + 1
-// words. TF32 would miss the float32 tolerance.
+// words (198,656 bytes a block at D = 160). TF32 would miss the float32
+// tolerance.
 //
 // What bounds it: operations, 10 D flops per visible pair (q k^T, do v^T,
 // dv, dk, dq) at the bf16 tensor-core rate.
@@ -379,8 +391,9 @@ constexpr int kVecBytes = 2 * kStream * 4;   // a stage's two row vectors
 
 template <int D>
 struct TcBwd {
-  static constexpr int OWN_BYTES = kOwn * D * 2;        // one own tile
-  static constexpr int STREAM_BYTES = kStream * D * 2;  // one streamed tile
+  static constexpr int DP = hopper::padded_cols(D);    // columns in smem
+  static constexpr int OWN_BYTES = kOwn * DP * 2;       // one own tile
+  static constexpr int STREAM_BYTES = kStream * DP * 2; // one streamed tile
   static constexpr int TILES = 2 * OWN_BYTES + 2 * kStages * STREAM_BYTES;
   static constexpr int VECS = kStages * kVecBytes;
   static constexpr size_t SMEM = TILES + VECS + 8 * (2 * kStages + 1) + 1024;
@@ -477,10 +490,12 @@ __device__ __forceinline__ void tc_pack(const float (&x)[32],
       a[kk][r] = hopper::pack_bf16(x[8 * kk + 2 * r], x[8 * kk + 2 * r + 1]);
 }
 
+// the accumulator's real columns (the first D / 2 registers) to rows
+// ``row`` of ``out``
 template <int D>
-__device__ __forceinline__ void tc_store(__nv_bfloat16* out, float (&acc)[D / 2],
-                                         const int (&row)[2], int S,
-                                         float mul, int lane) {
+__device__ __forceinline__ void tc_store(
+    __nv_bfloat16* out, float (&acc)[hopper::padded_cols(D) / 2],
+    const int (&row)[2], int S, float mul, int lane) {
 #pragma unroll
   for (int j = 0; j < D / 2; j += 2) {
     const int h = (j >> 1) & 1;
@@ -491,9 +506,14 @@ __device__ __forceinline__ void tc_store(__nv_bfloat16* out, float (&acc)[D / 2]
   }
 }
 
-// one block per (batch x head, 128-key tile): dk, dv over the 64-query
-// tiles that see its keys; the accumulators' rows are keys, columns queries
-template <int D>
+// what one dkdv_tc launch accumulates: dK and dV (D = 64, 128), or one of
+// them (D = 160: two launches)
+enum Grads { kDKDV = 0, kDV = 1, kDK = 2 };
+
+// one block per (batch x head, 128-key tile): dk, dv (or one of them, as
+// G says) over the 64-query tiles that see its keys; the score tiles'
+// rows are keys, columns queries
+template <int D, int G>
 __global__ void __launch_bounds__(kTcThreads, 1)
 dkdv_tc(const __grid_constant__ CUtensorMap tq,
         const __grid_constant__ CUtensorMap tk,
@@ -503,6 +523,8 @@ dkdv_tc(const __grid_constant__ CUtensorMap tq,
         __nv_bfloat16* __restrict__ dv, int S, int window, float scale,
         float scale_log2) {
   using C = TcBwd<D>;
+  constexpr int DP = C::DP;
+  constexpr bool want_dv = G != kDK, want_dk = G != kDV;
   extern __shared__ uint8_t smem_raw[];
   const TcSmem m = tc_smem<D>(smem_raw);
   const int bh = blockIdx.y;
@@ -528,9 +550,15 @@ dkdv_tc(const __grid_constant__ CUtensorMap tq,
   const uint32_t uK = hopper::smem_u32(m.own);
   const uint32_t uV = uK + C::OWN_BYTES;
 
-  float adk[D / 2], adv[D / 2];
+  float adk[want_dk ? DP / 2 : 1], adv[want_dv ? DP / 2 : 1];
+  if constexpr (want_dk) {
 #pragma unroll
-  for (int j = 0; j < D / 2; ++j) adk[j] = adv[j] = 0.f;
+    for (int j = 0; j < DP / 2; ++j) adk[j] = 0.f;
+  }
+  if constexpr (want_dv) {
+#pragma unroll
+    for (int j = 0; j < DP / 2; ++j) adv[j] = 0.f;
+  }
 
   hopper::mbar_wait(m.ownbar, 0);
   for (int i = 0; i < ntiles; ++i) {
@@ -546,11 +574,11 @@ dkdv_tc(const __grid_constant__ CUtensorMap tq,
       float s[32], dp[32];
       hopper::wgmma_fence();
       tc_scores<D>(s, uK, wg, uQ);
-      tc_scores<D>(dp, uV, wg, uO);
+      if constexpr (want_dk) tc_scores<D>(dp, uV, wg, uO);
       hopper::wgmma_commit();
       hopper::wgmma_wait_all();
       hopper::fence_regs(s);
-      hopper::fence_regs(dp);
+      if constexpr (want_dk) hopper::fence_regs(dp);
 
       const bool open = q0 >= khi && q0 + kStream <= S &&
                         (window <= 0 || q0 + kStream - 1 < klo + window);
@@ -572,30 +600,36 @@ dkdv_tc(const __grid_constant__ CUtensorMap tq,
               p = ok ? p : 0.f;
             }
             s[j] = p;
-            dp[j] = p * (dp[j] - di);
+            if constexpr (want_dk) dp[j] = p * (dp[j] - di);
           }
         }
       uint32_t pa[4][4], da[4][4];
-      tc_pack(s, pa);
-      tc_pack(dp, da);
+      if constexpr (want_dv) tc_pack(s, pa);
+      if constexpr (want_dk) tc_pack(dp, da);
       hopper::wgmma_fence();
+      if constexpr (want_dv) {
 #pragma unroll
-      for (int kk = 0; kk < 4; ++kk)
-        hopper::wgmma_rs<D>(adv, pa[kk],
-                            hopper::desc_mnmajor(uO, kStream, kk), 1);
+        for (int kk = 0; kk < 4; ++kk)
+          hopper::wgmma_rs<DP>(adv, pa[kk],
+                               hopper::desc_mnmajor(uO, kStream, kk), 1);
+      }
+      if constexpr (want_dk) {
 #pragma unroll
-      for (int kk = 0; kk < 4; ++kk)
-        hopper::wgmma_rs<D>(adk, da[kk],
-                            hopper::desc_mnmajor(uQ, kStream, kk), 1);
+        for (int kk = 0; kk < 4; ++kk)
+          hopper::wgmma_rs<DP>(adk, da[kk],
+                               hopper::desc_mnmajor(uQ, kStream, kk), 1);
+      }
       hopper::wgmma_commit();
       hopper::wgmma_wait_all();
-      hopper::fence_regs(adv);
-      hopper::fence_regs(adk);
+      if constexpr (want_dv) hopper::fence_regs(adv);
+      if constexpr (want_dk) hopper::fence_regs(adk);
     }
     hopper::mbar_arrive(&m.empty[st]);
   }
-  tc_store<D>(dk + (int64_t)bh * S * D, adk, kr, S, scale, lane);
-  tc_store<D>(dv + (int64_t)bh * S * D, adv, kr, S, 1.f, lane);
+  if constexpr (want_dk)
+    tc_store<D>(dk + (int64_t)bh * S * D, adk, kr, S, scale, lane);
+  if constexpr (want_dv)
+    tc_store<D>(dv + (int64_t)bh * S * D, adv, kr, S, 1.f, lane);
 }
 
 // one block per (batch x head, 128-query tile): dq over the 64-key tiles
@@ -609,6 +643,7 @@ dq_tc(const __grid_constant__ CUtensorMap tq,
       const float* __restrict__ vecs, __nv_bfloat16* __restrict__ dq,
       int S, int window, float scale, float scale_log2) {
   using C = TcBwd<D>;
+  constexpr int DP = C::DP;
   extern __shared__ uint8_t smem_raw[];
   const TcSmem m = tc_smem<D>(smem_raw);
   const int bh = blockIdx.y;
@@ -643,9 +678,9 @@ dq_tc(const __grid_constant__ CUtensorMap tq,
   const uint32_t uQ = hopper::smem_u32(m.own);
   const uint32_t uO = uQ + C::OWN_BYTES;
 
-  float adq[D / 2];
+  float adq[DP / 2];
 #pragma unroll
-  for (int j = 0; j < D / 2; ++j) adq[j] = 0.f;
+  for (int j = 0; j < DP / 2; ++j) adq[j] = 0.f;
 
   hopper::mbar_wait(m.ownbar, 0);
   for (int i = 0; i < ntiles; ++i) {
@@ -685,8 +720,8 @@ dq_tc(const __grid_constant__ CUtensorMap tq,
       hopper::wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < 4; ++kk)
-        hopper::wgmma_rs<D>(adq, da[kk],
-                            hopper::desc_mnmajor(uK, kStream, kk), 1);
+        hopper::wgmma_rs<DP>(adq, da[kk],
+                             hopper::desc_mnmajor(uK, kStream, kk), 1);
       hopper::wgmma_commit();
       hopper::wgmma_wait_all();
       hopper::fence_regs(adq);
@@ -720,6 +755,13 @@ rowvec_tc(const __nv_bfloat16* __restrict__ o,
   }
 }
 
+// let ``fn`` take ``bytes`` of dynamic shared memory
+template <typename F>
+cudaError_t allow_smem(F* fn, size_t bytes) {
+  return cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              (int)bytes);
+}
+
 template <int D>
 cudaError_t launch_tc(const void* q, const void* k, const void* v,
                       const void* o, const void* dout, const float* lse,
@@ -731,12 +773,17 @@ cudaError_t launch_tc(const void* q, const void* k, const void* v,
       !hopper::make_tile_map(&mv, v, BH, S, D) ||
       !hopper::make_tile_map(&mdo, dout, BH, S, D))
     return cudaErrorInvalidValue;
+  // dK and dV in one launch where a thread's registers hold both
+  constexpr bool split = D > 128;
   const size_t smem = TcBwd<D>::SMEM;
-  cudaError_t err = cudaFuncSetAttribute(
-      dkdv_tc<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  err = cudaFuncSetAttribute(
-      dq_tc<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  cudaError_t err;
+  if constexpr (split) {
+    err = allow_smem(dkdv_tc<D, kDV>, smem);
+    if (err == cudaSuccess) err = allow_smem(dkdv_tc<D, kDK>, smem);
+  } else {
+    err = allow_smem(dkdv_tc<D, kDKDV>, smem);
+  }
+  if (err == cudaSuccess) err = allow_smem(dq_tc<D>, smem);
   if (err != cudaSuccess) return err;
   const int64_t rows = BH * S;
   const int64_t row_blocks = (rows + kThreads / 32 - 1) / (kThreads / 32);
@@ -747,9 +794,21 @@ cudaError_t launch_tc(const void* q, const void* k, const void* v,
   if (err != cudaSuccess) return err;
   const float scale = 1.0f / sqrtf((float)D);
   const dim3 grid((unsigned)((S + kOwn - 1) / kOwn), (unsigned)BH);
-  dkdv_tc<D><<<grid, kTcThreads, smem, stream>>>(
-      mq, mk, mv, mdo, vecs, (__nv_bfloat16*)dk, (__nv_bfloat16*)dv, (int)S,
-      window, scale, scale * kLog2e);
+  __nv_bfloat16 *gk = (__nv_bfloat16*)dk, *gv = (__nv_bfloat16*)dv;
+  if constexpr (split) {
+    dkdv_tc<D, kDV><<<grid, kTcThreads, smem, stream>>>(
+        mq, mk, mv, mdo, vecs, gk, gv, (int)S, window, scale,
+        scale * kLog2e);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+    dkdv_tc<D, kDK><<<grid, kTcThreads, smem, stream>>>(
+        mq, mk, mv, mdo, vecs, gk, gv, (int)S, window, scale,
+        scale * kLog2e);
+  } else {
+    dkdv_tc<D, kDKDV><<<grid, kTcThreads, smem, stream>>>(
+        mq, mk, mv, mdo, vecs, gk, gv, (int)S, window, scale,
+        scale * kLog2e);
+  }
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   dq_tc<D><<<grid, kTcThreads, smem, stream>>>(
@@ -761,9 +820,9 @@ cudaError_t launch_tc(const void* q, const void* k, const void* v,
 }  // namespace
 
 // dtype: 0 = float32 (CUDA cores), 1 = bf16 (tensor cores; q, k, v, do
-// 16-byte aligned). window <= 0: no window. Dsum: float32 scratch of
-// 2 B*H vec_stride(S) values, zeros (float32 uses its first B*H*S, bf16
-// holds the row vectors there).
+// 16-byte aligned). D in {64, 128, 160}. window <= 0: no window. Dsum:
+// float32 scratch of 2 B*H vec_stride(S) values, zeros (float32 uses its
+// first B*H*S, bf16 holds the row vectors there).
 extern "C" int flash_attention_bwd_launch(
     const void* q, const void* k, const void* v, const void* o,
     const void* dout, const void* lse, void* Dsum, void* dq, void* dk,
@@ -788,6 +847,12 @@ extern "C" int flash_attention_bwd_launch(
                               st);
   if (dtype == 1 && D == 128)
     return (int)launch_tc<128>(q, k, v, o, dout, ls, Ds, dq, dk, dv, BH, S,
+                               w, st);
+  if (dtype == 0 && D == 160)
+    return (int)launch<float, 160>(q, k, v, o, dout, ls, Ds, dq, dk, dv, BH,
+                                   S, w, st);
+  if (dtype == 1 && D == 160)
+    return (int)launch_tc<160>(q, k, v, o, dout, ls, Ds, dq, dk, dv, BH, S,
                                w, st);
   return (int)cudaErrorInvalidValue;
 }

@@ -6,13 +6,17 @@
 // tensor maps.
 //
 // Tile layout: a bf16 tile of R rows (R a multiple of 64) and D columns
-// (D in {64, 128}) sits in shared memory as D / 64 column blocks of R rows
-// x 128 bytes, each written by TMA with the 128-byte swizzle (16-byte
-// chunk c of row r at chunk c ^ (r % 8)), every block 1024-byte aligned.
-// One tensor map per (B*H, S, D) tensor loads 64 x 64 boxes; rows past S
-// arrive as zeros. The same tile is read K-major by wgmma when a product
-// contracts over D, and MN-major (the instruction's transpose bit) when it
-// contracts over the rows.
+// (D in {64, 128, 160}) sits in shared memory as padded_cols(D) / 64
+// column blocks of R rows x 128 bytes, each written by TMA with the
+// 128-byte swizzle (16-byte chunk c of row r at chunk c ^ (r % 8)), every
+// block 1024-byte aligned. One tensor map per (B*H, S, D) tensor loads
+// 64 x 64 boxes; rows past S, and at D = 160 the last block's columns
+// 160-191, arrive as zeros and count toward the barrier's transaction
+// bytes like the rest. The same tile is read K-major by wgmma when a
+// product contracts over D (D / 16 steps, never the padding), and MN-major
+// (the instruction's transpose bit) when it contracts over the rows; then
+// its N spans every block, padding included (N = 192 at D = 160), and the
+// padded columns of the result are never stored.
 #pragma once
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -24,6 +28,11 @@ namespace hopper {
 constexpr int kBox = 64;             // rows and columns of one TMA box
 constexpr int kRowBytes = 128;       // one swizzled row of 64 bf16
 constexpr int kBoxBytes = kBox * kRowBytes;
+
+// the columns a tile of D columns holds in shared memory: whole blocks
+__host__ __device__ constexpr int padded_cols(int D) {
+  return (D + kBox - 1) / kBox * kBox;
+}
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -89,13 +98,15 @@ __device__ __forceinline__ void bulk_load(void* dst, const void* src,
 }
 
 // rows [r0, r0 + rows) of matrix ``bh`` into a tile of ``R`` rows laid out
-// as above (``rows`` a multiple of 64, ``D / 64`` column blocks)
+// as above (``rows`` a multiple of 64, ``padded_cols(D) / 64`` column
+// blocks: rows x padded_cols(D) x 2 bytes of transactions)
 template <int D>
 __device__ __forceinline__ void tma_tile(uint8_t* tile, int R, int rows,
                                          const CUtensorMap* map,
                                          uint64_t* bar, int r0, int bh) {
+  constexpr int blocks = padded_cols(D) / kBox;
 #pragma unroll
-  for (int c = 0; c < D / kBox; ++c)
+  for (int c = 0; c < blocks; ++c)
     for (int rb = 0; rb < rows / kBox; ++rb)
       tma_load(tile + c * R * kRowBytes + rb * kBoxBytes, map, bar, c * kBox,
                r0 + rb * kBox, bh);
@@ -281,6 +292,57 @@ __device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
         "r"(scale_d));
 }
 
+// wgmma_rs_n128's product at N = 192: three 64-column blocks of B, the
+// accumulator's layout continued over 96 registers
+__device__ __forceinline__ void wgmma_rs_n192(float (&d)[96],
+                                             const uint32_t (&a)[4],
+                                             uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %101, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n192k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, "
+      "%72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, "
+      "%88, %89, %90, %91, %92, %93, %94, %95"
+      "}, {%96, %97, %98, %99}, %100, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]),
+        "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]),
+        "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
+        "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]),
+        "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
+        "r"(scale_d));
+}
+
 // D(64 x 256, float32) (+)= A(64 x 16) B(16 x 256), both bf16 in shared
 // memory, A K-major and B MN-major (the transpose bit set): a product
 // whose B is a row-major (K, N) tile, as the tiled matmul's is. The
@@ -356,9 +418,11 @@ template <int N>
 __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2],
                                          const uint32_t (&a)[4], uint64_t db,
                                          int scale_d) {
-  static_assert(N == 64 || N == 128, "wgmma_rs takes N in {64, 128}");
+  static_assert(N == 64 || N == 128 || N == 192,
+                "wgmma_rs takes N in {64, 128, 192}");
   if constexpr (N == 64) wgmma_rs_n64(d, a, db, scale_d);
-  else wgmma_rs_n128(d, a, db, scale_d);
+  else if constexpr (N == 128) wgmma_rs_n128(d, a, db, scale_d);
+  else wgmma_rs_n192(d, a, db, scale_d);
 }
 
 // ---- float32 products on the tensor cores in split TF32 -------------------
@@ -452,7 +516,9 @@ static inline EncodeTiledFn encode_tiled() {
 }
 
 // the 3-D map (D, S, B*H) of a row-major bf16 (B*H, S, D) tensor: 64 x 64
-// boxes, 128-byte swizzle, zeros past S. ``base`` must be 16-byte aligned.
+// boxes, 128-byte swizzle, zeros past S and past D (a box that starts at
+// column 128 of D = 160). ``base`` must be 16-byte aligned, and so must a
+// row (D a multiple of 8).
 static inline bool make_tile_map(CUtensorMap* map, const void* base,
                                  int64_t BH, int64_t S, int D) {
   const EncodeTiledFn fn = encode_tiled();

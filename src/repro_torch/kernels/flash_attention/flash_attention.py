@@ -16,9 +16,12 @@ back in the input dtype.
    masked to ``-1e30`` in float32), for any S and D.
  * ``flash_attention`` launches ``csrc/flash_attention.cu`` for CUDA
    tensors and takes the plain version only for CPU tensors. The kernel
-   takes ``D in {64, 128}`` and any S: unlike the TPU kernel
-   (``S % 128 == 0``) it masks the ragged tail itself. In bf16 it runs on
-   the tensor cores: one block per (batch x head, 128-query tile), two
+   takes ``D in HEAD_DIMS`` (64, 128, 160) and any S: unlike the TPU
+   kernel (``S % 128 == 0``) it masks the ragged tail itself; the TPU
+   kernel takes any D, and every other D raises on CUDA tensors (no
+   fallback). At D = 160 its shared-memory tiles are padded to 192
+   columns, which TMA fills with zeros and nothing stores. In bf16 it runs
+   on the tensor cores: one block per (batch x head, 128-query tile), two
    warpgroups of 64 rows, K and V streamed through shared memory by TMA
    (CUDA tensors must start 16-byte aligned), S = Q K^T and O += P V as
    ``wgmma`` with P rounded to bf16, the online softmax in float32
@@ -47,12 +50,14 @@ the port's forward is a kernel, so its backward is one too):
  * ``flash_attention_bwd`` launches the backward kernels: one pass forms
    ``D = rowsum(dO * O)``, one block per key tile accumulates ``dK, dV``
    over the query tiles that see it, one block per query tile accumulates
-   ``dQ`` — a deterministic split with no atomics. It recomputes ``P``
-   from ``Q, K`` and the logsumexp, keeps the forward's masking (causal,
-   window, the ragged tail past S) and accumulates in float32; in bf16 its
-   products are ``wgmma`` with ``P`` and ``dS`` rounded to bf16. It is
-   bound by operations: ``10 D`` flops per visible pair (it does ``14
-   D``: each pass recomputes ``S`` and ``dO V^T``).
+   ``dQ`` — a deterministic split with no atomics (at D = 160 the dK, dV
+   pass is two launches, one per gradient, so that its accumulators fit in
+   a thread's registers). It recomputes ``P`` from ``Q, K`` and the
+   logsumexp, keeps the forward's masking (causal, window, the ragged tail
+   past S) and accumulates in float32; in bf16 its products are ``wgmma``
+   with ``P`` and ``dS`` rounded to bf16. It is bound by operations: ``10
+   D`` flops per visible pair (it does ``14 D``, ``16 D`` at D = 160: each
+   pass recomputes ``S`` and, but for the dV pass, ``dO V^T``).
 """
 from __future__ import annotations
 
@@ -65,7 +70,7 @@ import torch
 from repro_torch.kernels import build
 
 NEG_INF = -1e30
-HEAD_DIMS = (64, 128)
+HEAD_DIMS = (64, 128, 160)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 _SIGNATURES = {"flash_attention_launch": (

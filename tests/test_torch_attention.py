@@ -11,7 +11,8 @@ are made with NumPy from a seed and handed to both packages.
 The plain backward (``flash_attention_bwd_plain``) is held to ``jax.vjp``
 of ``attention_ref`` element by element, within 1e-4 (float32) and 2e-2
 (bf16) of |value| plus the gradient's RMS, windowed and ragged included; on
-CPU tensors the differentiable ``flash_attention`` runs it.
+CPU tensors the differentiable ``flash_attention`` runs it. Each holds at
+the head dims the CUDA kernels take, 64, 128 and 160 (stablelm-12b's).
 
 The CUDA kernels themselves are held to the plain versions on the card by
 ``tests/test_torch_cuda.py`` and ``chip_smoke.py``.
@@ -46,8 +47,22 @@ def test_plain_matches_pallas_kernel_in_interpret_mode(window):
     np.testing.assert_allclose(got.numpy(), want, **TOL)
 
 
+@pytest.mark.parametrize("window", [None, 64])
+def test_plain_matches_pallas_kernel_in_interpret_mode_at_head_dim_160(
+        window):
+    """stablelm-12b's head dim: the Pallas kernel's blocks span all of D,
+    so it takes 160 as it takes 64."""
+    q, k, v = _qkv(13, (1, 2, 256, 160))
+    want = np.asarray(pallas_flash(*map(jnp.asarray, (q, k, v)),
+                                   window=window, interpret=True))
+    got = K3.flash_attention(*map(torch.from_numpy, (q, k, v)), window=window)
+    np.testing.assert_allclose(got.numpy(), want, **TOL)
+
+
 @pytest.mark.parametrize("S,D,window", [(200, 64, None), (200, 128, 48),
-                                        (1, 64, None), (77, 64, 1)])
+                                        (1, 64, None), (77, 64, 1),
+                                        (300, 160, None), (200, 160, 64),
+                                        (65, 160, 1)])
 def test_ragged_lengths_match_the_reference_oracle(S, D, window):
     """The TPU kernel needs S % 128 == 0; the port takes any S."""
     q, k, v = _qkv(1, (2, 2, S, D))
@@ -87,6 +102,20 @@ def test_inputs_the_kernel_refuses_raise():
                            q.transpose(2, 3))
     with pytest.raises(ValueError, match="window"):
         K3.flash_attention(q, q, q, window=0)
+
+
+def test_the_kernel_takes_head_dims_64_128_160_and_names_them():
+    """``HEAD_DIMS`` is what the CUDA kernels are built for; the kernel's
+    wrapper refuses any other D before it loads a library, naming them
+    (so on CPU tensors too: no fallback to the plain version)."""
+    assert K3.HEAD_DIMS == (64, 128, 160)
+    before = K3.flash_attention.launches
+    for d in (32, 96, 192, 256):
+        q = torch.zeros(1, 2, 8, d)
+        with pytest.raises(ValueError,
+                           match=r"head dims \(64, 128, 160\), got %d" % d):
+            K3.flash_attention_fwd(q, q, q)
+    assert K3.flash_attention.launches == before
 
 
 # ---------------------------------------------------------------------------
@@ -183,7 +212,9 @@ def _near(got, want, tol):
 @pytest.mark.parametrize("S,D,window,dtype", [
     (128, 64, None, np.float32), (200, 64, 48, np.float32),
     (77, 128, None, np.float32), (65, 64, 1, np.float32),
-    (128, 64, None, "bfloat16"), (100, 64, 30, "bfloat16")])
+    (128, 64, None, "bfloat16"), (100, 64, 30, "bfloat16"),
+    (300, 160, None, np.float32), (200, 160, 64, np.float32),
+    (130, 160, None, "bfloat16"), (100, 160, 30, "bfloat16")])
 def test_plain_backward_matches_jax_vjp_of_the_oracle(S, D, window, dtype):
     q, k, v, do = _qkv(7, (1, 2, S, D)) + _qkv(8, (1, 2, S, D))[:1]
     jdt, tdt = ((jnp.bfloat16, torch.bfloat16) if dtype == "bfloat16"
@@ -263,7 +294,8 @@ def _tensor_core_roundings(q, k, v, do, window):
     return out, dq.to(q.dtype), dk.to(q.dtype), dv.to(q.dtype)
 
 
-_RULE_SHAPES = [((1, 4, 2048, 64), None), ((1, 2, 1000, 128), 256)]
+_RULE_SHAPES = [((1, 4, 2048, 64), None), ((1, 2, 1000, 128), 256),
+                ((1, 2, 600, 160), 128)]
 
 
 def _rule_case(shape, window):

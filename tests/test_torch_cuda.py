@@ -656,10 +656,17 @@ def _attn_close(got, want, dtype, what):
     assert share <= 1.0, f"{what}: {share} of the limit (RMS {rms})"
 
 
+# D = 160 (stablelm-12b's head dim): the kernels' tiles are padded to 192
+# columns; full and ragged tiles, windows, and the model's prefill shape
+D160_CASES = [(1, 2, 256, 160, None), (2, 3, 300, 160, None),
+              (1, 2, 300, 160, 64), (1, 1, 1, 160, None),
+              (1, 2, 65, 160, 1), (4, 32, 512, 160, None)]
+
+
 @pytest.mark.parametrize("B,H,S,D,window", [
     (1, 2, 256, 64, None), (2, 3, 300, 64, None), (1, 2, 300, 128, 50),
     (1, 1, 1, 64, None), (2, 2, 129, 128, None), (1, 4, 1000, 64, 512),
-    (1, 2, 65, 64, 1), (8, 32, 2048, 64, None)])
+    (1, 2, 65, 64, 1), (8, 32, 2048, 64, None)] + D160_CASES)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_cuda_flash_attention_matches_plain(hopper, B, H, S, D, window, dtype):
     gen = torch.Generator(device=hopper).manual_seed(B * S + D)
@@ -722,8 +729,10 @@ def test_cuda_ssd_chunk_matches_plain(hopper, shape):
 
 def test_cuda_model_kernels_refuse_what_they_do_not_take(hopper):
     q = torch.zeros((1, 1, 8, 32), device=hopper)
+    n0 = K3.flash_attention.launches
     with pytest.raises(ValueError, match="head dims"):
         K3.flash_attention(q, q, q)
+    assert K3.flash_attention.launches == n0
     with pytest.raises(TypeError, match="float32 or bfloat16"):
         K3.flash_attention(q.half(), q.half(), q.half())
     for shape in [(1, 1, 300, 1, 8, 8), (1, 1, 8, 1, 200, 8),
@@ -911,18 +920,66 @@ def test_cuda_int8_cache_decodes_as_cpu(hopper):
                                   cpu.generate(prompt, 8, 70))
 
 
-def test_cuda_refuses_head_dim_160_without_a_fallback(hopper):
-    """stablelm-12b's head dim (5120 / 32 = 160) is not one K3 takes: a
-    narrow copy at that head dim raises on cuda and launches nothing."""
+def _narrow_stablelm(head_dim):
+    """stablelm-12b reduced to 2 layers of 2 heads at ``head_dim`` (its
+    real one is 5120 / 32 = 160), in float32."""
     cfg = dataclasses.replace(TC.reduced(TC.get_config("stablelm-12b")),
-                              d_model=320, n_heads=2, n_kv_heads=2,
-                              head_dim=0)
-    assert cfg.resolved_head_dim == 160
-    srv = GenerationServer(cfg, max_seq=40, bs=1, backend="cuda")
-    prompt = TC.make_batch(cfg, 32, 1, "prefill",
+                              d_model=2 * head_dim, n_heads=2, n_kv_heads=2,
+                              head_dim=0, compute_dtype=torch.float32)
+    assert cfg.resolved_head_dim == head_dim
+    return cfg
+
+
+def test_cuda_serves_head_dim_160_as_cpu(hopper):
+    """stablelm-12b's head dim through K3 on cuda: a narrow copy's
+    prefill launches K3 once a layer at D = 160, its logits within 1e-3 of
+    cpu's, 8 greedy tokens equal; one training step launches K3's backward
+    once a layer, the loss within 1e-4 and every gradient leaf within 1e-3
+    of its largest |g| of cpu's."""
+    cfg = _narrow_stablelm(160)
+    gpu = GenerationServer(cfg, max_seq=80, bs=2, backend="cuda")
+    cpu = GenerationServer(cfg, max_seq=80, bs=2, backend="cpu",
+                           params=gpu.params)
+    prompt = TC.make_batch(cfg, 70, 2, "prefill",
                            torch.Generator().manual_seed(3))
     n0 = K3.flash_attention.launches
-    with pytest.raises(ValueError, match="head dims"):
+    lg, _ = gpu.prefill(prompt)
+    torch.cuda.synchronize()
+    assert K3.flash_attention.launches == n0 + cfg.num_layers
+    torch.testing.assert_close(lg.cpu(), cpu.prefill(prompt)[0], rtol=1e-3,
+                               atol=1e-3)
+    np.testing.assert_array_equal(gpu.generate(prompt, 8, 70),
+                                  cpu.generate(prompt, 8, 70))
+    toks = np.random.default_rng(3).integers(0, cfg.vocab_size, (2, 101))
+    out = {}
+    for dev in (hopper, torch.device("cpu")):
+        params = T.tree_map(lambda t: t.detach().float().to(dev).clone()
+                            .requires_grad_(), gpu.params)
+        batch = {"tokens": torch.from_numpy(toks[:, :-1]).int().to(dev),
+                 "labels": torch.from_numpy(toks[:, 1:]).int().to(dev)}
+        n0 = K3.flash_attention_bwd.launches
+        metrics, grads = loss_and_grads(params, batch, cfg)
+        torch.cuda.synchronize()
+        if dev.type == "cuda":
+            assert K3.flash_attention_bwd.launches == n0 + cfg.num_layers
+        out[dev.type] = (float(metrics["loss"]),
+                         [g.cpu() for g in T.leaves(grads)])
+    (lg, gg), (lc, gc) = out["cuda"], out["cpu"]
+    assert abs(lg - lc) <= 1e-4
+    for a, b in zip(gg, gc):
+        _near(a, b, 1e-3, "gradient")
+
+
+def test_cuda_refuses_head_dim_96_without_a_fallback(hopper):
+    """A head dim K3 does not take (96: not in ``HEAD_DIMS``) raises on
+    cuda, naming the ones it takes, and launches nothing."""
+    assert 96 not in K3.HEAD_DIMS
+    srv = GenerationServer(_narrow_stablelm(96), max_seq=40, bs=1,
+                           backend="cuda")
+    prompt = TC.make_batch(srv.cfg, 32, 1, "prefill",
+                           torch.Generator().manual_seed(3))
+    n0 = K3.flash_attention.launches
+    with pytest.raises(ValueError, match=r"head dims \(64, 128, 160\)"):
         srv.prefill(prompt)
     assert K3.flash_attention.launches == n0
 
@@ -972,7 +1029,8 @@ def _near(got, want, tol, what):
 @pytest.mark.parametrize("B,H,S,D,window", [
     (1, 2, 256, 64, None), (2, 3, 300, 64, None), (1, 2, 300, 128, 50),
     (1, 1, 1, 64, None), (2, 2, 129, 128, None), (1, 4, 1000, 64, 512),
-    (1, 2, 65, 64, 1), (4, 32, 512, 64, None), (8, 32, 2048, 64, None)])
+    (1, 2, 65, 64, 1), (4, 32, 512, 64, None), (8, 32, 2048, 64, None)]
+    + D160_CASES)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_cuda_flash_attention_bwd_matches_plain(hopper, B, H, S, D, window,
                                                 dtype):

@@ -2,10 +2,12 @@
 
 Runs the forward (``flash_attention_fwd``) and the backward
 (``flash_attention_bwd``) five times under ``torch.profiler`` at the
-serving shape (8, 32, 2048, 64), the training shape (4, 32, 512, 64) and a
-D = 128 shape (2, 16, 2048, 128), causal, and prints the mean device ms
-per launch of every kernel: the forward, the row-vector pass, the dK/dV
-pass and the dQ pass. Needs a Hopper card; from the repository root:
+serving shape (8, 32, 2048, 64), the training shape (4, 32, 512, 64), a
+D = 128 shape (2, 16, 2048, 128) and stablelm-12b's prefill at D = 160
+(4, 32, 512, 160), causal, and prints the mean device ms per launch of
+every kernel: the forward, the row-vector pass, the dK/dV pass (at D =
+160 a dV and a dK launch) and the dQ pass. Needs a Hopper card; from the
+repository root:
 
     python3 tools/profile_attention.py
 """
@@ -22,7 +24,8 @@ sys.path.insert(0, str(Path(__file__).resolve().parents[1] / "src"))
 import repro_torch.kernels.flash_attention.flash_attention as K3  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
 
-SHAPES = ((8, 32, 2048, 64), (4, 32, 512, 64), (2, 16, 2048, 128))
+SHAPES = ((8, 32, 2048, 64), (4, 32, 512, 64), (2, 16, 2048, 128),
+          (4, 32, 512, 160))
 
 
 def main() -> int:
