@@ -129,7 +129,23 @@ each and stopping with a traceback at the first failure:
     layer with 16 of its 128 experts), and one layer's ``moe_apply`` on a
     (2, 512, d) input: twice on cuda, bitwise equal, and its routing,
     drops and y equal to cpu's away from near ties (counted).
-14. ``serve_interleaved``: ``ManagedInterleaveRuntime`` (no trainer) over
+14. ``moe_train``: one full-width float32 layer of each MoE configuration
+    (Mixtral's 8 experts, Arctic's first 16 of 128: ``MOE_PARITY_CUTS``),
+    remat on, bs 1 x 256 tokens: forward and backward twice on cuda
+    (bitwise or the largest difference, recorded) and once on cpu from the
+    same weights (the host's RAM printed beside it): loss and xent within
+    1e-4, the moe aux within 1e-6 where no group holds a near tie, every
+    gradient leaf within 1e-3 of its largest |g|, the layer's routing
+    equal away from near ties (smallest margin and drops printed); then
+    two AdamW steps on cuda, timed, with the peak memory. K3 (GQA 6 and 7,
+    D = 128) launched twice a step forward (remat) and once backward.
+15. ``pod_plan``: ``core.gpu_adapter`` on the four-card host with the
+    H100's constants: GMD's plan, its profiles and its gap to the
+    exhaustive best for every configuration and ``INPUT_SHAPES`` entry
+    (fails if a plan breaks the HBM budget), and the adapter's predicted
+    step time and HBM for the two ``moe_train`` steps (chips 1, tp 1)
+    beside the measured ones. Host arithmetic, no kernel.
+16. ``serve_interleaved``: ``ManagedInterleaveRuntime`` (no trainer) over
     ``BatchInferenceServer(zamba2-1.2b, seq_len 2048, bs 8)`` and a uniform
     trace at 80% of the measured minibatch rate for 5 s: p50 / p99 latency
     and the kernels' launches per minibatch; then one minibatch under
@@ -137,7 +153,7 @@ each and stopping with a traceback at the first failure:
     runtime's admission gate: the same server behind
     ``AdmissionPolicy("shed").gate`` on a uniform 5 s trace at 150% of the
     minibatch rate, which must shed exactly the engine mask's count.
-15. ``train``: ``Trainer`` on zamba2-1.2b at full width and depth (remat on,
+17. ``train``: ``Trainer`` on zamba2-1.2b at full width and depth (remat on,
     float32 params, bf16 compute, AdamW) for a few steps of bs 4 x 512
     tokens: ms per step, tokens/s, first and last loss (finite), peak
     memory and every kernel's launches per step (forward, remat's second
@@ -145,13 +161,13 @@ each and stopping with a traceback at the first failure:
     2-layer full-width float32 copy takes one step on ``"cuda"`` and on
     ``"cpu"`` from the same params and batch: losses within 1e-4, every
     gradient leaf within 1e-3 of its largest |g|.
-16. ``serve_train_interleaved``: the runtime with that ``Trainer`` (warm
+18. ``serve_train_interleaved``: the runtime with that ``Trainer`` (warm
     from the train phase) and the ``serve_interleaved`` server on a uniform
     5 s trace whose batch period is the minibatch time plus 2.5 training
     steps: trained minibatches (at least one), p50 / p99 latency with and
     without the trainer, and the largest overrun of a training step past
     its predicted end.
-17. ``tiled_matmul``: the ``kernels.ops.tiled_matmul`` entry point on the
+19. ``tiled_matmul``: the ``kernels.ops.tiled_matmul`` entry point on the
     serving minibatch's MLP up-projection, (16384, 2048) x (2048, 8192)
     bf16, against ``torch.matmul``.
 
@@ -412,6 +428,15 @@ MOE_NEAR_TIE = 1e-6
 # the served bf16 layer's moe_apply against a plain dispatch on the card:
 # y within this share of its largest |y| (bf16 products of other shapes)
 MOE_SERVED_TOL = 2e-2
+# the moe_train phase: one full-width float32 layer of each MoE
+# configuration, cut as MOE_PARITY_CUTS (Arctic keeps 16 of its 128
+# experts), trained on bs MOE_TRAIN_BS x FAM_TRAIN_TEXT tokens: a forward
+# and backward on cuda twice (bitwise or not, recorded) and on cpu from the
+# same weights, then MOE_TRAIN_STEPS AdamW steps on cuda, timed. The moe
+# aux loss cuda against cpu within MOE_AUX_TOL where no group holds a near
+# tie (a choice flipped at a tie moves the argmax usage by 1 / T)
+MOE_TRAIN_BS, MOE_TRAIN_STEPS = 1, 2
+MOE_AUX_TOL = 1e-6
 # training: bs 4 x 512 tokens at full width; the cuda-vs-cpu step on a
 # 2-layer full-width copy; the interleaved trace's slack per batch
 TRAIN_BS, TRAIN_SEQ, TRAIN_STEPS = 4, 512, 3
@@ -3073,6 +3098,230 @@ def phase_moe(torch, np, rt, launches: Launches, seed: int) -> dict:
     return out
 
 
+def host_memory_gb() -> dict:
+    """The host's total and available RAM (GB, /proc/meminfo) and this
+    process's peak resident set so far."""
+    import resource
+    info = {}
+    with open("/proc/meminfo") as f:
+        for line in f:
+            key, value = line.split(":", 1)
+            if key in ("MemTotal", "MemAvailable"):
+                info[key] = int(value.split()[0]) * 1024 / 1e9
+    return {"host_total_gb": info.get("MemTotal"),
+            "host_available_gb": info.get("MemAvailable"),
+            "peak_rss_gb": resource.getrusage(
+                resource.RUSAGE_SELF).ru_maxrss * 1024 / 1e9}
+
+
+def captured_routing(L, fn):
+    """``fn()``'s result and the routing of its first ``moe_route`` call
+    (the MoE layer's forward; remat's recompute routes again)."""
+    seen, route = [], L.moe_route
+
+    def capture(router, xg, spec):
+        r = route(router, xg, spec)
+        seen.append(dataclasses.replace(r, probs=r.probs.detach(),
+                                        gate=r.gate.detach(),
+                                        aux=r.aux.detach()))
+        return r
+    L.moe_route = capture
+    try:
+        out = fn()
+    finally:
+        L.moe_route = route
+    return out, seen[0]
+
+
+def moe_train_step(torch, rt, launches: Launches, cfg, seed: int) -> dict:
+    """One float32 training step of ``cfg`` (full width, cut as
+    MOE_PARITY_CUTS) from one set of seeded weights: forward and backward
+    twice on cuda (bitwise or not, recorded) and once on cpu, held as
+    ``train_parity`` holds a step (losses within TRAIN_LOSS_TOL, the aux
+    within MOE_AUX_TOL away from near ties, every gradient leaf within
+    TRAIN_GRAD_TOL of its largest |g|) with the layer's routing compared as
+    the moe phase does; then MOE_TRAIN_STEPS AdamW steps on cuda, timed,
+    with the peak device memory. K3's forward and backward launches are
+    counted over the cuda runs."""
+    ST, T, A, L = rt["ST"], rt["T"], rt["A"], rt["L"]
+    dev = torch.device("cuda")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = rt["M"].init_params(
+        cfg, torch.Generator(device=dev).manual_seed(seed + 6), dev)
+    for p in T.leaves(params):
+        p.requires_grad_()
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    host = T.tree_map(lambda t: t.detach().cpu().requires_grad_(), params)
+    batch = next(iter(rt["D"].SyntheticTokenSource(cfg, MOE_TRAIN_BS,
+                                                   FAM_TRAIN_TEXT,
+                                                   seed=seed)))
+    bg = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+    bc = {k: torch.from_numpy(v) for k, v in batch.items()}
+    what = f"moe_train {cfg.name}"
+
+    launches.reset()
+    t0 = time.perf_counter()
+    (mg, gg), rg = captured_routing(
+        L, lambda: ST.loss_and_grads(params, bg, cfg))
+    torch.cuda.synchronize()
+    cuda_s = time.perf_counter() - t0
+    mg2, gg2 = ST.loss_and_grads(params, bg, cfg)
+    bitwise, rerun_err = bool(torch.equal(mg["loss"], mg2["loss"])), 0.0
+    for a, b in zip(T.leaves(gg), T.leaves(gg2)):
+        if not torch.equal(a, b):
+            bitwise = False
+            rerun_err = max(rerun_err, float((a - b).abs().max()))
+    del gg2, mg2
+    mem = host_memory_gb()
+    t0 = time.perf_counter()
+    (mc, gc), rc = captured_routing(
+        L, lambda: ST.loss_and_grads(host, bc, cfg))
+    cpu_s = time.perf_counter() - t0
+    mem_after = host_memory_gb()
+
+    rec = compare_routing(torch, what, rg, rc)
+    held = rec.pop("held")
+    terms = {k: (float(mg[k]), float(mc[k]))
+             for k in ("loss", "xent", "moe_aux")}
+    for k in ("loss", "xent"):
+        g, c = terms[k]
+        if not (math.isfinite(g) and abs(g - c) <= TRAIN_LOSS_TOL):
+            fail(f"{what}: cuda {k} {g} vs cpu {c} (tolerance "
+                 f"{TRAIN_LOSS_TOL})")
+    aux_err = abs(terms["moe_aux"][0] - terms["moe_aux"][1])
+    if bool(held.all()) and not aux_err <= MOE_AUX_TOL:
+        fail(f"{what}: moe aux differs by {aux_err} (tolerance "
+             f"{MOE_AUX_TOL})")
+    worst = 0.0
+    for i, (a, b) in enumerate(zip(T.leaves(gg), T.leaves(gc))):
+        err = float((a.cpu() - b).abs().max())
+        scale = max(float(b.abs().max()), 1e-30)
+        worst = max(worst, err / scale)
+        if err > TRAIN_GRAD_TOL * scale:
+            fail(f"{what}: gradient leaf {i} differs by {err} (tolerance "
+                 f"{TRAIN_GRAD_TOL} x {scale})")
+    del gg, gc, host, mc
+    rec["probs_max_abs_diff"] = float((rg.probs.cpu() - rc.probs).abs().max())
+
+    step = ST.make_train_step(cfg, A.AdamWConfig())
+    state = A.init_opt_state(params)
+    torch.cuda.reset_peak_memory_stats()
+    step_ms, losses = [], []
+    for _ in range(MOE_TRAIN_STEPS):
+        t0 = time.perf_counter()
+        metrics = step(params, state, bg)
+        torch.cuda.synchronize()
+        step_ms.append(1e3 * (time.perf_counter() - t0))
+        losses.append(float(metrics["loss"]))
+    peak = torch.cuda.max_memory_allocated()
+    counts = launches.read(what, model_kernels(cfg))
+    check_model_launches(cfg, counts, 0, what, 2 + MOE_TRAIN_STEPS)
+    if not all(math.isfinite(x) for x in losses):
+        fail(f"{what}: AdamW step losses are not finite: {losses}")
+    out = {"layers": cfg.num_layers, "experts": cfg.n_experts,
+           "top_k": cfg.top_k, "d_model": cfg.d_model, "d_ff": cfg.d_ff,
+           "heads": [cfg.n_heads, cfg.n_kv_heads],
+           "head_dim": cfg.resolved_head_dim, "remat": cfg.remat,
+           "params": sum(p.numel() for p in T.leaves(params)),
+           "bs": MOE_TRAIN_BS, "seq": FAM_TRAIN_TEXT, "init_s": init_s,
+           **{f"{k}_cuda": g for k, (g, _) in terms.items()},
+           **{f"{k}_cpu": c for k, (_, c) in terms.items()},
+           "max_grad_err_share": worst,
+           "cuda_backward_bitwise": bitwise,
+           "cuda_backward_max_abs_diff": rerun_err,
+           "routing": rec, "cuda_fwd_bwd_s": cuda_s, "cpu_fwd_bwd_s": cpu_s,
+           "host_before_cpu": mem, "host_after_cpu": mem_after,
+           "step_ms": step_ms, "ms_per_step": step_ms[-1],
+           "step_losses": losses,
+           "max_memory_allocated_bytes": peak, "launches": counts}
+    del params, state, bg
+    return out
+
+
+def phase_moe_train(torch, np, rt, launches: Launches, seed: int) -> tuple:
+    """MoE training on the card: ``moe_train_step`` for each MoE
+    configuration at full width, cut as MOE_PARITY_CUTS. Returns the
+    phase's record and each configuration's, for ``phase_pod_plan``."""
+    C = rt["C"]
+    runs, total = {}, {name: 0 for name in launches.wrappers}
+    for arch, cut in MOE_PARITY_CUTS.items():
+        cfg = dataclasses.replace(C.get_config(arch),
+                                  compute_dtype=torch.float32, **cut)
+        t0 = time.perf_counter()
+        rec = moe_train_step(torch, rt, launches, cfg, seed)
+        torch.cuda.empty_cache()
+        rec["cut"] = {**cut, "of_layers": C.get_config(arch).num_layers,
+                      "of_experts": C.get_config(arch).n_experts}
+        rec["wall_s"] = time.perf_counter() - t0
+        total = add_counts(total, rec["launches"])
+        runs[arch] = rec
+        emit({"phase": "moe_train." + arch, **rec})
+    out = {"phase": "moe_train", "archs": list(runs), "launches": total,
+           "summary": {a: {k: r[k] for k in
+                           ("ms_per_step", "max_memory_allocated_bytes",
+                            "loss_cuda", "loss_cpu", "max_grad_err_share",
+                            "cuda_backward_bitwise", "wall_s")}
+                       for a, r in runs.items()}}
+    emit(out)
+    return out, runs
+
+
+def phase_pod_plan(rt, moe_train: dict) -> dict:
+    """The knob adapter on the four-card host (``core.gpu_adapter`` with
+    the H100's constants): GMD's plan and the exhaustive best for every
+    registered configuration and assigned input shape, with the profiles
+    GMD took and its gap to the best; fails if a plan breaks the HBM
+    budget. Then the adapter's prediction (chips 1, tp 1, one microbatch,
+    the configuration's remat) beside each moe_train step's measured
+    time and peak: a record, not a limit."""
+    C, GA = rt["C"], rt["GA"]
+    t0 = time.perf_counter()
+    plans = {}
+    for arch in C.ARCH_IDS:
+        cfg = C.get_config(arch)
+        for name, shape in C.INPUT_SHAPES.items():
+            model = GA.RooflineGPUModel(cfg, shape.seq_len,
+                                        shape.global_batch, shape.kind)
+            gmd = GA.GMDForGPU(model)
+            sol, best = gmd.solve(), GA.exhaustive_best(model)
+            if sol is not None and sol.power > gmd.hbm_budget:
+                fail(f"pod_plan {arch} {name}: GMD's plan {sol.pm} needs "
+                     f"{sol.power} bytes, over {gmd.hbm_budget}")
+            plans[f"{arch}|{name}"] = {
+                "gmd": str(sol.pm) if sol else None,
+                "gmd_s": sol.time if sol else None,
+                "gmd_hbm_gb": sol.power / 1e9 if sol else None,
+                "profiles": gmd.num_profiles,
+                "best": str(best[0]) if best else None,
+                "best_s": best[1] if best else None,
+                "gap": sol.time / best[1] - 1 if sol and best else None}
+    predicted = {}
+    for arch, cut in MOE_PARITY_CUTS.items():
+        cfg = dataclasses.replace(C.get_config(arch), **cut)
+        model = GA.RooflineGPUModel(cfg, FAM_TRAIN_TEXT, MOE_TRAIN_BS,
+                                    "train", chips=1)
+        mode = GA.GPUMode(tp=1, acc=GA.MAX_ACC, remat=0 if cfg.remat else 1)
+        t, hbm = model.time_power(mode)
+        run = moe_train.get(arch, {})
+        predicted[arch] = {
+            "mode": str(mode), "predicted_ms": 1e3 * t,
+            "predicted_hbm_gb": hbm / 1e9,
+            "measured_ms": run.get("ms_per_step"),
+            "measured_peak_gb": (run["max_memory_allocated_bytes"] / 1e9
+                                 if run else None)}
+    out = {"phase": "pod_plan", "chips": GA.CHIPS,
+           "hardware": dataclasses.asdict(GA.H100), "plans": plans,
+           "solved": sum(p["gmd"] is not None for p in plans.values()),
+           "feasible": sum(p["best"] is not None for p in plans.values()),
+           "optimal": sum(p["gap"] == 0 for p in plans.values()),
+           "moe_train_predicted": predicted,
+           "wall_s": time.perf_counter() - t0}
+    emit(out)
+    return out
+
+
 def profile_device(torch, fn) -> dict:
     """One call of ``fn`` (a minibatch forward, a training step) under
     ``torch.profiler``, tracing the device only (host operators add events
@@ -3476,6 +3725,7 @@ def main() -> int:
     from repro_torch.core import controller as CC
     from repro_torch.core import fleet as F
     from repro_torch.core import fused_window as FW
+    from repro_torch.core import gpu_adapter as GA
     from repro_torch.core import nn_model as NN
     from repro_torch.core import problem as P
     from repro_torch.core import simulate as S
@@ -3499,7 +3749,7 @@ def main() -> int:
               PowerModeSpace=PowerModeSpace, TRAIN=TRAIN_WORKLOADS,
               INFER=INFER_WORKLOADS, C=C, SV=SV, IR=IR, TL=TL, A=A, ST=ST,
               T=T, M=M, L=L, D=D, OPS=OPS, CC=CC, B=B, F=F, Oracle=Oracle,
-              KF=KF, FW=FW, NN=NN, QuadrantRanges=QuadrantRanges,
+              KF=KF, FW=FW, NN=NN, GA=GA, QuadrantRanges=QuadrantRanges,
               strategy_profilers=strategy_profilers)
 
     device = phase_device(torch, build)
@@ -3526,6 +3776,9 @@ def main() -> int:
     paths["generate"] = phase_generate(torch, np, rt, launches, args.seed)
     paths["families"] = phase_families(torch, np, rt, launches, args.seed)
     paths["moe"] = phase_moe(torch, np, rt, launches, args.seed)
+    paths["moe_train"], moe_runs = phase_moe_train(torch, np, rt, launches,
+                                                   args.seed)
+    phase_pod_plan(rt, moe_runs)
     paths["serve_interleaved"] = phase_serve_interleaved(torch, np, rt,
                                                          launches, args.seed)
     paths["train"], trainer = phase_train(torch, np, rt, launches, args.seed)

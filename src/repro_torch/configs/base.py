@@ -1,5 +1,5 @@
-"""Config system of the port: the architecture registry, reduced variants
-and seeded batches.
+"""Config system of the port: the assigned input shapes, the architecture
+registry, reduced variants, seeded batches and the shapes a step consumes.
 
 Counterpart of ``repro.configs.base``. The port registers every
 configuration of the reference: the dense, moe, ssm, hybrid, vlm and audio
@@ -15,8 +15,24 @@ import importlib
 
 import torch
 
-from repro_torch.models.model import ModelConfig
+from repro_torch import tree as T
+from repro_torch.models.model import ModelConfig, init_cache
 
+
+@dataclasses.dataclass(frozen=True)
+class InputShape:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # train | prefill | decode
+
+
+INPUT_SHAPES = {
+    "train_4k": InputShape("train_4k", 4_096, 256, "train"),
+    "prefill_32k": InputShape("prefill_32k", 32_768, 32, "prefill"),
+    "decode_32k": InputShape("decode_32k", 32_768, 128, "decode"),
+    "long_500k": InputShape("long_500k", 524_288, 1, "decode"),
+}
 #: Configurations the port runs: the reference's ``ARCH_IDS``, in its order.
 ARCH_IDS = [
     "mixtral-8x22b", "stablelm-12b", "arctic-480b", "qwen2.5-14b",
@@ -115,4 +131,19 @@ def make_batch(cfg: ModelConfig, seq_len: int, batch: int, kind: str,
             out[name] = torch.randn(shape, generator=generator,
                                     dtype=torch.float32,
                                     device=generator.device).to(dtype)
+    return out
+
+
+def input_specs(cfg: ModelConfig, shape: InputShape) -> dict:
+    """``(shape, dtype)`` of everything a step consumes besides the
+    parameters and optimizer state: ``batch`` as ``batch_shapes`` gives
+    it; for decode also ``pos`` (B,) and the ``cache`` tree of
+    ``init_cache``, walked on the meta device (nothing is allocated)."""
+    out = {"batch": batch_shapes(cfg, shape.seq_len, shape.global_batch,
+                                 shape.kind)}
+    if shape.kind == "decode":
+        out["pos"] = ((shape.global_batch,), torch.int32)
+        cache = init_cache(cfg, shape.global_batch, shape.seq_len,
+                           device="meta")
+        out["cache"] = T.tree_map(lambda t: (tuple(t.shape), t.dtype), cache)
     return out

@@ -100,7 +100,11 @@ def chunk_cumsum(dA: torch.Tensor) -> torch.Tensor:
 def ssd_chunk_plain(x: torch.Tensor, dA: torch.Tensor, dt: torch.Tensor,
                     B: torch.Tensor, C: torch.Tensor) -> tuple[torch.Tensor,
                                                                torch.Tensor]:
-    """The intra-chunk product in torch ops, on any device."""
+    """The intra-chunk product in torch ops, on any device. y and the states
+    come back contiguous, in the kernel's layout, so a gradient made like
+    them (``ones_like``) reaches ``ssd_chunk_bwd_plain`` with the strides
+    the autograd backward gives it: einsum sums in a stride-dependent
+    order."""
     l = x.shape[2]
     cs = chunk_cumsum(dA)                                 # (b, nc, l, h)
     seg = cs[:, :, :, None, :] - cs[:, :, None, :, :]     # (b, nc, i, j, h)
@@ -112,7 +116,7 @@ def ssd_chunk_plain(x: torch.Tensor, dA: torch.Tensor, dt: torch.Tensor,
     y = torch.einsum("bcijh,bcjhp->bcihp", w, x)
     wb = torch.exp(cs[:, :, -1:, :] - cs) * dt            # (b, nc, l, h)
     states = torch.einsum("bcjn,bcjh,bcjhp->bchnp", B, wb, x)
-    return y, states
+    return y.contiguous(), states.contiguous()
 
 
 def ssd_chunk_bwd_plain(x: torch.Tensor, dA: torch.Tensor, dt: torch.Tensor,

@@ -878,6 +878,43 @@ def test_cuda_moe_apply_matches_cpu_over_arctic_experts(hopper,
                                atol=1e-3)
 
 
+@pytest.mark.parametrize("arch", MOE_ARCHS)
+def test_cuda_moe_training_step_matches_cpu(hopper, arch):
+    """A narrow MoE copy at the full configuration's GQA (Mixtral's 6,
+    Arctic's 7) and head dim 128, remat on, in float32: one training
+    step on cuda launches K3's forward twice a layer (remat) and its
+    backward once; loss, xent and the moe aux within 1e-4 of cpu's,
+    every gradient leaf within 1e-3 of its largest |g|."""
+    full = TC.get_config(arch)
+    group = full.n_heads // full.n_kv_heads
+    cfg = dataclasses.replace(TC.reduced(full), d_model=group * 128,
+                              n_heads=group, n_kv_heads=1, head_dim=128,
+                              compute_dtype=torch.float32, remat=True)
+    base = TM.init_params(cfg, torch.Generator(device=hopper).manual_seed(11),
+                          hopper)
+    toks = np.random.default_rng(12).integers(0, cfg.vocab_size, (2, 101))
+    out = {}
+    for dev in (hopper, torch.device("cpu")):
+        params = T.tree_map(lambda t: t.detach().to(dev).clone()
+                            .requires_grad_(), base)
+        batch = {"tokens": torch.from_numpy(toks[:, :-1]).int().to(dev),
+                 "labels": torch.from_numpy(toks[:, 1:]).int().to(dev)}
+        n0 = (K3.flash_attention.launches, K3.flash_attention_bwd.launches)
+        metrics, grads = loss_and_grads(params, batch, cfg)
+        torch.cuda.synchronize()
+        if dev.type == "cuda":
+            assert (K3.flash_attention.launches,
+                    K3.flash_attention_bwd.launches) == \
+                (n0[0] + 2 * cfg.num_layers, n0[1] + cfg.num_layers)
+        out[dev.type] = ({k: float(v) for k, v in metrics.items()},
+                         [g.cpu() for g in T.leaves(grads)])
+    (mg, gg), (mc, gc) = out["cuda"], out["cpu"]
+    for k in ("loss", "xent", "moe_aux"):
+        assert abs(mg[k] - mc[k]) <= 1e-4, (k, mg[k], mc[k])
+    for a, b in zip(gg, gc):
+        _near(a, b, 1e-3, "gradient")
+
+
 def test_cuda_grouped_ssm_matches_cpu(hopper):
     """Two B/C groups: one K4 launch per group of heads in prefill, y and
     the states within 1e-3 of cpu; then one decode step."""

@@ -270,6 +270,74 @@ def test_int8_cache_and_decode_match_the_reference(arch):
                f"decode {step} logits ({flips} entries rounded apart)")
 
 
+def test_int8_scales_part_only_where_float32_keys_straddle_a_bf16_midpoint(
+        capsys):
+    """Where the two packages' int8 prefill scales differ (stablelm-1.6b's
+    prompt of ``test_int8_cache_and_decode_match_the_reference``), each
+    package stored the bf16 rounding of its own float32 ``amax / 127``,
+    and the two float32 values lie within 1e-5 of each other on either
+    side of a bf16 rounding midpoint: the parting enters with the float32
+    keys and values, not in ``quantize_kv``. ``-s`` prints, for a parting
+    at layer 0, the float64 value of that scale (the layer's norm and
+    projection in float64) and the midpoint."""
+    jcfg, tcfg, jp, tp = _int8_pair("stablelm-1.6b")
+    prompt = numpy_batch(tcfg, 8, s=T_PROMPT, kind="prefill")
+    max_seq = T_PROMPT + DECODE_STEPS
+    _, jc = JM.prefill(jp, to_jax(prompt), jcfg, max_seq)
+    _, tc = TM.prefill(tp, to_torch(prompt), tcfg, max_seq)
+    plain = dataclasses.replace(jcfg, kv_cache_quant=False)
+    _, jfull = JM.prefill(jp, to_jax(prompt), plain, max_seq, jnp.float32)
+    _, tfull = TM.prefill(tp, to_torch(prompt),
+                          dataclasses.replace(tcfg, kv_cache_quant=False),
+                          max_seq, cache_dtype=torch.float32)
+
+    def bf16(x):
+        return torch.from_numpy(np.asarray(x, np.float32)).to(
+            torch.bfloat16).float().numpy()
+
+    parted = 0
+    for name in ("k", "v"):
+        jf = np.asarray(jfull["kv"][name], np.float32)
+        tf = tfull["kv"][name].numpy()
+        js32 = np.maximum(np.abs(jf).max(-1), np.float32(1e-6)) / np.float32(127)
+        ts32 = np.maximum(np.abs(tf).max(-1), np.float32(1e-6)) / np.float32(127)
+        js = np.asarray(jc["kv"][f"{name}_scale"], np.float32)[..., 0]
+        ts = tc["kv"][f"{name}_scale"].float().numpy()[..., 0]
+        filled = np.broadcast_to(
+            (np.asarray(jc["kv_pos"]) >= 0)[..., None], js.shape)
+        np.testing.assert_array_equal(js[filled], bf16(js32)[filled])
+        np.testing.assert_array_equal(ts[filled], bf16(ts32)[filled])
+        for idx in np.argwhere(js != ts):
+            idx = tuple(int(i) for i in idx)
+            parted += 1
+            lo, hi = sorted((js[idx], ts[idx]))
+            mid = (np.float64(lo) + np.float64(hi)) / 2
+            a, b = sorted((np.float64(js32[idx]), np.float64(ts32[idx])))
+            assert a < mid <= b and b - a <= 1e-5 * b, (name, idx)
+            layer, row, slot, head = idx
+            if layer != 0:
+                continue
+            x = np.asarray(JM.embed_inputs(jp, to_jax(prompt), jcfg),
+                           np.float64)[row, slot]
+            lp = jax.tree.map(lambda t: np.asarray(t[0], np.float64),
+                              jp["layers"])
+            xn = (x - x.mean()) / np.sqrt(x.var() + 1e-5) \
+                * lp["ln1"]["scale"] + lp["ln1"]["bias"]
+            hd = jcfg.resolved_head_dim
+            w = lp["attn"][f"w{name}"]["w"][:, head * hd:(head + 1) * hd]
+            exact = np.abs(xn @ w).max() / 127       # V: no rotary
+            with capsys.disabled():
+                print(f"\n{name} at {idx}: max |{name}| reference "
+                      f"{np.abs(jf[idx]).max()!r}, port "
+                      f"{np.abs(tf[idx]).max()!r}, float64 "
+                      f"{np.abs(xn @ w).max()!r}; scale reference float32 "
+                      f"{js32[idx]!r} -> {js[idx]!r}, port {ts32[idx]!r} -> "
+                      f"{ts[idx]!r}, bf16 midpoint {mid!r}, float64 "
+                      f"{exact!r}")
+    with capsys.disabled():
+        print(f"\n{parted} of {js.size * 2} scales parted")
+
+
 def test_hybrid_int8_cache_is_refused_naming_r4():
     """The reference's hybrid prefill casts K/V straight to int8 with no
     scales (ROADMAP queue 3, R4), so its decode raises KeyError; the port
