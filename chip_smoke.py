@@ -145,7 +145,24 @@ each and stopping with a traceback at the first failure:
     (fails if a plan breaks the HBM budget), and the adapter's predicted
     step time and HBM for the two ``moe_train`` steps (chips 1, tp 1)
     beside the measured ones. Host arithmetic, no kernel.
-16. ``serve_interleaved``: ``ManagedInterleaveRuntime`` (no trainer) over
+16. ``pod_serve``: the sharded serving steps, one rank per visible card
+    (``launch.ranks``; world 1 on one card). zamba2-1.2b and qwen2.5-14b
+    at full width and depth in bf16, bs 4 x 512, 16 greedy tokens: rank 0
+    serves each unsharded first (its logits kept on the host), then every
+    rank serves it through ``launch.steps.sharded_step`` on the (1,
+    world) mesh, and on (2, 2) where world is 4, TP-only weights drawn
+    piece by piece on each card. Per card: load s, peak memory, prefill
+    ms, decode ms a token, K3 (and zamba2's K4) launched on local heads
+    once per attention (Mamba2) layer per prefill. The sharded run's
+    prefill logits within 2e-2 of the unsharded ones' largest |logit| and
+    tokens equal up to the first near tie (the families' bf16 rule; world
+    1 is bitwise); for the record, float32 copies' prefill logits sharded
+    against unsharded and bf16's own distance from float32. On four cards
+    also Mixtral at full depth, or the most layers its TP-sharded weights
+    leave room for (said), at bs 1 and 4, 8 tokens, the adapter's HBM a
+    card (chips 4, tp 4) beside each peak. ``--phase pod_serve`` runs
+    only the device and this phase.
+17. ``serve_interleaved``: ``ManagedInterleaveRuntime`` (no trainer) over
     ``BatchInferenceServer(zamba2-1.2b, seq_len 2048, bs 8)`` and a uniform
     trace at 80% of the measured minibatch rate for 5 s: p50 / p99 latency
     and the kernels' launches per minibatch; then one minibatch under
@@ -153,7 +170,7 @@ each and stopping with a traceback at the first failure:
     runtime's admission gate: the same server behind
     ``AdmissionPolicy("shed").gate`` on a uniform 5 s trace at 150% of the
     minibatch rate, which must shed exactly the engine mask's count.
-17. ``train``: ``Trainer`` on zamba2-1.2b at full width and depth (remat on,
+18. ``train``: ``Trainer`` on zamba2-1.2b at full width and depth (remat on,
     float32 params, bf16 compute, AdamW) for a few steps of bs 4 x 512
     tokens: ms per step, tokens/s, first and last loss (finite), peak
     memory and every kernel's launches per step (forward, remat's second
@@ -161,13 +178,13 @@ each and stopping with a traceback at the first failure:
     2-layer full-width float32 copy takes one step on ``"cuda"`` and on
     ``"cpu"`` from the same params and batch: losses within 1e-4, every
     gradient leaf within 1e-3 of its largest |g|.
-18. ``serve_train_interleaved``: the runtime with that ``Trainer`` (warm
+19. ``serve_train_interleaved``: the runtime with that ``Trainer`` (warm
     from the train phase) and the ``serve_interleaved`` server on a uniform
     5 s trace whose batch period is the minibatch time plus 2.5 training
     steps: trained minibatches (at least one), p50 / p99 latency with and
     without the trainer, and the largest overrun of a training step past
     its predicted end.
-19. ``tiled_matmul``: the ``kernels.ops.tiled_matmul`` entry point on the
+20. ``tiled_matmul``: the ``kernels.ops.tiled_matmul`` entry point on the
     serving minibatch's MLP up-projection, (16384, 2048) x (2048, 8192)
     bf16, against ``torch.matmul``.
 
@@ -216,6 +233,7 @@ import subprocess
 import sys
 import time
 from pathlib import Path
+from typing import Optional
 
 ROOT = Path(__file__).resolve().parent
 
@@ -437,6 +455,20 @@ MOE_SERVED_TOL = 2e-2
 # tie (a choice flipped at a tie moves the argmax usage by 1 / T)
 MOE_TRAIN_BS, MOE_TRAIN_STEPS = 1, 2
 MOE_AUX_TOL = 1e-6
+# the pod_serve phase: one rank per visible card (launch.ranks), each
+# configuration at full width and depth in bf16, served unsharded on rank
+# 0's card and then sharded on the (1, world) mesh (and (2, 2) on four
+# cards), TP-only weights; sharded logits within POD_TOL of the largest
+# |logit| of the unsharded ones (the families' bf16 rule). On four cards
+# also Mixtral at full depth (or the most layers that fit, a card keeping
+# POD_RESERVE bytes free), at each of POD_MOE_BS
+POD_ARCHS = ("zamba2-1.2b", "qwen2.5-14b")
+POD_BS, POD_PROMPT, POD_STEPS = 4, 512, 16
+POD_TOL = 2e-2
+POD_F32_TOL = 1e-4                  # the families' float32 limit (a record)
+POD_MOE, POD_MOE_BS, POD_MOE_STEPS = "mixtral-8x22b", (1, 4), 8
+POD_RESERVE = 4e9
+POD_WALL_S, POD_MOE_WALL_S = 420, 900
 # training: bs 4 x 512 tokens at full width; the cuda-vs-cpu step on a
 # 2-layer full-width copy; the interleaved trace's slack per batch
 TRAIN_BS, TRAIN_SEQ, TRAIN_STEPS = 4, 512, 3
@@ -3322,6 +3354,315 @@ def phase_pod_plan(rt, moe_train: dict) -> dict:
     return out
 
 
+def pod_load(torch, cfg, mesh, seed: int, dev) -> tuple:
+    """The served weights (matrices cast to the compute dtype as they are
+    drawn): the whole tree on ``dev``, or on ``mesh`` each rank's shards,
+    drawn leaf by leaf from the same seed (``init_sharded_params``, TP-only
+    storage). Returns (params, load s, load peak bytes)."""
+    from repro_torch.models import model as M
+    from repro_torch.models import sharding as SH
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    if mesh is None:
+        params = M.init_params(cfg, gen, dev, cast=cfg.compute_dtype)
+    else:
+        params = SH.init_sharded_params(cfg, mesh, gen, fsdp_on=False,
+                                        cast=cfg.compute_dtype)
+    torch.cuda.synchronize()
+    return params, time.perf_counter() - t0, torch.cuda.max_memory_allocated()
+
+
+def pod_generate(torch, cfg, params, mesh, prompt: dict, steps: int) -> dict:
+    """A greedy run, unsharded (``mesh`` None) or through the sharded
+    steps: a warm-up prefill and decode, then the launch counts set to 0, a
+    timed prefill and ``steps`` decode steps. Every rank takes its tokens
+    from the whole logits, kept on the host (float32) with the tokens."""
+    import repro_torch.kernels.flash_attention.flash_attention as K3
+    import repro_torch.kernels.ssd_scan.ssd_scan as K4
+    from repro_torch.configs import base as C
+    from repro_torch.launch import steps as ST
+    from repro_torch.models import model as M
+    bs = prompt["tokens"].shape[0]
+    plen = prompt_len(cfg, prompt["tokens"].shape[1])
+    if mesh is None:
+        def prefill(p, b):
+            with torch.inference_mode():
+                return M.prefill(p, b, cfg, plen + steps)
+
+        def decode(p, c, b, pos):
+            with torch.inference_mode():
+                return M.decode_step(p, c, b, pos, cfg)
+    else:
+        prefill, _ = ST.sharded_step(
+            cfg, C.InputShape("prefill", plen, bs, "prefill"), mesh, False,
+            max_seq_len=plen + steps)
+        decode, _ = ST.sharded_step(
+            cfg, C.InputShape("decode", plen + steps, bs, "decode"), mesh,
+            False)
+
+    def whole(t):
+        return t.full_tensor() if mesh is not None else t
+
+    def run(n: int) -> tuple:
+        pos = torch.full((bs,), plen, dtype=torch.int32,
+                         device=prompt["tokens"].device)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, cache = prefill(params, prompt)
+        rows = [whole(logits)[:, -1].float()]
+        torch.cuda.synchronize()
+        times = [time.perf_counter() - t0]
+        for _ in range(n):
+            nxt = rows[-1].argmax(dim=-1).to(torch.int32)[:, None]
+            t0 = time.perf_counter()
+            logits, cache = decode(params, cache, {"tokens": nxt}, pos)
+            rows.append(whole(logits)[:, -1].float())
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            pos = pos + 1
+        del cache
+        return times, rows
+
+    run(1)                                  # warm-up
+    torch.cuda.reset_peak_memory_stats()
+    K3.flash_attention.launches = K4.ssd_chunk.launches = 0
+    times, rows = run(steps)
+    counts = {"flash_attention": K3.flash_attention.launches,
+              "ssd_chunk": K4.ssd_chunk.launches}
+    logits = torch.stack([r.cpu() for r in rows])          # (steps+1, B, V)
+    return {"prefill_ms": 1e3 * times[0],
+            "decode_ms_per_token": 1e3 * sum(times[1:]) / steps,
+            "peak_bytes": torch.cuda.max_memory_allocated(),
+            "launches": counts, "logits": logits,
+            "tokens": logits[:-1].argmax(dim=-1).T.tolist()}
+
+
+def pod_float32_prefill(torch, cfg, seed: int, dev, prompt: dict,
+                        mesh=None) -> torch.Tensor:
+    """A float32 copy's prefill logits (B, V) on the host: the same draws as
+    the served weights, not cast, unsharded on ``dev`` or through the
+    sharded prefill step on ``mesh`` (TP-only weights)."""
+    from repro_torch.configs import base as C
+    from repro_torch.launch import steps as ST
+    from repro_torch.models import model as M
+    from repro_torch.models import sharding as SH
+    f32 = dataclasses.replace(cfg, compute_dtype=torch.float32)
+    torch.cuda.empty_cache()
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    bs, plen = prompt["tokens"].shape[0], POD_PROMPT
+    if mesh is None:
+        params = M.init_params(f32, gen, dev)
+        with torch.inference_mode():
+            logits = M.prefill(params, prompt, f32, plen + POD_STEPS)[0]
+    else:
+        params = SH.init_sharded_params(f32, mesh, gen, fsdp_on=False)
+        step, _ = ST.sharded_step(
+            f32, C.InputShape("prefill", plen, bs, "prefill"), mesh, False,
+            max_seq_len=plen + POD_STEPS)
+        logits = step(params, prompt)[0].full_tensor()
+    del params
+    out = logits[:, -1].float().cpu()
+    torch.cuda.empty_cache()
+    return out
+
+
+def pod_share(got: torch.Tensor, want: torch.Tensor, tol: float) -> dict:
+    err = float((got - want).abs().max())
+    return {"max_abs_logit_err": err,
+            "share": err / (tol * float(want.abs().max()))}
+
+
+def pod_compare(torch, want: dict, got: dict) -> dict:
+    """The families' bf16 rule (``family_parity``) between an unsharded run
+    and a sharded one: prefill logits within POD_TOL of their largest
+    |logit|, and greedy tokens equal up to the unsharded run's first near
+    tie (a step whose top two lie within that limit), where they may part.
+    Each step's largest difference up to the first step whose tokens part
+    (the steps fed the same tokens) is reported beside it."""
+    a, b = want["logits"], got["logits"]
+
+    def first(flags) -> Optional[int]:
+        return int(flags.nonzero()[0, 0]) if bool(flags.any()) else None
+    top2 = a.topk(2, dim=-1).values
+    near = first((top2[..., 0] - top2[..., 1]
+                  < POD_TOL * a.abs().amax(dim=-1)).any(dim=1))
+    parted = first((a.argmax(-1) != b.argmax(-1)).any(dim=1))
+    upto = a.shape[0] if parted is None else parted + 1
+    steps = [float((a[i] - b[i]).abs().max() / a[i].abs().max())
+             for i in range(upto)]
+    err, scale = float((a[0] - b[0]).abs().max()), float(a[0].abs().max())
+    return {"max_abs_logit_err": err, "share": err / (POD_TOL * scale),
+            "step_errs_of_max": steps, "first_near_tie": near,
+            "first_parted": parted, "bitwise": bool(torch.equal(a, b)),
+            "ok": err <= POD_TOL * scale and (
+                parted is None or (near is not None and parted >= near))}
+
+
+def pod_moe_depth(torch, cfg, mesh) -> int:
+    """The most layers of ``cfg`` whose TP-sharded bf16 weights fit every
+    card with POD_RESERVE bytes free (the embedding and one layer's largest
+    leaf, drawn whole before it is cut, counted too)."""
+    import torch.distributed as dist
+    torch.cuda.empty_cache()
+    n = mesh.size(mesh.mesh_dim_names.index("model"))
+    table = 2.0 * cfg.padded_vocab * cfg.d_model
+    layer = 2.0 * (cfg.param_count() - cfg.padded_vocab * cfg.d_model) \
+        / cfg.num_layers
+    leaf = 2.0 * cfg.n_experts * cfg.d_model * cfg.d_ff
+    free = torch.cuda.mem_get_info()[0] - POD_RESERVE - table / n - leaf
+    fits = torch.tensor([min(cfg.num_layers, int(free // (layer / n)))],
+                        device="cuda")
+    dist.all_reduce(fits, op=dist.ReduceOp.MIN)
+    return int(fits.item())
+
+
+def pod_serve_rank(payload: dict) -> dict:
+    """One rank of the pod_serve phase (``launch.ranks`` runs it, one
+    interpreter a card): POD_ARCHS served unsharded on rank 0's card, then
+    sharded on every mesh of the world, and on four cards Mixtral at full
+    depth. Rank 0 holds each sharded run against the unsharded one."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs import base as C
+    from repro_torch.core import gpu_adapter as GA
+    from repro_torch.launch import mesh as MS
+    rank, world = dist.get_rank(), dist.get_world_size()
+    dev = torch.device("cuda", torch.cuda.current_device())
+    seed = payload["seed"]
+    meshes = [(f"1x{world}", world)] + ([("2x2", 2)] if world == 4 else [])
+    out = {"rank": rank, "card": torch.cuda.current_device(), "runs": {}}
+    for arch in POD_ARCHS:
+        cfg = C.get_config(arch)
+        prompt = C.make_batch(cfg, POD_PROMPT, POD_BS, "prefill",
+                              torch.Generator(device=dev).manual_seed(seed))
+        runs, want, want32 = {}, None, None
+        if rank == 0:
+            params, load_s, load_peak = pod_load(torch, cfg, None, seed, dev)
+            want = pod_generate(torch, cfg, params, None, prompt, POD_STEPS)
+            del params
+            runs["unsharded"] = {"load_s": load_s, "load_peak_bytes":
+                                 load_peak, **{k: v for k, v in want.items()
+                                               if k != "logits"}}
+            want32 = pod_float32_prefill(torch, cfg, seed, dev, prompt)
+            # bf16's own distance from float32, for the record
+            runs["unsharded"]["vs_float32"] = pod_share(
+                want["logits"][0], want32, POD_TOL)
+        dist.barrier()
+        for name, model in meshes:
+            mesh = MS.make_host_mesh(model=model)
+            params, load_s, load_peak = pod_load(torch, cfg, mesh, seed, dev)
+            got = pod_generate(torch, cfg, params, mesh, prompt, POD_STEPS)
+            del params
+            runs[name] = {"load_s": load_s, "load_peak_bytes": load_peak,
+                          **{k: v for k, v in got.items() if k != "logits"}}
+            got32 = pod_float32_prefill(torch, cfg, seed, dev, prompt, mesh)
+            if want is not None:
+                runs[name]["vs_unsharded"] = pod_compare(torch, want, got)
+                # the same weights in float32, sharded against unsharded:
+                # a record of the sharded arithmetic without bf16's noise
+                runs[name]["float32_vs_unsharded"] = pod_share(
+                    got32, want32, POD_F32_TOL)
+        out["runs"][arch] = runs
+    if world == 4:
+        full = C.get_config(POD_MOE)
+        mesh = MS.make_host_mesh(model=4)
+        depth = pod_moe_depth(torch, full, mesh)
+        cfg = dataclasses.replace(full, num_layers=depth)
+        params, load_s, load_peak = pod_load(torch, cfg, mesh, seed, dev)
+        moe = {"layers": depth, "of": full.num_layers, "load_s": load_s,
+               "load_peak_bytes": load_peak, "by_bs": {}}
+        for bs in POD_MOE_BS:
+            prompt = C.make_batch(cfg, POD_PROMPT, bs, "prefill",
+                                  torch.Generator(device=dev).manual_seed(
+                                      seed))
+            got = pod_generate(torch, cfg, params, mesh, prompt,
+                               POD_MOE_STEPS)
+            model = GA.RooflineGPUModel(cfg, POD_PROMPT + POD_MOE_STEPS, bs,
+                                        "prefill", chips=4)
+            _, hbm = model.time_power(GA.GPUMode(tp=4, acc=GA.MAX_ACC,
+                                                 remat=0))
+            moe["by_bs"][str(bs)] = {
+                "finite": bool(torch.isfinite(got["logits"]).all()),
+                "predicted_hbm_bytes": hbm,
+                **{k: v for k, v in got.items() if k != "logits"}}
+        del params
+        out["moe"] = moe
+    return out
+
+
+def phase_pod_serve(torch, rt, seed: int) -> dict:
+    """The sharded serving steps on one rank per visible card: each
+    POD_ARCHS configuration's sharded runs held against rank 0's unsharded
+    one by the bf16 rule, K3 (and zamba2's K4) launched on every rank's
+    local heads, once per attention (Mamba2) layer per prefill; on four
+    cards Mixtral's run. Fails if a rank fails or times out."""
+    RK, C = rt["RK"], rt["C"]
+    torch.cuda.empty_cache()
+    world = torch.cuda.device_count()
+    t0 = time.perf_counter()
+    try:
+        ranks = RK.run(f"{ROOT / 'chip_smoke.py'}:pod_serve_rank",
+                       {"seed": seed}, world, device="cuda",
+                       wall_s=POD_WALL_S + (POD_MOE_WALL_S if world == 4
+                                            else 0))
+    except RK.RankError as e:
+        fail(f"pod_serve: {e}")
+    total = {name: 0 for name in KERNEL_ROWS}
+    faults = []
+    for arch in POD_ARCHS:
+        cfg = C.get_config(arch)
+        attn, mamba = model_sites(cfg)
+        mamba *= cfg.ssm_groups
+        runs = {r["rank"]: r["runs"][arch] for r in ranks}
+        for name, run in runs[0].items():
+            if name == "unsharded":
+                continue
+            cmp = run["vs_unsharded"]
+            if not cmp["ok"]:
+                faults.append(
+                    f"{arch} {name}: prefill logits differ by "
+                    f"{cmp['max_abs_logit_err']} ({cmp['share']} of the "
+                    f"bf16 limit), or tokens part at {cmp['first_parted']} "
+                    f"before a near tie ({cmp['first_near_tie']})")
+            for r, rr in runs.items():
+                got = rr[name]["launches"]
+                if got != {"flash_attention": attn, "ssd_chunk": mamba}:
+                    faults.append(f"{arch} {name} rank {r}: launches {got}, "
+                                  f"want K3 {attn} and K4 {mamba}")
+                if rr[name]["tokens"] != run["tokens"]:
+                    faults.append(f"{arch} {name}: rank {r}'s tokens differ")
+                total = {k: v + got.get(k, 0) for k, v in total.items()}
+        emit({"phase": "pod_serve." + arch, "world": world,
+              "bs": POD_BS, "prompt": POD_PROMPT, "steps": POD_STEPS,
+              "per_card": {r: {n: {k: v for k, v in rec.items()
+                                   if k != "tokens"}
+                               for n, rec in rr.items()}
+                           for r, rr in runs.items()}})
+    moe = {r["rank"]: r["moe"] for r in ranks if "moe" in r}
+    for r, rec in moe.items():
+        for bs, run in rec["by_bs"].items():
+            if not run["finite"] or run["launches"]["flash_attention"] \
+                    != rec["layers"]:
+                faults.append(f"{POD_MOE} bs {bs} rank {r}: finite "
+                              f"{run['finite']}, launches {run['launches']}")
+            total = {k: v + run["launches"].get(k, 0)
+                     for k, v in total.items()}
+    if moe:
+        emit({"phase": "pod_serve." + POD_MOE, "world": world,
+              "prompt": POD_PROMPT, "steps": POD_MOE_STEPS,
+              "per_card": {r: {k: v for k, v in rec.items()}
+                           for r, rec in moe.items()}})
+    out = {"phase": "pod_serve", "world": world, "archs": list(POD_ARCHS),
+           "moe": bool(moe), "launches": total,
+           "wall_s": time.perf_counter() - t0}
+    emit(out)
+    if faults:
+        fail("pod_serve: " + "; ".join(faults))
+    return out
+
+
 def profile_device(torch, fn) -> dict:
     """One call of ``fn`` (a minibatch forward, a training step) under
     ``torch.profiler``, tracing the device only (host operators add events
@@ -3701,6 +4042,10 @@ def main() -> int:
     ap.add_argument("--seed", type=int, default=0,
                     help="seed of the kernel-phase inputs and the models' "
                          "random weights")
+    ap.add_argument("--phase", choices=("all", "pod_serve"), default="all",
+                    help="pod_serve: only the device and pod_serve phases "
+                         "(one rank per visible card; no kernel or ok "
+                         "line)")
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -3738,6 +4083,7 @@ def main() -> int:
     from repro_torch.data import pipeline as D
     from repro_torch.kernels import build
     from repro_torch.kernels import ops as OPS
+    from repro_torch.launch import ranks as RK
     from repro_torch.launch import steps as ST
     from repro_torch.models import layers as L
     from repro_torch.models import model as M
@@ -3749,10 +4095,14 @@ def main() -> int:
               PowerModeSpace=PowerModeSpace, TRAIN=TRAIN_WORKLOADS,
               INFER=INFER_WORKLOADS, C=C, SV=SV, IR=IR, TL=TL, A=A, ST=ST,
               T=T, M=M, L=L, D=D, OPS=OPS, CC=CC, B=B, F=F, Oracle=Oracle,
-              KF=KF, FW=FW, NN=NN, GA=GA, QuadrantRanges=QuadrantRanges,
+              KF=KF, FW=FW, NN=NN, GA=GA, RK=RK,
+              QuadrantRanges=QuadrantRanges,
               strategy_profilers=strategy_profilers)
 
     device = phase_device(torch, build)
+    if args.phase == "pod_serve":
+        phase_pod_serve(torch, rt, args.seed)
+        return 0
     kern = phase_kernels(torch, np, rt, K1, K2, K3, K4, K5, args.seed)
     launches = Launches({"maxplus_scan": K1.maxplus_scan,
                          "lane_sort": K2.lane_sort,
@@ -3779,6 +4129,7 @@ def main() -> int:
     paths["moe_train"], moe_runs = phase_moe_train(torch, np, rt, launches,
                                                    args.seed)
     phase_pod_plan(rt, moe_runs)
+    paths["pod_serve"] = phase_pod_serve(torch, rt, args.seed)
     paths["serve_interleaved"] = phase_serve_interleaved(torch, np, rt,
                                                          launches, args.seed)
     paths["train"], trainer = phase_train(torch, np, rt, launches, args.seed)

@@ -6,7 +6,8 @@ of the same seed, so its tokens are bitwise equal to the reference's.
 ``Prefetcher`` copies each batch to the device from pinned memory with
 ``non_blocking`` on a host thread, so the next batch's copy overlaps the
 current step. Mesh shardings (the reference's ``ShardedPrefetcher`` with
-``shardings``) wait for the pod layer (ROADMAP queue 1 item 8).
+``shardings``) wait for the pod layer's training half (ROADMAP queue 1
+item 8b-ii).
 """
 from __future__ import annotations
 

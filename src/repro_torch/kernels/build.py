@@ -12,6 +12,8 @@ Nothing here runs at import, so ``import repro_torch`` needs neither CUDA
 nor a compiler. The launchers take device pointers and PyTorch's current
 stream as ``c_void_p`` and return the ``cudaError_t`` of the launch
 (0 = success); every library also exports ``error_string`` to name it.
+Every wrapper refuses a DTensor (``refuse_dtensor``): a kernel reads one
+device's memory, so a sharded program hands it each rank's local shards.
 """
 from __future__ import annotations
 
@@ -21,6 +23,7 @@ import os
 import re
 import shutil
 import subprocess
+import sys
 import threading
 import time
 from pathlib import Path
@@ -124,3 +127,18 @@ def check(lib: ctypes.CDLL, err: int, what: str) -> None:
     if err != 0:
         raise RuntimeError(f"{what}: CUDA error {err} at launch "
                            f"({lib.error_string(err).decode()})")
+
+
+def is_dtensor(x) -> bool:
+    """Whether ``x`` is a DTensor. The module is looked up, not imported:
+    where it was never imported, no DTensor exists."""
+    mod = sys.modules.get("torch.distributed.tensor")
+    return mod is not None and isinstance(x, mod.DTensor)
+
+
+def refuse_dtensor(what: str, *tensors) -> None:
+    """Raise if any of ``tensors`` is a DTensor: a kernel takes one
+    device's tensors and never gathers a sharded one."""
+    if any(is_dtensor(t) for t in tensors):
+        raise TypeError(f"{what} takes one device's tensors, not a DTensor: "
+                        f"call it on each rank's local shards")

@@ -188,6 +188,7 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ``lse`` are the forward's output and logsumexp, ``do`` the output
     gradient. Adds one to ``flash_attention_bwd.launches``; raises on inputs
     the kernels do not take."""
+    build.refuse_dtensor("flash_attention_bwd", q, k, v, out, lse, do)
     _check(q, k, v, window)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention_bwd launches the CUDA kernel; "
@@ -263,6 +264,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     version. Anything else raises, and so does a head dim the kernel does
     not take. Differentiable through ``FlashAttentionFn`` when grad is
     enabled and an input requires it."""
+    build.refuse_dtensor("flash_attention", q, k, v)
     _check(q, k, v, window)
     if q.device.type not in ("cpu", "cuda"):
         raise ValueError(f"flash_attention runs on cuda or cpu tensors, "

@@ -247,6 +247,7 @@ def fused_window(t: torch.Tensor, p: torch.Tensor, bsf: torch.Tensor,
     CUDA tensors launch the hand-written kernel on the current stream (and
     add one to ``fused_window.launches``); CPU tensors run the plain
     version. Anything else raises."""
+    build.refuse_dtensor("fused_window", t, p, bsf, mode_ids, rows)
     _check(t, p, bsf, mode_ids, rows, max_bs)
     if rows.device.type == "cpu":
         return fused_window_plain(t, p, bsf, mode_ids, rows, switch_cost,

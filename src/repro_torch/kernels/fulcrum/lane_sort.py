@@ -98,6 +98,7 @@ def lane_sort(mat: torch.Tensor, budgets: Optional[torch.Tensor] = None):
     current stream (and add one to ``lane_sort.launches`` and to that
     route's count in ``lane_sort.routes``); CPU tensors run the plain
     version. Anything else raises."""
+    build.refuse_dtensor("lane_sort", mat, budgets)
     _check(mat, budgets)
     if mat.device.type == "cpu":
         return lane_sort_plain(mat, budgets)

@@ -94,6 +94,7 @@ def maxplus_scan(ready: torch.Tensor, exec_t: torch.Tensor,
     CUDA tensors launch the hand-written kernel on the current stream (and
     add one to ``maxplus_scan.launches``); CPU tensors run the plain
     version. Anything else raises."""
+    build.refuse_dtensor("maxplus_scan", ready, exec_t, t_tr, tau_cap, clock)
     _check(ready, exec_t, t_tr, tau_cap, clock)
     if ready.device.type == "cpu":
         return maxplus_scan_plain(ready, exec_t, t_tr, tau_cap, clock)

@@ -210,6 +210,7 @@ def ssd_chunk_bwd(x: torch.Tensor, dA: torch.Tensor, dt: torch.Tensor,
     """(dx, ddA, ddt, dB, dC) from the backward kernels, for CUDA tensors.
     Adds one to ``ssd_chunk_bwd.launches``; raises on inputs the kernels do
     not take."""
+    build.refuse_dtensor("ssd_chunk_bwd", x, dA, dt, B, C, dy, dstates)
     _check(x, dA, dt, B, C)
     if x.device.type != "cuda":
         raise ValueError(f"ssd_chunk_bwd launches the CUDA kernel; "
@@ -278,6 +279,7 @@ def ssd_chunk(x: torch.Tensor, dA: torch.Tensor, dt: torch.Tensor,
     Anything else raises, and so does a chunk longer than 256 or a head or
     state dim above 128. Differentiable through ``SSDChunkFn`` when grad is
     enabled and an input requires it."""
+    build.refuse_dtensor("ssd_chunk", x, dA, dt, B, C)
     _check(x, dA, dt, B, C)
     if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"ssd_chunk runs on cuda or cpu tensors, "

@@ -93,6 +93,7 @@ def tiled_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     current stream (and add one to ``tiled_matmul.launches`` and to that
     route's count in ``tiled_matmul.routes``); CPU tensors run the plain
     version. Anything else raises."""
+    build.refuse_dtensor("tiled_matmul", a, b)
     _check(a, b)
     if a.device.type == "cpu":
         return tiled_matmul_plain(a, b)

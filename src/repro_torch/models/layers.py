@@ -21,25 +21,114 @@ expert products are ``torch.bmm``.
 The decode paths update the caches they are given in place (the reference
 returns fresh arrays): a step touches O(B * H * D) cache entries instead of
 copying the whole cache.
+
+On a device mesh (``launch.steps.sharded_step``) the layers take DTensors
+and torch ops carry the placements; ``constrain`` is the reference's
+activation-sharding hook. A kernel never sees a DTensor: the attention
+kernel, the SSD scan, the ring-buffer writes of decode and the experts'
+dispatch run on each rank's local shards (``_on_shards``, ``_ring_write``,
+``_moe_sharded``), with local heads or experts where the model axis
+divides them.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
 import math
-from typing import Any, Optional
+from typing import Any, Callable, Optional
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import ops
+from repro_torch.kernels.build import is_dtensor
 from repro_torch.kernels.flash_attention.flash_attention import \
     flash_attention
 
 Params = dict
 DEFAULT_ROPE_THETA = 10_000.0
 NEG_INF = -1e30
+
+
+# ---------------------------------------------------------------------------
+# activation-sharding hook (the reference's ``model.activation_sharding``)
+#
+# The sharded steps install a function here that re-pins (B, S, d)
+# activations to batch-over-data at the layer boundaries, and (B, S, H, D)
+# q, k and v to heads-over-model where the model axis divides the heads.
+# Without one, ``constrain`` returns its input.
+# ---------------------------------------------------------------------------
+
+_ACT_CONSTRAINT: Optional[Callable] = None
+
+
+@contextlib.contextmanager
+def activation_sharding(fn: Callable):
+    """Apply ``fn`` (tensor -> tensor) at every ``constrain`` site while the
+    context is open."""
+    global _ACT_CONSTRAINT
+    prev = _ACT_CONSTRAINT
+    _ACT_CONSTRAINT = fn
+    try:
+        yield
+    finally:
+        _ACT_CONSTRAINT = prev
+
+
+def constrain(x: torch.Tensor) -> torch.Tensor:
+    return x if _ACT_CONSTRAINT is None else _ACT_CONSTRAINT(x)
+
+
+# ---------------------------------------------------------------------------
+# local shards of a DTensor (the kernel boundaries on a mesh)
+# ---------------------------------------------------------------------------
+
+def _model_dim(mesh) -> int:
+    return mesh.mesh_dim_names.index("model")
+
+
+def _batch_plan(x) -> list:
+    """Per mesh dim of DTensor ``x``: True where x's dim 0 (the batch) is
+    split there, off the model axis."""
+    m = _model_dim(x.device_mesh)
+    return [i != m and p.is_shard(0) for i, p in enumerate(x.placements)]
+
+
+def _split(plan: list, mesh, batch_dim: Optional[int],
+           head_dim: Optional[int], heads_split: bool) -> tuple:
+    """Placements that split ``batch_dim`` where ``plan`` holds the batch
+    and ``head_dim`` on the model axis when ``heads_split``; the rest
+    replicated."""
+    from torch.distributed.tensor import Replicate, Shard
+    m = _model_dim(mesh)
+    out = []
+    for i, batch in enumerate(plan):
+        if i == m and heads_split and head_dim is not None:
+            out.append(Shard(head_dim))
+        elif batch and batch_dim is not None:
+            out.append(Shard(batch_dim))
+        else:
+            out.append(Replicate())
+    return tuple(out)
+
+
+def _local(x, placements: tuple) -> torch.Tensor:
+    return x.redistribute(x.device_mesh, placements).to_local()
+
+
+def _on_mesh(t: torch.Tensor, mesh, placements: tuple) -> Any:
+    """This rank's shard ``t`` as a DTensor of ``placements`` (even
+    splits)."""
+    from torch.distributed.tensor import DTensor
+    return DTensor.from_local(t, mesh, placements, run_check=False)
+
+
+def _model_coords(mesh) -> tuple[int, int]:
+    """(this rank's index on the model axis, the axis's size)."""
+    m = _model_dim(mesh)
+    return mesh.get_local_rank(m), mesh.size(m)
 
 
 # ---------------------------------------------------------------------------
@@ -125,11 +214,40 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
 
 def dense_apply(p: Params, x: torch.Tensor) -> torch.Tensor:
     """``x @ w`` with the weight cast to the activation dtype (a no-op when
-    the weights were cast once at load, which gives the same values)."""
-    y = x @ p["w"].to(x.dtype)
+    the weights were cast once at load, which gives the same values).
+
+    On a mesh, a product whose contracted dim is split (a row-parallel
+    weight, or FSDP storage) sums partial products across ranks: below
+    float32 it runs in float32 and rounds once, as the whole product does
+    (summed in the low type, each partial and each partial sum would round
+    on its own)."""
+    w = p["w"].to(x.dtype)
+    if x.dtype != torch.float32 and is_dtensor(x) and _splits_contraction(
+            x, w):
+        y = _summed(x.float() @ w.float()).to(x.dtype)
+    else:
+        y = x @ w
     if "b" in p:
         y = y + p["b"].to(x.dtype)
     return y
+
+
+def _summed(y):
+    """DTensor ``y`` with its partial sums completed (DTensor would carry
+    them on, past a cast)."""
+    from torch.distributed.tensor import Replicate
+    if not any(p.is_partial() for p in y.placements):
+        return y
+    return y.redistribute(y.device_mesh, tuple(
+        Replicate() if p.is_partial() else p for p in y.placements))
+
+
+def _splits_contraction(x, w) -> bool:
+    """Whether ``x @ w``'s contracted dim is split on a mesh dim of more
+    than one rank, in x (its last dim) or in w (its first)."""
+    mesh = x.device_mesh
+    return any(mesh.size(i) > 1 and (px.is_shard(x.ndim - 1) or pw.is_shard(0))
+               for i, (px, pw) in enumerate(zip(x.placements, w.placements)))
 
 
 # ---------------------------------------------------------------------------
@@ -187,6 +305,87 @@ def _slot_scale(scale: torch.Tensor) -> torch.Tensor:
     return scale[..., 0].transpose(1, 2)[:, :, None, None, :]
 
 
+def _unflatten(t: torch.Tensor, dim: int, sizes: tuple) -> torch.Tensor:
+    """``t`` with dim ``dim`` split into ``sizes``. A DTensor split there
+    on a mesh dim that does not divide ``sizes[0]`` is gathered on it
+    first (a split that would cut a head; the reference's compiler
+    reshards there on its own)."""
+    dim %= t.ndim
+    if is_dtensor(t):
+        from torch.distributed.tensor import Replicate
+        mesh = t.device_mesh
+        if any(p.is_shard(dim) and sizes[0] % mesh.size(i)
+               for i, p in enumerate(t.placements)):
+            t = t.redistribute(mesh, tuple(
+                Replicate() if p.is_shard(dim) else p for p in t.placements))
+    return t.reshape(*t.shape[:dim], *sizes, *t.shape[dim + 1:])
+
+
+def _attend_local(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  window: Optional[int], group: int, h0: int = 0,
+                  k0: int = 0) -> torch.Tensor:
+    """The kernel on one device: (B, S, Hq, D) q over (B, S, Hk, D) k, v,
+    (B, S, Hq, D) out. Query head i is global head ``h0 + i``; it reads
+    global kv head ``(h0 + i) // group``, held here at that minus ``k0``."""
+    qt = q.transpose(1, 2).contiguous()                  # (B, H, S, D)
+    kt, vt = k.transpose(1, 2), v.transpose(1, 2)
+    if h0 == 0 and k0 == 0 and q.shape[2] == k.shape[2] * group:
+        kt, vt = _repeat_kv(kt, group), _repeat_kv(vt, group)
+    else:
+        idx = (h0 + torch.arange(q.shape[2], device=q.device)) // group - k0
+        kt, vt = kt.index_select(1, idx), vt.index_select(1, idx)
+    out = flash_attention(qt, kt.contiguous(), vt.contiguous(),
+                          window=window)
+    return out.transpose(1, 2).contiguous()
+
+
+def _attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+            window: Optional[int], group: int) -> torch.Tensor:
+    """Causal attention through the kernel, (B, S, H, D) in and out. On a
+    mesh each rank runs it on its own batch rows and, where the model axis
+    divides the heads, its own query heads with the kv heads they read
+    (kv heads the axis does not divide are replicated, as their spec
+    says)."""
+    if not is_dtensor(q):
+        return _attend_local(q, k, v, window, group)
+    mesh = q.device_mesh
+    plan = _batch_plan(q)
+    coord, size = _model_coords(mesh)
+    q_split, k_split = q.shape[2] % size == 0, k.shape[2] % size == 0
+    pq = _split(plan, mesh, 0, 2, q_split)
+    pk = _split(plan, mesh, 0, 2, k_split)
+    ql, kl, vl = _local(q, pq), _local(k, pk), _local(v, pk)
+    out = _attend_local(ql, kl, vl, window, group,
+                        coord * ql.shape[2] if q_split else 0,
+                        coord * kl.shape[2] if k_split else 0)
+    return _on_mesh(out, mesh, pq)
+
+
+def _ring_write(buf: torch.Tensor, val: torch.Tensor,
+                pos: torch.Tensor) -> None:
+    """``buf[b, pos[b] % clen] = val[b, 0]`` for every row b, in place:
+    ``buf`` (B, clen, ...), ``val`` (B, 1, ...). On a mesh each rank
+    writes into its own shard the rows and ring slots it holds."""
+    clen = buf.shape[1]
+    if not is_dtensor(buf):
+        rows = torch.arange(buf.shape[0], device=buf.device)
+        buf[rows, pos % clen] = val[:, 0].to(buf.dtype)
+        return
+    from torch.distributed.tensor import Replicate
+    mesh = buf.device_mesh
+    local = buf.to_local()                 # a view: writes land in buf
+    vl = _local(val, tuple(Replicate() if p.is_shard(1) else p
+                           for p in buf.placements))
+    pl = _local(pos, tuple(p if p.is_shard(0) else Replicate()
+                           for p in buf.placements))
+    lo = sum(mesh.get_local_rank(i) * local.shape[1]
+             for i, p in enumerate(buf.placements) if p.is_shard(1))
+    slot = pl % clen - lo
+    mine = (slot >= 0) & (slot < local.shape[1])
+    rows = torch.arange(local.shape[0], device=local.device)[mine]
+    local[rows, slot[mine]] = vl[:, 0][mine].to(local.dtype)
+
+
 def attention_apply(p: Params, x: torch.Tensor, positions: torch.Tensor,
                     spec: AttnSpec, cache: Optional[Params] = None,
                     cache_positions: Optional[torch.Tensor] = None,
@@ -205,57 +404,105 @@ def attention_apply(p: Params, x: torch.Tensor, positions: torch.Tensor,
     cache_positions))``."""
     b, s, _ = x.shape
     hd = spec.head_dim
-    q = dense_apply(p["wq"], x).reshape(b, s, spec.n_heads, hd)
-    k = dense_apply(p["wk"], x).reshape(b, s, spec.n_kv_heads, hd)
-    v = dense_apply(p["wv"], x).reshape(b, s, spec.n_kv_heads, hd)
+    q = constrain(_unflatten(dense_apply(p["wq"], x), -1, (spec.n_heads, hd)))
+    k = constrain(_unflatten(dense_apply(p["wk"], x), -1,
+                             (spec.n_kv_heads, hd)))
+    v = constrain(_unflatten(dense_apply(p["wv"], x), -1,
+                             (spec.n_kv_heads, hd)))
     q = apply_rope(q, positions, spec.rope_theta)
     k = apply_rope(k, positions, spec.rope_theta)
     scale = 1.0 / math.sqrt(hd)
     group = spec.n_heads // spec.n_kv_heads
 
     if cache is None:
-        qt = q.transpose(1, 2).contiguous()              # (B, H, S, D)
-        kt = _repeat_kv(k.transpose(1, 2), group).contiguous()
-        vt = _repeat_kv(v.transpose(1, 2), group).contiguous()
-        out = flash_attention(qt, kt, vt, window=spec.sliding_window)
-        out = out.transpose(1, 2).reshape(b, s, spec.n_heads * hd)
-        y = dense_apply(p["wo"], out)
+        out = _attend(q, k, v, spec.sliding_window, group)
+        y = dense_apply(p["wo"], out.reshape(b, s, spec.n_heads * hd))
         return y, ((k, v) if return_kv else None)
 
     # --- decode: one new token against the ring buffer -------------------
-    cache_len = cache["k"].shape[1]
     quantized = cache["k"].dtype == torch.int8
-    b_idx = torch.arange(b, device=x.device)
     pos = positions[:, 0].long()                          # (B,)
-    slot = pos % cache_len
     if quantized:
         for name, t in (("k", k), ("v", v)):
-            cache[name][b_idx, slot], cache[f"{name}_scale"][b_idx, slot] = \
-                quantize_kv(t[:, 0])
+            qt, st = quantize_kv(t)
+            _ring_write(cache[name], qt, pos)
+            _ring_write(cache[f"{name}_scale"], st, pos)
     else:
-        cache["k"][b_idx, slot] = k[:, 0].to(cache["k"].dtype)
-        cache["v"][b_idx, slot] = v[:, 0].to(cache["v"].dtype)
-    cache_positions[b_idx, slot] = pos.to(cache_positions.dtype)
+        _ring_write(cache["k"], k, pos)
+        _ring_write(cache["v"], v, pos)
+    _ring_write(cache_positions, pos[:, None], pos)
 
-    hkv = spec.n_kv_heads
-    qg = q.reshape(b, s, hkv, group, hd)
+    out = _attend_cached(q, cache, cache_positions, pos, spec.sliding_window,
+                         scale, x.dtype)
+    y = dense_apply(p["wo"], out.reshape(b, s, spec.n_heads * hd))
+    return y, (cache, cache_positions)
+
+
+def _decode_local(q: torch.Tensor, cache: Params, cpos: torch.Tensor,
+                  pos: torch.Tensor, window: Optional[int], scale: float,
+                  dtype, group=None) -> torch.Tensor:
+    """(B, 1, H, D) queries against one device's ring buffer (B, T, Hkv,
+    D): (B, 1, H, D) in ``dtype``. With ``group`` (a process group over
+    which the ring's slots are split) the softmax and the probabilities'
+    product are completed over the group."""
+    b, s, h, hd = q.shape
+    hkv, t = cache["k"].shape[2], cache["k"].shape[1]
+    quantized = cache["k"].dtype == torch.int8
+    qg = q.reshape(b, s, hkv, h // hkv, hd)
     scores = torch.einsum("bskgd,btkd->bkgst", qg,
                           cache["k"].to(q.dtype)).float() * scale
     if quantized:   # fold the per-(slot, head) scale into the float32 scores
         scores = scores * _slot_scale(cache["k_scale"])
-    scores = scores.reshape(b, spec.n_heads, s, cache_len)
-    cpos = cache_positions.long()
+    scores = scores.reshape(b, h, s, t)
+    cpos = cpos.long()
     visible = (cpos >= 0) & (cpos <= pos[:, None])
-    if spec.sliding_window is not None:
-        visible = visible & (cpos > pos[:, None] - spec.sliding_window)
+    if window is not None:
+        visible = visible & (cpos > pos[:, None] - window)
     scores = scores.masked_fill(~visible[:, None, None, :], NEG_INF)
-    probs = torch.softmax(scores, dim=-1).to(x.dtype)
-    pg = probs.reshape(b, hkv, group, s, cache_len)
+    if group is None:
+        probs = torch.softmax(scores, dim=-1)
+    else:
+        import torch.distributed as dist
+        top = scores.amax(dim=-1, keepdim=True)
+        dist.all_reduce(top, op=dist.ReduceOp.MAX, group=group)
+        probs = torch.exp(scores - top)
+        total = probs.sum(dim=-1, keepdim=True)
+        dist.all_reduce(total, group=group)
+        probs = probs / total
+    pg = probs.to(dtype).reshape(b, hkv, h // hkv, s, t)
     if quantized:   # and the v scale into the probabilities, in x's dtype
         pg = pg * _slot_scale(cache["v_scale"]).to(pg.dtype)
-    out = torch.einsum("bkgst,btkd->bskgd", pg, cache["v"].to(x.dtype))
-    y = dense_apply(p["wo"], out.reshape(b, s, spec.n_heads * hd))
-    return y, (cache, cache_positions)
+    if group is None:
+        out = torch.einsum("bkgst,btkd->bskgd", pg, cache["v"].to(dtype))
+        return out.reshape(b, s, h, hd)
+    # the slots' partial products summed in float32, rounded once
+    out = torch.einsum("bkgst,btkd->bskgd", pg.float(),
+                       cache["v"].to(dtype).float()).reshape(b, s, h, hd)
+    dist.all_reduce(out, group=group)
+    return out.to(dtype)
+
+
+def _attend_cached(q: torch.Tensor, cache: Params, cpos: torch.Tensor,
+                   pos: torch.Tensor, window: Optional[int], scale: float,
+                   dtype) -> torch.Tensor:
+    """Decode attention of (B, 1, H, D) q over the ring buffer. On a mesh
+    each rank takes its batch rows of the cache as its spec splits it: by
+    kv heads (with their query heads), or by ring slots (every query head,
+    the softmax completed over the model axis), or whole."""
+    if not is_dtensor(q):
+        return _decode_local(q, cache, cpos, pos, window, scale, dtype)
+    mesh = q.device_mesh
+    m = _model_dim(mesh)
+    plan = _batch_plan(cache["k"])
+    heads = cache["k"].placements[m].is_shard(2)
+    slots = cache["k"].placements[m].is_shard(1)
+    pq = _split(plan, mesh, 0, 2, heads)
+    out = _decode_local(
+        _local(q, pq), {k: t.to_local() for k, t in cache.items()},
+        _local(cpos, _split(plan, mesh, 0, 1, slots)),
+        _local(pos, _split(plan, mesh, 0, None, False)),
+        window, scale, dtype, mesh.get_group(m) if slots else None)
+    return _on_mesh(out, mesh, pq)
 
 
 # ---------------------------------------------------------------------------
@@ -360,13 +607,32 @@ def moe_apply(p: Params, x: torch.Tensor,
     ``gate.to(x.dtype) * ye`` in float32, rounded once. No atomics: the
     slot table is written at distinct indices only, so ``"cuda"`` is
     deterministic. Arctic's dense residual adds the SwiGLU MLP of the same
-    normed input after the combine."""
+    normed input after the combine. A DTensor ``x`` takes ``_moe_sharded``."""
+    if is_dtensor(x):
+        return _moe_sharded(p, x, spec)
+    b, s, d = x.shape
+    y, aux = _moe_local(p["router"], x, p["w1"], p["w3"], p["w2"], spec)
+    y = y.to(x.dtype)
+    if spec.dense_residual:
+        y = y + mlp_apply(p["dense"], x)
+    return y, aux
+
+
+def _moe_local(router: torch.Tensor, x: torch.Tensor, w1: torch.Tensor,
+               w3: torch.Tensor, w2: torch.Tensor, spec: MoeSpec,
+               e0: int = 0, reduce_ye: Optional[Callable] = None
+               ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The routed experts on one device's tokens x (B, S, d): the float32
+    combine (B, S, d) and the aux loss of these tokens. ``w1`` ... hold
+    experts ``e0 ..`` (all experts, or one rank's); a choice to an expert
+    not held adds nothing here. ``reduce_ye`` sums the experts' float32
+    outputs over ranks that each hold a slice of every expert's FFN dim."""
     b, s, d = x.shape
     g_row = moe_groups(s, spec.group_size)
     g, t = b * g_row, s // g_row
     e, k = spec.n_experts, spec.top_k
     xg = x.reshape(g, t, d)
-    r = moe_route(p["router"], xg, spec)
+    r = moe_route(router, xg, spec)
     cap = r.capacity
     dev = x.device
 
@@ -383,18 +649,69 @@ def moe_apply(p: Params, x: torch.Tensor,
                      device=dev)
     src[torch.where(sent, slot, spare).reshape(-1)] = token.reshape(-1)
     xpad = torch.cat([xg.reshape(g * t, d), xg.new_zeros((1, d))])
-    xe = xpad[src[:n_slots]].reshape(e, g * cap, d)
+    el = w1.shape[0]                                   # experts held here
+    lo = e0 * g * cap
+    xe = xpad[src[lo:lo + el * g * cap]].reshape(el, g * cap, d)
 
-    h = F.silu(torch.bmm(xe, p["w1"].to(x.dtype))) \
-        * torch.bmm(xe, p["w3"].to(x.dtype))
-    ye = torch.bmm(h, p["w2"].to(x.dtype)).reshape(n_slots, d)
+    h = F.silu(torch.bmm(xe, w1.to(x.dtype))) * torch.bmm(xe, w3.to(x.dtype))
+    ye = torch.bmm(h, w2.to(x.dtype))
+    if reduce_ye is not None:
+        ye = reduce_ye(ye.float()).to(x.dtype)
+    ye = ye.reshape(el * g * cap, d)
 
-    picked = ye[torch.where(sent, slot, 0)]                  # (G, T, K, d)
-    weight = r.gate.to(x.dtype).float()[..., None]
-    y = (weight * picked.float()).sum(dim=2).to(x.dtype)
-    if spec.dense_residual:
-        y = y + mlp_apply(p["dense"], xg)
+    held = sent & (r.expert >= e0) & (r.expert < e0 + el)
+    picked = ye[torch.where(held, slot - lo, 0)]             # (G, T, K, d)
+    weight = (r.gate * held).to(x.dtype).float()[..., None]
+    y = (weight * picked.float()).sum(dim=2)
     return y.reshape(b, s, d), r.aux
+
+
+def _moe_sharded(p: Params, x: torch.Tensor,
+                 spec: MoeSpec) -> tuple[torch.Tensor, torch.Tensor]:
+    """``moe_apply`` on a mesh. Each rank routes its own batch rows (groups
+    never span rows) and runs, by the expert rule of ``models.sharding``,
+    its own experts when the model axis divides them (expert parallelism:
+    a token's choices to other ranks' experts add nothing here, and the
+    float32 combine is summed over the model axis) or else every expert
+    on its slice of the FFN dim (the experts' float32 outputs summed over
+    the axis before the combine). The weights are gathered over the data
+    axes first (their FSDP storage). The aux loss is averaged over the
+    batch shards. Arctic's dense residual runs as a DTensor MLP (tensor
+    parallel)."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    mesh = x.device_mesh
+    m = _model_dim(mesh)
+    plan = _batch_plan(x)
+    coord, size = _model_coords(mesh)
+    ep = spec.n_experts % size == 0
+
+    def weight(t, ffn_dim: int) -> torch.Tensor:
+        return _local(t, tuple(
+            (Shard(0) if ep else Shard(ffn_dim)) if i == m else Replicate()
+            for i in range(mesh.ndim)))
+
+    xl = _local(x, _split(plan, mesh, 0, None, False))
+    w1, w3, w2 = weight(p["w1"], 2), weight(p["w3"], 2), weight(p["w2"], 1)
+    reduce_ye = None
+    if not ep:
+        def reduce_ye(t):
+            import torch.distributed as dist
+            dist.all_reduce(t, group=mesh.get_group(m))
+            return t
+    y, aux = _moe_local(_local(p["router"], (Replicate(),) * mesh.ndim),
+                        xl, w1, w3, w2, spec,
+                        e0=coord * w1.shape[0] if ep else 0,
+                        reduce_ye=reduce_ye)
+    rows = _split(plan, mesh, 0, None, False)
+    y = _on_mesh(y, mesh, tuple(Partial() if i == m and ep else pl
+                                for i, pl in enumerate(rows)))
+    y = y.redistribute(mesh, rows).to(x.dtype)
+    aux = _on_mesh(aux, mesh, tuple(Partial("avg") if b else Replicate()
+                                    for b in plan))
+    aux = aux.redistribute(mesh, (Replicate(),) * mesh.ndim)
+    if spec.dense_residual:
+        y = y + mlp_apply(p["dense"], x)
+    return y, aux
 
 
 # ---------------------------------------------------------------------------
@@ -441,6 +758,102 @@ def _causal_conv(xin: torch.Tensor, w: torch.Tensor, s: int) -> torch.Tensor:
     return acc.to(xin.dtype)
 
 
+def _ssd_prefill_local(xi: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+                       Bm: torch.Tensor, Cm: torch.Tensor, chunk: int,
+                       rep: int, h0: int = 0) -> tuple[torch.Tensor,
+                                                      torch.Tensor]:
+    """The SSD scan of a prompt on one device: xi (b, s, h, p), dt (b, s,
+    h), A (h,), the groups' B and C (b, s, G, n); head i (global head ``h0
+    + i``) reads group ``(h0 + i) // rep``. Returns y (b, s, h, p) float32
+    and the final state (b, h, p, n). The sequence is padded to a chunk
+    multiple (dt = 0 there leaves the state as it was) and each group's
+    heads go through ``ops.ssd_scan`` (K4 and the inter-chunk recurrence)
+    together."""
+    b, s, h, p = xi.shape
+    pad_s = (-s) % chunk
+    xi_p, dt_p, B_p, C_p = (F.pad(t, (0, 0) * (t.dim() - 2) + (0, pad_s))
+                            for t in (xi, dt, Bm, Cm))
+    nc = (s + pad_s) // chunk
+    n = Bm.shape[-1]
+    xs = xi_p.float().reshape(b, nc, chunk, h, p)
+    dts = dt_p.reshape(b, nc, chunk, h)
+    parts = []
+    for j in range(h0 // rep, (h0 + h - 1) // rep + 1):
+        lo, hi = max(j * rep, h0) - h0, min((j + 1) * rep, h0 + h) - h0
+        parts.append(ops.ssd_scan(
+            xs[..., lo:hi, :], dts[..., lo:hi], A[lo:hi],
+            B_p[:, :, j].float().reshape(b, nc, chunk, n),
+            C_p[:, :, j].float().reshape(b, nc, chunk, n)))
+    y, final_state = (parts[0] if len(parts) == 1 else
+                      (torch.cat([q[0] for q in parts], dim=3),
+                       torch.cat([q[1] for q in parts], dim=1)))
+    return y.reshape(b, nc * chunk, h, p)[:, :s], final_state
+
+
+def _ssd_prefill(xi: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+                 Bm: torch.Tensor, Cm: torch.Tensor,
+                 chunk: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """``_ssd_prefill_local``. On a mesh each rank scans its own batch rows
+    and, where the model axis divides the heads, its own heads (B and C
+    whole): y comes back split on h, the state (b, h, p, n) on h."""
+    rep = xi.shape[2] // Bm.shape[2]
+    if not is_dtensor(xi):
+        return _ssd_prefill_local(xi, dt, A, Bm, Cm, chunk, rep)
+    mesh = xi.device_mesh
+    plan = _batch_plan(xi)
+    coord, size = _model_coords(mesh)
+    split = xi.shape[2] % size == 0
+    heads = _split(plan, mesh, 0, 2, split)
+    xl = _local(xi, heads)
+    y, state = _ssd_prefill_local(
+        xl, _local(dt, heads), _local(A, _split(plan, mesh, None, 0, split)),
+        _local(Bm, _split(plan, mesh, 0, None, False)),
+        _local(Cm, _split(plan, mesh, 0, None, False)), chunk, rep,
+        coord * xl.shape[2] if split else 0)
+    return (_on_mesh(y.contiguous(), mesh, heads),
+            _on_mesh(state, mesh, _split(plan, mesh, 0, 1, split)))
+
+
+def _ssm_step(state: torch.Tensor, xv: torch.Tensor, dt1: torch.Tensor,
+              A: torch.Tensor, Bg: torch.Tensor, Cg: torch.Tensor,
+              rep: int, h0: int = 0) -> torch.Tensor:
+    """One recurrent step on one device, the state (B, H, P, N) updated in
+    place: ``h' = h exp(dt A) + dt x B``, returns ``y = C h'`` (B, H, P).
+    Head i (global head ``h0 + i``) reads group ``(h0 + i) // rep`` of B
+    and C (B, G, N)."""
+    idx = (h0 + torch.arange(xv.shape[1], device=xv.device)) // rep
+    B1 = Bg.index_select(1, idx)[:, :, None, :]          # (B, H, 1, N)
+    C1 = Cg.index_select(1, idx)                         # (B, H, N)
+    decay = torch.exp(dt1 * A[None, :])[..., None, None]
+    upd = dt1[..., None, None] * xv[..., None] * B1
+    h_new = state.float() * decay + upd                  # (B, H, P, N)
+    state.copy_(h_new)
+    return torch.einsum("bhpn,bhn->bhp", h_new, C1)
+
+
+def _ssm_decode(state: torch.Tensor, xv: torch.Tensor, dt1: torch.Tensor,
+                A: torch.Tensor, Bg: torch.Tensor,
+                Cg: torch.Tensor) -> torch.Tensor:
+    """``_ssm_step`` of x (B, H, P), dt (B, H), A (H,) and the groups' B, C
+    (B, G, N). On a mesh each rank steps its own batch rows and, where the
+    cache's spec splits them, its own heads."""
+    rep = xv.shape[1] // Bg.shape[1]
+    if not is_dtensor(xv):
+        return _ssm_step(state, xv, dt1, A, Bg, Cg, rep)
+    mesh = xv.device_mesh
+    plan = _batch_plan(state)
+    coord, _ = _model_coords(mesh)
+    heads = state.placements[_model_dim(mesh)].is_shard(1)
+    split = _split(plan, mesh, 0, 1, heads)
+    xl = _local(xv, split)
+    y = _ssm_step(state.to_local(), xl, _local(dt1, split),
+                  _local(A, _split(plan, mesh, None, 0, heads)),
+                  _local(Bg, _split(plan, mesh, 0, None, False)),
+                  _local(Cg, _split(plan, mesh, 0, None, False)),
+                  rep, coord * xl.shape[1] if heads else 0)
+    return _on_mesh(y, mesh, split)
+
+
 def ssm_apply(p: Params, x: torch.Tensor, spec: SSMSpec,
               cache: Optional[Params] = None,
               return_state: bool = False) -> tuple[torch.Tensor, Optional[Params]]:
@@ -477,40 +890,13 @@ def ssm_apply(p: Params, x: torch.Tensor, spec: SSMSpec,
     A = -torch.exp(p["A_log"])                           # (H,)
 
     if cache is None:
-        # pad the sequence to a chunk multiple; dt = 0 there leaves the
-        # state as it was
-        pad_s = (-s) % spec.chunk
-        xi_p, dt_p, B_p, C_p = (F.pad(t, (0, 0) * (t.dim() - 2) + (0, pad_s))
-                                for t in (xi, dt, Bm, Cm))
-        nc = (s + pad_s) // spec.chunk
-        l = spec.chunk
-        xs = xi_p.float().reshape(b, nc, l, spec.n_heads, spec.head_dim)
-        dts = dt_p.reshape(b, nc, l, spec.n_heads)
-        rep = spec.n_heads // ng
-        parts = [ops.ssd_scan(
-            xs[..., j * rep:(j + 1) * rep, :], dts[..., j * rep:(j + 1) * rep],
-            A[j * rep:(j + 1) * rep],
-            B_p[:, :, j].float().reshape(b, nc, l, spec.d_state),
-            C_p[:, :, j].float().reshape(b, nc, l, spec.d_state))
-            for j in range(ng)]
-        y, final_state = (parts[0] if ng == 1 else
-                          (torch.cat([q[0] for q in parts], dim=3),
-                           torch.cat([q[1] for q in parts], dim=1)))
-        y = y.reshape(b, nc * l, spec.n_heads, spec.head_dim)[:, :s]
+        y, final_state = _ssd_prefill(xi, dt, A, Bm, Cm, spec.chunk)
         new_cache = ({"conv": new_conv, "ssm": final_state}
                      if return_state else None)
     else:
         # one step: h' = h * exp(dt A) + dt * x B ; y = C h'
-        rep = spec.n_heads // ng                         # head h: group h // rep
-        B1 = Bm[:, 0].float().repeat_interleave(rep, dim=1)[:, :, None, :]
-        C1 = Cm[:, 0].float().repeat_interleave(rep, dim=1)  # (B, H, N)
-        dt1 = dt[:, 0]                                   # (B, H)
-        xv = xi[:, 0].float()                            # (B, H, P)
-        decay = torch.exp(dt1 * A[None, :])[..., None, None]
-        upd = dt1[..., None, None] * xv[..., None] * B1
-        h_new = cache["ssm"].float() * decay + upd       # (B, H, P, N)
-        y = torch.einsum("bhpn,bhn->bhp", h_new, C1)[:, None]
-        cache["ssm"].copy_(h_new)
+        y = _ssm_decode(cache["ssm"], xi[:, 0].float(), dt[:, 0], A,
+                        Bm[:, 0].float(), Cm[:, 0].float())[:, None]
         cache["conv"].copy_(new_conv)
         new_cache = cache
 
@@ -526,7 +912,34 @@ def ssm_apply(p: Params, x: torch.Tensor, spec: SSMSpec,
 
 def embedding_apply(p: Params, tokens: torch.Tensor,
                     dtype=torch.bfloat16) -> torch.Tensor:
+    if is_dtensor(p["table"]):
+        return _embedding_sharded(p["table"], tokens, dtype)
     return F.embedding(tokens.long(), p["table"].to(dtype))
+
+
+def _embedding_sharded(table: torch.Tensor, tokens: torch.Tensor,
+                       dtype) -> torch.Tensor:
+    """The lookup on a mesh, vocabulary-parallel: each rank gathers its
+    rows of the table (split on the model axis where it divides them, the
+    d dim whole) and looks up the tokens of its batch rows that fall in
+    them, zero elsewhere. The result is a partial sum over the model axis
+    with one non-zero term per entry, so its sum is the lookup exactly."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    mesh = table.device_mesh
+    m = _model_dim(mesh)
+    coord, size = _model_coords(mesh)
+    split = table.shape[0] % size == 0
+    rows = _local(table, tuple(Shard(0) if i == m and split else Replicate()
+                               for i in range(mesh.ndim)))
+    plan = _batch_plan(tokens)
+    ids = _local(tokens, _split(plan, mesh, 0, None, False)).long() \
+        - (coord * rows.shape[0] if split else 0)
+    inside = (ids >= 0) & (ids < rows.shape[0])
+    out = F.embedding(ids.clamp(0, rows.shape[0] - 1), rows.to(dtype))
+    out = torch.where(inside[..., None], out, out.new_zeros(()))
+    place = tuple(Partial() if i == m and split else pl for i, pl in
+                  enumerate(_split(plan, mesh, 0, None, False)))
+    return _on_mesh(out, mesh, place)
 
 
 def unembed_apply(p: Params, x: torch.Tensor) -> torch.Tensor:

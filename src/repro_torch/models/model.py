@@ -47,6 +47,8 @@ import torch
 import torch.utils.checkpoint
 
 from repro_torch.models import layers as L
+# the activation-sharding hook (the reference keeps it in this module)
+from repro_torch.models.layers import activation_sharding, constrain  # noqa: F401
 
 DENSE_ARCHS = ("dense", "moe", "vlm", "audio")
 ARCH_TYPES = DENSE_ARCHS + ("ssm", "hybrid")
@@ -272,12 +274,15 @@ def _experts(gen, spec: L.MoeSpec, d_in: int, d_out: int, device,
     return out
 
 
-def _moe_init(gen, spec: L.MoeSpec, device, to) -> dict:
+def _moe_init(gen, spec: L.MoeSpec, device, to, put=lambda _, t: t) -> dict:
+    """An MoE layer's params; ``put(name, leaf)`` takes each expert matrix
+    as soon as it is drawn."""
     p = {"router": _normal(gen, (spec.d_model, spec.n_experts),
-                           1.0 / math.sqrt(spec.d_model), device),
-         "w1": _experts(gen, spec, spec.d_model, spec.d_ff, device, to),
-         "w3": _experts(gen, spec, spec.d_model, spec.d_ff, device, to),
-         "w2": _experts(gen, spec, spec.d_ff, spec.d_model, device, to)}
+                           1.0 / math.sqrt(spec.d_model), device)}
+    for name, d_in, d_out in (("w1", spec.d_model, spec.d_ff),
+                              ("w3", spec.d_model, spec.d_ff),
+                              ("w2", spec.d_ff, spec.d_model)):
+        p[name] = put(name, _experts(gen, spec, d_in, d_out, device, to))
     if spec.dense_residual:
         p["dense"] = _mlp_init(gen, spec.d_model,
                                spec.dense_residual_ff or spec.d_ff,
@@ -285,16 +290,19 @@ def _moe_init(gen, spec: L.MoeSpec, device, to) -> dict:
     return p
 
 
-def _layer_init(gen, cfg: ModelConfig, device, to=lambda t: t) -> dict:
+def _layer_init(gen, cfg: ModelConfig, device, to=lambda t: t,
+                put=lambda _, t: t) -> dict:
     """Params of one layer of the stack (the reference's ``_layer_init``).
-    ``to`` casts an MoE layer's expert matrices as they are drawn."""
+    ``to`` casts an MoE layer's expert matrices as they are drawn, and
+    ``put(path, leaf)`` then takes each of them."""
     d = cfg.d_model
     if cfg.arch_type in DENSE_ARCHS:
         p = {"ln1": L.norm_init(cfg.norm, d, device),
              "attn": _attention_init(gen, cfg.attn_spec, device),
              "ln2": L.norm_init(cfg.norm, d, device)}
         if cfg.arch_type == "moe":
-            p["moe"] = _moe_init(gen, cfg.moe_spec, device, to)
+            p["moe"] = _moe_init(gen, cfg.moe_spec, device, to,
+                                 lambda name, t: put(f"moe/{name}", t))
         else:
             p["mlp"] = _mlp_init(gen, d, cfg.d_ff, cfg.activation, device)
         return p
@@ -322,7 +330,7 @@ def cast_params(params: Any, dtype) -> Any:
 
 
 def init_params(cfg: ModelConfig, generator: torch.Generator,
-                device=None, cast=None) -> dict:
+                device=None, cast=None, place=None) -> dict:
     """Random weights of the reference's distributions, drawn from
     ``generator`` on ``device`` (the generator's device by default), their
     matrices in ``cfg.param_dtype`` (the router too, as the reference's
@@ -331,7 +339,10 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
     layer's expert matrices one expert at a time) has its matrices cast to
     ``cast`` as soon as it is drawn: the values of
     ``cast_params(init_params(...), cast)``, with at most one float32 piece
-    alive at a time."""
+    alive at a time. With ``place`` given, ``place(path, leaf)`` (path as
+    ``layers/3/attn/wq/w``) replaces every leaf once its piece is drawn
+    and cast, an expert matrix as soon as it is drawn: the sharded
+    steps keep each rank's shard of it there."""
     _require_known(cfg)
     device = generator.device if device is None else device
     d = cfg.d_model
@@ -341,17 +352,26 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
             t = t.to(cfg.param_dtype)
         return t if cast is None else t.to(cast)
 
-    def done(tree):
+    def cast_piece(tree):
         if cfg.param_dtype != torch.float32:
             tree = _cast_matrices(tree, cfg.param_dtype)
         return tree if cast is None else cast_params(tree, cast)
 
+    def done(tree, path: str):
+        tree = cast_piece(tree)
+        return tree if place is None else _placed(tree, path, place)
+
+    def layer(i: int) -> dict:
+        put = ((lambda name, t: place(f"layers/{i}/{name}", t))
+               if place is not None else (lambda _, t: t))
+        return done(_layer_init(generator, cfg, device, to, put),
+                    f"layers/{i}")
+
     params = {
         "embed": done({"table": _normal(generator, (cfg.padded_vocab, d),
-                                        0.02, device)}),
-        "layers": [done(_layer_init(generator, cfg, device, to))
-                   for _ in range(cfg.num_layers)],
-        "final_norm": L.norm_init(cfg.norm, d, device),
+                                        0.02, device)}, "embed"),
+        "layers": [layer(i) for i in range(cfg.num_layers)],
+        "final_norm": done(L.norm_init(cfg.norm, d, device), "final_norm"),
     }
     if cfg.arch_type == "hybrid":
         params["shared_attn"] = done({
@@ -359,18 +379,27 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
             "attn": _attention_init(generator, cfg.attn_spec, device),
             "ln2": L.norm_init(cfg.norm, d, device),
             "mlp": _mlp_init(generator, d, cfg.d_ff, cfg.activation, device),
-        })
+        }, "shared_attn")
     if cfg.arch_type == "vlm":
         params["vision_proj"] = done(_dense_init(generator, cfg.d_vision, d,
-                                                 device))
+                                                 device), "vision_proj")
     if cfg.arch_type == "audio":
         # one (CB-1, V, d) table, stacked as the reference's vmap stacks
         # it; drawn one codebook at a time
-        tables = [done({"table": _normal(generator, (cfg.padded_vocab, d),
-                                         0.02, device)})["table"]
-                  for _ in range(cfg.n_codebooks - 1)]
-        params["embed_cb"] = {"table": torch.stack(tables)}
+        tables = [cast_piece({"table": _normal(
+            generator, (cfg.padded_vocab, d), 0.02, device)})["table"]
+            for _ in range(cfg.n_codebooks - 1)]
+        params["embed_cb"] = done({"table": torch.stack(tables)}, "embed_cb")
     return params
+
+
+def _placed(tree: Any, path: str, place) -> Any:
+    """``place(path/..., leaf)`` of every leaf; a leaf placed while it was
+    drawn (a DTensor already) stays."""
+    if isinstance(tree, dict):
+        return {k: _placed(v, f"{path}/{k}" if path else k, place)
+                for k, v in tree.items()}
+    return tree if L.is_dtensor(tree) else place(path, tree)
 
 
 # ---------------------------------------------------------------------------
@@ -394,7 +423,9 @@ def embed_inputs(params: dict, batch: dict, cfg: ModelConfig) -> torch.Tensor:
     x = L.embedding_apply(params["embed"], batch["tokens"], dt)
     if cfg.arch_type == "vlm" and "vision" in batch:      # decode: text only
         vis = L.dense_apply(params["vision_proj"], batch["vision"].to(dt))
-        x = torch.cat([vis, x], dim=1)
+        # both pinned first on a mesh: DTensor cannot join a partial sum
+        # (the vision projection's, under FSDP) to a batch split
+        x = torch.cat([constrain(vis), constrain(x)], dim=1)
     return x
 
 
@@ -480,12 +511,13 @@ def forward(params: dict, batch: dict, cfg: ModelConfig) -> tuple[torch.Tensor,
     ``torch.utils.checkpoint`` (non-reentrant): its activations are dropped
     and recomputed in the backward pass, as the reference wraps each scan
     body in ``jax.checkpoint``."""
-    x = embed_inputs(params, batch, cfg)
+    x = constrain(embed_inputs(params, batch, cfg))
     b, s, _ = x.shape
     positions = _positions(b, s, x.device)
     remat = cfg.remat and torch.is_grad_enabled()
     auxs = []
     for i in range(len(params["layers"])):
+        x = constrain(x)
         if remat:
             x, aux = torch.utils.checkpoint.checkpoint(
                 _layer, params, i, x, positions, cfg, use_reentrant=False)
@@ -593,12 +625,13 @@ def prefill(params: dict, batch: dict, cfg: ModelConfig, max_seq_len: int,
     1, CB, V) for audio, and the decode cache sized for a total context of
     max_seq_len)."""
     cache_dtype = _kv_cache_dtype(cfg, cache_dtype)
-    x = embed_inputs(params, batch, cfg)
+    x = constrain(embed_inputs(params, batch, cfg))
     b, s, _ = x.shape
     positions = _positions(b, s, x.device)
     clen = cache_len_for(cfg, max_seq_len)
     ks, vs, states = [], [], []
     for i, lp in enumerate(params["layers"]):
+        x = constrain(x)
         block = _attention_at(params, i, cfg)
         if block is not None:
             x, (k, v), _ = _attn_mlp_block(block, x, positions, cfg,
@@ -655,11 +688,12 @@ def decode_step(params: dict, cache: dict, batch: dict, pos: torch.Tensor,
     """One-token decode. ``batch['tokens']``: (B, 1), or (B, 1, CB) for
     audio; ``pos``: (B,) absolute positions. Updates ``cache`` in place and
     returns (logits (B, 1, V) or (B, 1, CB, V), cache)."""
-    x = embed_inputs(params, batch, cfg)                  # (B, 1, d)
+    x = constrain(embed_inputs(params, batch, cfg))       # (B, 1, d)
     positions = pos[:, None].to(torch.int32)
     spec = _effective_decode_spec(cfg)
     site = 0
     for i, lp in enumerate(params["layers"]):
+        x = constrain(x)
         block = _attention_at(params, i, cfg)
         if block is not None:
             kv = {k: t[site] for k, t in cache["kv"].items()}

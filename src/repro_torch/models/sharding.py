@@ -13,7 +13,8 @@ shards (tensor parallelism inside each expert, e.g. Mixtral's 8 on a wider
 axis). GQA KV heads replicate over ``model`` when n_kv < model.
 
 The functions work on ``MeshShape`` (axis names and sizes, what the
-reference reads of an ``AbstractMesh``) and return ``Spec``s (one entry per
+reference reads of an ``AbstractMesh``) or a live ``DeviceMesh`` (read
+through ``mesh_shape``) and return ``Spec``s (one entry per
 dim: None, an axis name or a tuple of names, as a ``PartitionSpec``).
 Nothing is allocated: the parameter and cache trees are walked on the
 ``meta`` device.
@@ -22,9 +23,17 @@ The port keeps a model's layers as a list of per-layer dicts, where the
 reference stacks them on a leading axis: a layer leaf's spec is the
 reference's with that axis's entry dropped. The audio codebook tables are
 one stacked (CB-1, V, d) tensor in both packages, so their spec keeps its
-leading entry. ``param_shardings`` (the reference's ``NamedSharding``
-tree) has no counterpart until the DTensor placements of the pod layer's
-second half (ROADMAP queue 1 item 8b).
+leading entry.
+
+On a live ``DeviceMesh`` (``launch.mesh``): ``mesh_shape`` reads its
+``MeshShape``, ``placements`` turns a ``Spec`` into DTensor placements
+and ``param_shardings`` is the reference's ``NamedSharding`` tree as
+placements. ``distribute`` puts a tensor every rank holds whole onto the
+mesh, each rank keeping its own shard (no communication);
+``distribute_params`` does so leaf by leaf for a parameter tree (the
+tests' converted reference parameters) and ``init_sharded_params`` draws
+the port's own parameters piece by piece on each rank, keeping its
+shards before the next piece is drawn.
 """
 from __future__ import annotations
 
@@ -35,6 +44,7 @@ from typing import Any, Callable
 
 import torch
 
+from repro_torch import tree as T
 from repro_torch.models.model import ModelConfig, init_cache, init_params
 
 
@@ -65,6 +75,7 @@ class Spec(tuple):
 
 
 def axis_size(mesh: MeshShape, axes) -> int:
+    mesh = mesh_shape(mesh)
     if axes is None:
         return 1
     if isinstance(axes, str):
@@ -80,11 +91,13 @@ def _maybe(mesh: MeshShape, axes, dim: int):
 
 
 def fsdp_axes(mesh: MeshShape):
+    mesh = mesh_shape(mesh)
     return ("pod", "data") if "pod" in mesh.axis_names else ("data",)
 
 
 def batch_axes(mesh: MeshShape, batch: int):
     """Largest prefix of (pod, data) whose product divides `batch`."""
+    mesh = mesh_shape(mesh)
     cand = [a for a in ("pod", "data") if a in mesh.axis_names]
     chosen: list[str] = []
     prod = 1
@@ -178,6 +191,7 @@ def param_specs(cfg: ModelConfig, mesh: MeshShape, fsdp_on: bool = True):
     """A ``Spec`` for every leaf of ``init_params(cfg)``'s tree, in its
     structure. fsdp_on=False -> tensor-parallel-only storage (serving
     variants that fit per-card HBM skip the per-layer weight gathers)."""
+    mesh = mesh_shape(mesh)
     return map_with_path(
         lambda path, shape: _leaf_spec(path, shape, cfg, mesh, fsdp_on),
         _param_shapes(cfg))
@@ -190,6 +204,7 @@ def param_specs(cfg: ModelConfig, mesh: MeshShape, fsdp_on: bool = True):
 def batch_specs(batch_shapes: dict, mesh: MeshShape) -> dict:
     """Spec per batch entry of ``configs.base.batch_shapes``' ``{name:
     (shape, dtype)}``: dim 0 (the global batch) on the data axes."""
+    mesh = mesh_shape(mesh)
     def spec(shape):
         return Spec(batch_axes(mesh, shape[0]), *([None] * (len(shape) - 1)))
     return {name: spec(shape) for name, (shape, _) in batch_shapes.items()}
@@ -199,6 +214,7 @@ def cache_specs(cfg: ModelConfig, mesh: MeshShape, batch: int,
                 seq_len: int) -> dict:
     """Spec per leaf of ``init_cache(cfg, batch, seq_len)``, whose layout
     (stacked layers first) is the reference's."""
+    mesh = mesh_shape(mesh)
     shapes = init_cache(cfg, batch, seq_len, device="meta")
     bax = batch_axes(mesh, batch)
     M = "model"
@@ -221,4 +237,116 @@ def cache_specs(cfg: ModelConfig, mesh: MeshShape, batch: int,
 
 
 def activation_spec(mesh: MeshShape, batch: int) -> Spec:
+    mesh = mesh_shape(mesh)
     return Spec(batch_axes(mesh, batch), None, None)
+
+
+# ---------------------------------------------------------------------------
+# DTensor placements on a live mesh
+# ---------------------------------------------------------------------------
+
+def mesh_shape(mesh) -> MeshShape:
+    """The ``MeshShape`` of a ``DeviceMesh`` with named dims, or a
+    ``MeshShape`` as it is."""
+    if isinstance(mesh, MeshShape):
+        return mesh
+    return MeshShape(tuple(mesh.shape), tuple(mesh.mesh_dim_names))
+
+
+def placements(spec: Spec, mesh) -> tuple:
+    """The DTensor placements of ``spec`` on ``mesh``: one per mesh dim,
+    ``Shard(d)`` where the spec names that axis for tensor dim d, else
+    ``Replicate()``. A tuple entry splits its dim over several axes,
+    major to minor in the spec's order, which must be the mesh's order
+    (DTensor shards one dim over mesh dims in their order). An axis of
+    size 1 replicates: a split in one piece is the whole, and DTensor
+    refuses to reshape a dim it holds split, even in one piece."""
+    from torch.distributed.tensor import Replicate, Shard
+    shape = mesh_shape(mesh)
+    names = shape.axis_names
+    out = [Replicate()] * len(names)
+    for dim, entry in enumerate(spec):
+        axes = () if entry is None else (
+            (entry,) if isinstance(entry, str) else tuple(entry))
+        idx = [names.index(a) for a in axes]
+        if idx != sorted(idx):
+            raise ValueError(f"{spec}: dim {dim} splits over {axes}, out of "
+                             f"the mesh's order {names}")
+        for i in idx:
+            if shape.axis_sizes[i] > 1:
+                out[i] = Shard(dim)
+    return tuple(out)
+
+
+def param_shardings(cfg: ModelConfig, mesh, fsdp_on: bool = True):
+    """Placements for every leaf of ``init_params(cfg)``'s tree."""
+    return map_with_path(lambda _, spec: placements(spec, mesh),
+                         param_specs(cfg, mesh, fsdp_on))
+
+
+def _local_shard(full: torch.Tensor, mesh, place: tuple) -> torch.Tensor:
+    """This rank's shard of ``full`` under ``place``: the dims split over
+    mesh dims in their order (even splits; the specs shard only dims that
+    divide)."""
+    t = full
+    for i, p in enumerate(place):
+        if p.is_shard():
+            n = mesh.size(i)
+            if t.shape[p.dim] % n:
+                raise ValueError(f"dim {p.dim} of {tuple(full.shape)} does "
+                                 f"not split {n} ways")
+            t = t.chunk(n, dim=p.dim)[mesh.get_local_rank(i)]
+    return t
+
+
+def distribute(t: torch.Tensor, mesh, place: tuple):
+    """``t`` as a DTensor of ``place``: a DTensor is redistributed; a plain
+    tensor, which every rank must hold whole and equal, gives each rank
+    its own shard with no communication (a copy, so ``t`` can be
+    freed)."""
+    from torch.distributed.tensor import DTensor
+    if isinstance(t, DTensor):
+        return t.redistribute(mesh, place)
+    local = _local_shard(t, mesh, place)
+    local = t.contiguous() if local is t else local.clone(
+        memory_format=torch.contiguous_format)
+    return DTensor.from_local(local, mesh, place, run_check=False)
+
+
+def distribute_tree(tree: Any, place: Any, mesh) -> Any:
+    """``distribute`` of every leaf of ``tree`` by the matching placements
+    of ``place`` (a tree of one structure)."""
+    return T.tree_map(lambda t, p: distribute(t, mesh, p), tree, place)
+
+
+def distribute_params(params: dict, cfg: ModelConfig, mesh,
+                      fsdp_on: bool = True) -> dict:
+    """A whole parameter tree (every rank holds the same) onto ``mesh`` by
+    ``param_shardings``."""
+    return distribute_tree(params, param_shardings(cfg, mesh, fsdp_on), mesh)
+
+
+def init_sharded_params(cfg: ModelConfig, mesh, generator: torch.Generator,
+                        fsdp_on: bool = True, cast=None) -> dict:
+    """``init_params(cfg, generator, cast=cast)`` drawn on every rank from
+    one seed, each leaf replaced by this rank's shard as soon as it is
+    drawn (and cast): the values of ``distribute_params`` of the whole
+    tree, with at most one piece whole at a time (a layer; of an MoE
+    layer, one expert matrix)."""
+    place = {path: p for path, p in flat_paths(
+        param_shardings(cfg, mesh, fsdp_on))}
+    return init_params(cfg, generator, cast=cast,
+                       place=lambda path, t: distribute(t, mesh, place[path]))
+
+
+def flat_paths(tree: Any, path: tuple = ()):
+    """``(path, leaf)`` of a tree whose per-layer list adds its index to the
+    path (``layers/3/attn/wq/w``)."""
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from flat_paths(v, path + (str(k),))
+    elif isinstance(tree, list):
+        for i, v in enumerate(tree):
+            yield from flat_paths(v, path + (str(i),))
+    else:
+        yield "/".join(path), tree

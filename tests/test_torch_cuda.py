@@ -35,6 +35,10 @@ The tiled matmul meets its plain version within ``tests/test_kernels.py``'s
 1e-3 (float32) and 3e-2 (bf16), by the route its wrapper picks (bf16
 through TMA and wgmma where rows are 16-byte multiples, else mma.sync).
 Float32 comparisons run with TF32 off for matrix products and cuDNN.
+The sharded steps run once on a world of one NCCL rank through
+``launch.ranks`` (reduced zamba2-1.2b, float32): logits within 1e-5 of the
+unsharded steps' largest |logit|, K3 and K4 launched on the rank's
+shards.
 """
 import dataclasses
 import functools
@@ -1319,3 +1323,22 @@ def test_cuda_serve_dynamic_with_als145_launches_k1_and_k2(hopper):
     assert maxplus_scan.launches > n1 and lane_sort.launches > n2
     assert all(w.solution is not None and w.report is not None
                for w in wins)
+
+
+def test_cuda_sharded_steps_on_one_rank_match_the_unsharded_ones(hopper):
+    """A world-1 NCCL run through ``launch.ranks`` of reduced zamba2-1.2b
+    in float32 (``torch_pod_ranks.card_case``): the sharded prefill and 4
+    decode steps within 1e-5 of the unsharded steps' largest |logit|, K3
+    and K4 launched on the rank's shards."""
+    from repro_torch.launch import ranks
+    target = str(Path(__file__).with_name("torch_pod_ranks.py"))
+    cfg = TC.reduced(TC.get_config("zamba2-1.2b"))
+    (got,) = ranks.run(f"{target}:card_case",
+                       {"arch": "zamba2-1.2b", "batch": 2, "prompt": 40,
+                        "steps": 4}, 1, device="cuda", wall_s=300)
+    worst = max(e / s for e, s in zip(got["err"], got["scale"]))
+    print(f"sharded vs unsharded: largest difference {max(got['err'])}, "
+          f"{worst} of the largest |logit|")
+    assert worst <= 1e-5
+    assert got["launches"] == {"flash_attention": cfg.n_attn_sites,
+                               "ssd_chunk": cfg.num_layers}
