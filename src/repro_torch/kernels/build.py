@@ -129,16 +129,11 @@ def check(lib: ctypes.CDLL, err: int, what: str) -> None:
                            f"({lib.error_string(err).decode()})")
 
 
-def is_dtensor(x) -> bool:
-    """Whether ``x`` is a DTensor. The module is looked up, not imported:
-    where it was never imported, no DTensor exists."""
-    mod = sys.modules.get("torch.distributed.tensor")
-    return mod is not None and isinstance(x, mod.DTensor)
-
-
 def refuse_dtensor(what: str, *tensors) -> None:
     """Raise if any of ``tensors`` is a DTensor: a kernel takes one
-    device's tensors and never gathers a sharded one."""
-    if any(is_dtensor(t) for t in tensors):
+    device's tensors and never gathers a sharded one. The module is looked
+    up, not imported: where it was never imported, no DTensor exists."""
+    mod = sys.modules.get("torch.distributed.tensor")
+    if mod is not None and any(isinstance(t, mod.DTensor) for t in tensors):
         raise TypeError(f"{what} takes one device's tensors, not a DTensor: "
                         f"call it on each rank's local shards")

@@ -13,8 +13,8 @@ test process can launch ranks without touching its own interpreter.
    from ``torch.distributed`` and returns a JSON-able value.
  * The ranks meet through a ``file://`` store in a temporary directory: no
    port is opened for the rendezvous, so two launches at once cannot
-   collide. ``device="cuda"`` takes NCCL, rank r on card ``r % count``;
-   ``"cpu"`` takes gloo, one intra-op thread a rank.
+   collide. ``device="cuda"`` (the default) takes NCCL, rank r on card
+   ``r % count``; ``"cpu"`` takes gloo, one intra-op thread a rank.
  * Before it starts CUDA ranks, the caller builds every kernel
    (``kernels.build.build_all``), so no two ranks run ``nvcc`` on one
    library.
@@ -47,7 +47,7 @@ class RankError(RuntimeError):
     """A rank exited non-zero or was killed at the wall limit."""
 
 
-def run(target: str, payload: dict, world: int, *, device: str = "cpu",
+def run(target: str, payload: dict, world: int, *, device: str = "cuda",
         wall_s: float = 600.0) -> list:
     """``target(payload)`` on ranks ``0 .. world - 1``; returns their
     results in rank order."""
@@ -117,7 +117,7 @@ def _main(argv=None) -> None:
     ap.add_argument("--world", type=int, required=True)
     ap.add_argument("--dir", required=True)
     ap.add_argument("--target", required=True)
-    ap.add_argument("--device", default="cpu")
+    ap.add_argument("--device", choices=("cpu", "cuda"), required=True)
     ap.add_argument("--timeout", type=int, default=600)
     a = ap.parse_args(argv)
 

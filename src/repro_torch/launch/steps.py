@@ -24,7 +24,6 @@ import torch
 
 from repro_torch import tree as T
 from repro_torch.configs.base import InputShape, batch_shapes
-from repro_torch.kernels.build import is_dtensor
 from repro_torch.models import model as M
 from repro_torch.models import sharding as S
 from repro_torch.optim.adamw import AdamWConfig, adamw_update
@@ -108,7 +107,7 @@ def _act_constraint(mesh, batch: int) -> Callable:
     model = S.axis_size(shape, "model")
 
     def fn(x):
-        if not is_dtensor(x):
+        if not S.is_dtensor(x):
             return x
         if x.ndim == 3:
             return x.redistribute(mesh, act)

@@ -25,10 +25,10 @@ copying the whole cache.
 On a device mesh (``launch.steps.sharded_step``) the layers take DTensors
 and torch ops carry the placements; ``constrain`` is the reference's
 activation-sharding hook. A kernel never sees a DTensor: the attention
-kernel, the SSD scan, the ring-buffer writes of decode and the experts'
-dispatch run on each rank's local shards (``_on_shards``, ``_ring_write``,
-``_moe_sharded``), with local heads or experts where the model axis
-divides them.
+kernel, the SSD scan and decode's recurrence, the ring-buffer writes and
+cached attention of decode, the experts' dispatch and the embedding's
+lookup run on each rank's local shards through ``sharding.local_map``,
+with local heads or experts where the model axis divides them.
 """
 from __future__ import annotations
 
@@ -43,9 +43,9 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import ops
-from repro_torch.kernels.build import is_dtensor
 from repro_torch.kernels.flash_attention.flash_attention import \
     flash_attention
+from repro_torch.models.sharding import is_dtensor, local_map
 
 Params = dict
 DEFAULT_ROPE_THETA = 10_000.0
@@ -112,17 +112,6 @@ def _split(plan: list, mesh, batch_dim: Optional[int],
         else:
             out.append(Replicate())
     return tuple(out)
-
-
-def _local(x, placements: tuple) -> torch.Tensor:
-    return x.redistribute(x.device_mesh, placements).to_local()
-
-
-def _on_mesh(t: torch.Tensor, mesh, placements: tuple) -> Any:
-    """This rank's shard ``t`` as a DTensor of ``placements`` (even
-    splits)."""
-    from torch.distributed.tensor import DTensor
-    return DTensor.from_local(t, mesh, placements, run_check=False)
 
 
 def _model_coords(mesh) -> tuple[int, int]:
@@ -217,37 +206,20 @@ def dense_apply(p: Params, x: torch.Tensor) -> torch.Tensor:
     the weights were cast once at load, which gives the same values).
 
     On a mesh, a product whose contracted dim is split (a row-parallel
-    weight, or FSDP storage) sums partial products across ranks: below
-    float32 it runs in float32 and rounds once, as the whole product does
-    (summed in the low type, each partial and each partial sum would round
-    on its own)."""
-    w = p["w"].to(x.dtype)
-    if x.dtype != torch.float32 and is_dtensor(x) and _splits_contraction(
-            x, w):
-        y = _summed(x.float() @ w.float()).to(x.dtype)
-    else:
-        y = x @ w
+    weight, or FSDP storage) leaves each rank a partial product. Below
+    float32 each rank's partial, rounded to x's dtype by the tensor-core
+    product, is summed across ranks in float32 and rounded once (summed in
+    the low type, each partial sum would round on its own)."""
+    y = x @ p["w"].to(x.dtype)
+    if is_dtensor(y) and y.dtype != torch.float32 and any(
+            pl.is_partial() for pl in y.placements):
+        from torch.distributed.tensor import Replicate
+        y = y.float().redistribute(y.device_mesh, tuple(
+            Replicate() if pl.is_partial() else pl for pl in y.placements)
+        ).to(x.dtype)
     if "b" in p:
         y = y + p["b"].to(x.dtype)
     return y
-
-
-def _summed(y):
-    """DTensor ``y`` with its partial sums completed (DTensor would carry
-    them on, past a cast)."""
-    from torch.distributed.tensor import Replicate
-    if not any(p.is_partial() for p in y.placements):
-        return y
-    return y.redistribute(y.device_mesh, tuple(
-        Replicate() if p.is_partial() else p for p in y.placements))
-
-
-def _splits_contraction(x, w) -> bool:
-    """Whether ``x @ w``'s contracted dim is split on a mesh dim of more
-    than one rank, in x (its last dim) or in w (its first)."""
-    mesh = x.device_mesh
-    return any(mesh.size(i) > 1 and (px.is_shard(x.ndim - 1) or pw.is_shard(0))
-               for i, (px, pw) in enumerate(zip(x.placements, w.placements)))
 
 
 # ---------------------------------------------------------------------------
@@ -354,11 +326,11 @@ def _attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     q_split, k_split = q.shape[2] % size == 0, k.shape[2] % size == 0
     pq = _split(plan, mesh, 0, 2, q_split)
     pk = _split(plan, mesh, 0, 2, k_split)
-    ql, kl, vl = _local(q, pq), _local(k, pk), _local(v, pk)
-    out = _attend_local(ql, kl, vl, window, group,
-                        coord * ql.shape[2] if q_split else 0,
-                        coord * kl.shape[2] if k_split else 0)
-    return _on_mesh(out, mesh, pq)
+    attend = functools.partial(
+        _attend_local, window=window, group=group,
+        h0=coord * (q.shape[2] // size) if q_split else 0,
+        k0=coord * (k.shape[2] // size) if k_split else 0)
+    return local_map(attend, mesh, (pq, pk, pk), pq)(q, k, v)
 
 
 def _ring_write(buf: torch.Tensor, val: torch.Tensor,
@@ -372,18 +344,20 @@ def _ring_write(buf: torch.Tensor, val: torch.Tensor,
         buf[rows, pos % clen] = val[:, 0].to(buf.dtype)
         return
     from torch.distributed.tensor import Replicate
-    mesh = buf.device_mesh
-    local = buf.to_local()                 # a view: writes land in buf
-    vl = _local(val, tuple(Replicate() if p.is_shard(1) else p
-                           for p in buf.placements))
-    pl = _local(pos, tuple(p if p.is_shard(0) else Replicate()
-                           for p in buf.placements))
-    lo = sum(mesh.get_local_rank(i) * local.shape[1]
-             for i, p in enumerate(buf.placements) if p.is_shard(1))
-    slot = pl % clen - lo
-    mine = (slot >= 0) & (slot < local.shape[1])
-    rows = torch.arange(local.shape[0], device=local.device)[mine]
-    local[rows, slot[mine]] = vl[:, 0][mine].to(local.dtype)
+    mesh, place = buf.device_mesh, buf.placements
+
+    def write(local, vl, pl):              # local: buf's own shard
+        lo = sum(mesh.get_local_rank(i) * local.shape[1]
+                 for i, p in enumerate(place) if p.is_shard(1))
+        slot = pl % clen - lo
+        mine = (slot >= 0) & (slot < local.shape[1])
+        rows = torch.arange(local.shape[0], device=local.device)[mine]
+        local[rows, slot[mine]] = vl[:, 0][mine].to(local.dtype)
+
+    local_map(write, mesh, (
+        place, tuple(Replicate() if p.is_shard(1) else p for p in place),
+        tuple(p if p.is_shard(0) else Replicate() for p in place)),
+        None)(buf, val, pos)
 
 
 def attention_apply(p: Params, x: torch.Tensor, positions: torch.Tensor,
@@ -497,12 +471,16 @@ def _attend_cached(q: torch.Tensor, cache: Params, cpos: torch.Tensor,
     heads = cache["k"].placements[m].is_shard(2)
     slots = cache["k"].placements[m].is_shard(1)
     pq = _split(plan, mesh, 0, 2, heads)
-    out = _decode_local(
-        _local(q, pq), {k: t.to_local() for k, t in cache.items()},
-        _local(cpos, _split(plan, mesh, 0, 1, slots)),
-        _local(pos, _split(plan, mesh, 0, None, False)),
-        window, scale, dtype, mesh.get_group(m) if slots else None)
-    return _on_mesh(out, mesh, pq)
+    names = list(cache)
+
+    def attend(ql, cpl, pl, *held):
+        return _decode_local(ql, dict(zip(names, held)), cpl, pl, window,
+                             scale, dtype,
+                             mesh.get_group(m) if slots else None)
+    return local_map(attend, mesh, (
+        pq, _split(plan, mesh, 0, 1, slots), _split(plan, mesh, 0, None, False),
+        *(cache[n].placements for n in names)), pq)(
+        q, cpos, pos, *(cache[n] for n in names))
 
 
 # ---------------------------------------------------------------------------
@@ -685,30 +663,30 @@ def _moe_sharded(p: Params, x: torch.Tensor,
     coord, size = _model_coords(mesh)
     ep = spec.n_experts % size == 0
 
-    def weight(t, ffn_dim: int) -> torch.Tensor:
-        return _local(t, tuple(
-            (Shard(0) if ep else Shard(ffn_dim)) if i == m else Replicate()
-            for i in range(mesh.ndim)))
+    def weight(ffn_dim: int) -> tuple:
+        return tuple((Shard(0) if ep else Shard(ffn_dim)) if i == m
+                     else Replicate() for i in range(mesh.ndim))
 
-    xl = _local(x, _split(plan, mesh, 0, None, False))
-    w1, w3, w2 = weight(p["w1"], 2), weight(p["w3"], 2), weight(p["w2"], 1)
     reduce_ye = None
     if not ep:
         def reduce_ye(t):
             import torch.distributed as dist
             dist.all_reduce(t, group=mesh.get_group(m))
             return t
-    y, aux = _moe_local(_local(p["router"], (Replicate(),) * mesh.ndim),
-                        xl, w1, w3, w2, spec,
-                        e0=coord * w1.shape[0] if ep else 0,
-                        reduce_ye=reduce_ye)
+
+    def experts(router, xl, w1, w3, w2):
+        return _moe_local(router, xl, w1, w3, w2, spec,
+                          e0=coord * w1.shape[0] if ep else 0,
+                          reduce_ye=reduce_ye)
+    whole = (Replicate(),) * mesh.ndim
     rows = _split(plan, mesh, 0, None, False)
-    y = _on_mesh(y, mesh, tuple(Partial() if i == m and ep else pl
-                                for i, pl in enumerate(rows)))
+    y, aux = local_map(experts, mesh, (
+        whole, rows, weight(2), weight(2), weight(1)), (
+        tuple(Partial() if i == m and ep else pl for i, pl in enumerate(rows)),
+        tuple(Partial("avg") if b else Replicate() for b in plan)))(
+        p["router"], x, p["w1"], p["w3"], p["w2"])
     y = y.redistribute(mesh, rows).to(x.dtype)
-    aux = _on_mesh(aux, mesh, tuple(Partial("avg") if b else Replicate()
-                                    for b in plan))
-    aux = aux.redistribute(mesh, (Replicate(),) * mesh.ndim)
+    aux = aux.redistribute(mesh, whole)
     if spec.dense_residual:
         y = y + mlp_apply(p["dense"], x)
     return y, aux
@@ -804,14 +782,15 @@ def _ssd_prefill(xi: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     coord, size = _model_coords(mesh)
     split = xi.shape[2] % size == 0
     heads = _split(plan, mesh, 0, 2, split)
-    xl = _local(xi, heads)
-    y, state = _ssd_prefill_local(
-        xl, _local(dt, heads), _local(A, _split(plan, mesh, None, 0, split)),
-        _local(Bm, _split(plan, mesh, 0, None, False)),
-        _local(Cm, _split(plan, mesh, 0, None, False)), chunk, rep,
-        coord * xl.shape[2] if split else 0)
-    return (_on_mesh(y.contiguous(), mesh, heads),
-            _on_mesh(state, mesh, _split(plan, mesh, 0, 1, split)))
+    rows = _split(plan, mesh, 0, None, False)
+    h0 = coord * (xi.shape[2] // size) if split else 0
+
+    def scan(xl, dtl, Al, Bl, Cl):
+        y, state = _ssd_prefill_local(xl, dtl, Al, Bl, Cl, chunk, rep, h0)
+        return y.contiguous(), state
+    return local_map(scan, mesh, (
+        heads, heads, _split(plan, mesh, None, 0, split), rows, rows), (
+        heads, _split(plan, mesh, 0, 1, split)))(xi, dt, A, Bm, Cm)
 
 
 def _ssm_step(state: torch.Tensor, xv: torch.Tensor, dt1: torch.Tensor,
@@ -842,16 +821,15 @@ def _ssm_decode(state: torch.Tensor, xv: torch.Tensor, dt1: torch.Tensor,
         return _ssm_step(state, xv, dt1, A, Bg, Cg, rep)
     mesh = xv.device_mesh
     plan = _batch_plan(state)
-    coord, _ = _model_coords(mesh)
+    coord, size = _model_coords(mesh)
     heads = state.placements[_model_dim(mesh)].is_shard(1)
     split = _split(plan, mesh, 0, 1, heads)
-    xl = _local(xv, split)
-    y = _ssm_step(state.to_local(), xl, _local(dt1, split),
-                  _local(A, _split(plan, mesh, None, 0, heads)),
-                  _local(Bg, _split(plan, mesh, 0, None, False)),
-                  _local(Cg, _split(plan, mesh, 0, None, False)),
-                  rep, coord * xl.shape[1] if heads else 0)
-    return _on_mesh(y, mesh, split)
+    rows = _split(plan, mesh, 0, None, False)
+    step = functools.partial(_ssm_step, rep=rep,
+                             h0=coord * (xv.shape[1] // size) if heads else 0)
+    return local_map(step, mesh, (
+        state.placements, split, split, _split(plan, mesh, None, 0, heads),
+        rows, rows), split)(state, xv, dt1, A, Bg, Cg)
 
 
 def ssm_apply(p: Params, x: torch.Tensor, spec: SSMSpec,
@@ -929,17 +907,19 @@ def _embedding_sharded(table: torch.Tensor, tokens: torch.Tensor,
     m = _model_dim(mesh)
     coord, size = _model_coords(mesh)
     split = table.shape[0] % size == 0
-    rows = _local(table, tuple(Shard(0) if i == m and split else Replicate()
-                               for i in range(mesh.ndim)))
-    plan = _batch_plan(tokens)
-    ids = _local(tokens, _split(plan, mesh, 0, None, False)).long() \
-        - (coord * rows.shape[0] if split else 0)
-    inside = (ids >= 0) & (ids < rows.shape[0])
-    out = F.embedding(ids.clamp(0, rows.shape[0] - 1), rows.to(dtype))
-    out = torch.where(inside[..., None], out, out.new_zeros(()))
-    place = tuple(Partial() if i == m and split else pl for i, pl in
-                  enumerate(_split(plan, mesh, 0, None, False)))
-    return _on_mesh(out, mesh, place)
+    batch = _split(_batch_plan(tokens), mesh, 0, None, False)
+    first = coord * (table.shape[0] // size) if split else 0
+
+    def lookup(rows, ids):
+        ids = ids.long() - first
+        inside = (ids >= 0) & (ids < rows.shape[0])
+        out = F.embedding(ids.clamp(0, rows.shape[0] - 1), rows.to(dtype))
+        return torch.where(inside[..., None], out, out.new_zeros(()))
+    return local_map(lookup, mesh, (
+        tuple(Shard(0) if i == m and split else Replicate()
+              for i in range(mesh.ndim)), batch),
+        tuple(Partial() if i == m and split else pl
+              for i, pl in enumerate(batch)))(table, tokens)
 
 
 def unembed_apply(p: Params, x: torch.Tensor) -> torch.Tensor:

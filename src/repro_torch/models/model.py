@@ -49,6 +49,7 @@ import torch.utils.checkpoint
 from repro_torch.models import layers as L
 # the activation-sharding hook (the reference keeps it in this module)
 from repro_torch.models.layers import activation_sharding, constrain  # noqa: F401
+from repro_torch.models.sharding import is_dtensor
 
 DENSE_ARCHS = ("dense", "moe", "vlm", "audio")
 ARCH_TYPES = DENSE_ARCHS + ("ssm", "hybrid")
@@ -399,7 +400,7 @@ def _placed(tree: Any, path: str, place) -> Any:
     if isinstance(tree, dict):
         return {k: _placed(v, f"{path}/{k}" if path else k, place)
                 for k, v in tree.items()}
-    return tree if L.is_dtensor(tree) else place(path, tree)
+    return tree if is_dtensor(tree) else place(path, tree)
 
 
 # ---------------------------------------------------------------------------

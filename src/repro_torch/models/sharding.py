@@ -28,7 +28,8 @@ leading entry.
 On a live ``DeviceMesh`` (``launch.mesh``): ``mesh_shape`` reads its
 ``MeshShape``, ``placements`` turns a ``Spec`` into DTensor placements
 and ``param_shardings`` is the reference's ``NamedSharding`` tree as
-placements. ``distribute`` puts a tensor every rank holds whole onto the
+placements. ``local_map`` runs a function on each rank's local shards
+(the layers' kernel boundaries: a kernel never sees a DTensor). ``distribute`` puts a tensor every rank holds whole onto the
 mesh, each rank keeping its own shard (no communication);
 ``distribute_params`` does so leaf by leaf for a parameter tree (the
 tests' converted reference parameters) and ``init_sharded_params`` draws
@@ -40,12 +41,15 @@ from __future__ import annotations
 import dataclasses
 import functools
 import math
-from typing import Any, Callable
+import sys
+from typing import TYPE_CHECKING, Any, Callable
 
 import torch
 
 from repro_torch import tree as T
-from repro_torch.models.model import ModelConfig, init_cache, init_params
+
+if TYPE_CHECKING:   # the layers import this module, the model imports them
+    from repro_torch.models.model import ModelConfig
 
 
 @dataclasses.dataclass(frozen=True)
@@ -183,6 +187,7 @@ def map_with_path(fn: Callable, tree: Any, path: tuple = ()) -> Any:
 @functools.lru_cache(maxsize=None)
 def _param_shapes(cfg: ModelConfig) -> Any:
     """The parameter tree's shapes, drawn on the meta device."""
+    from repro_torch.models.model import init_params
     params = init_params(cfg, torch.Generator(), device="meta")
     return map_with_path(lambda _, t: tuple(t.shape), params)
 
@@ -214,6 +219,7 @@ def cache_specs(cfg: ModelConfig, mesh: MeshShape, batch: int,
                 seq_len: int) -> dict:
     """Spec per leaf of ``init_cache(cfg, batch, seq_len)``, whose layout
     (stacked layers first) is the reference's."""
+    from repro_torch.models.model import init_cache
     mesh = mesh_shape(mesh)
     shapes = init_cache(cfg, batch, seq_len, device="meta")
     bax = batch_axes(mesh, batch)
@@ -244,6 +250,43 @@ def activation_spec(mesh: MeshShape, batch: int) -> Spec:
 # ---------------------------------------------------------------------------
 # DTensor placements on a live mesh
 # ---------------------------------------------------------------------------
+
+def is_dtensor(x) -> bool:
+    """Whether ``x`` is a DTensor. The module is looked up, not imported:
+    where it was never imported, no DTensor exists."""
+    mod = sys.modules.get("torch.distributed.tensor")
+    return mod is not None and isinstance(x, mod.DTensor)
+
+
+def local_map(fn: Callable, mesh, ins: tuple, outs) -> Callable:
+    """``fn`` on each rank's local shards, in the manner of
+    ``torch.distributed.tensor.experimental.local_map`` with its inputs
+    redistributed. Argument i, a DTensor, is laid out as ``ins[i]`` (its
+    placements; None passes the argument as it is) and ``fn`` gets the
+    local tensor: where the DTensor already lies so, its own, so that
+    writes in place land in it. A tensor ``fn`` returns goes back on the
+    mesh as a DTensor of ``outs`` (its placements, even splits), a tuple
+    of them each by its entry of ``outs``; None stays None."""
+    from torch.distributed.tensor import DTensor
+
+    def local(x, place):
+        if place is None:
+            return x
+        if tuple(x.placements) != tuple(place):
+            x = x.redistribute(mesh, place)
+        return x.to_local()
+
+    def wrap(y, place):
+        return None if y is None else DTensor.from_local(y, mesh, place,
+                                                         run_check=False)
+
+    def run(*args):
+        out = fn(*(local(a, p) for a, p in zip(args, ins, strict=True)))
+        if isinstance(out, tuple):
+            return tuple(wrap(y, p) for y, p in zip(out, outs, strict=True))
+        return wrap(out, outs)
+    return run
+
 
 def mesh_shape(mesh) -> MeshShape:
     """The ``MeshShape`` of a ``DeviceMesh`` with named dims, or a
@@ -333,6 +376,7 @@ def init_sharded_params(cfg: ModelConfig, mesh, generator: torch.Generator,
     drawn (and cast): the values of ``distribute_params`` of the whole
     tree, with at most one piece whole at a time (a layer; of an MoE
     layer, one expert matrix)."""
+    from repro_torch.models.model import init_params
     place = {path: p for path, p in flat_paths(
         param_shardings(cfg, mesh, fsdp_on))}
     return init_params(cfg, generator, cast=cast,

@@ -166,7 +166,7 @@ def served(tmp_path_factory):
                        "out": str(d / name)}
             futures[name] = pool.submit(ranks.run, f"{RANKS}:serve_cases",
                                         payload, math.prod(shape),
-                                        wall_s=WALL_S)
+                                        device="cpu", wall_s=WALL_S)
         runs = {arch: _unsharded(arch, trees[arch], prompts[arch])
                 for arch in ARCHS}
         results = {}
@@ -247,10 +247,15 @@ def test_the_port_unsharded_follows_the_reference(served, arch):
         within(t, j, REF_TOL, f"{arch} step {step}")
 
 
-def test_the_multi_pod_mesh_places_a_tree_drawn_piece_by_piece():
-    arch = "zamba2-1.2b"
-    results = ranks.run(f"{RANKS}:place_multi_pod", {"arch": arch}, 8,
-                        wall_s=WALL_S)
+@pytest.fixture(scope="module")
+def multi_pod():
+    """One eight-rank launch on the multi-pod mesh (2, 1, 4)."""
+    return ranks.run(f"{RANKS}:place_multi_pod", {"arch": "zamba2-1.2b"}, 8,
+                     device="cpu", wall_s=WALL_S)
+
+
+def test_the_multi_pod_mesh_places_a_tree_drawn_piece_by_piece(multi_pod):
+    arch, results = "zamba2-1.2b", multi_pod
     mesh = S.MeshShape((2, 1, 4), ("pod", "data", "model"))
     cfg = TC.reduced(TC.get_config(arch))
     specs = dict(S.flat_paths(S.param_specs(cfg, mesh)))
@@ -267,6 +272,27 @@ def test_the_multi_pod_mesh_places_a_tree_drawn_piece_by_piece():
             assert msg is not None and msg.startswith("TypeError") and \
                 "DTensor" in msg and name in msg, (name, msg)
     assert len(results[0]["refused"]) == 8
+
+
+def test_a_bf16_split_contraction_sums_its_bf16_partials_in_float32(
+        multi_pod):
+    """The four ranks of a pod each multiply their slice of the contracted
+    dim on bf16 operands; the partials are summed in float32 and rounded
+    to bf16 once (a bf16 sum would round each partial sum on this
+    input)."""
+    got = [r["bf16_product"] for r in multi_pod]
+    parts = [torch.tensor(r["partial"], dtype=torch.float64)
+             for r in got[:4]]
+    # four bf16 values sum exactly in float32 here, in any order
+    want = sum(parts).bfloat16()
+    in_bf16 = parts[0].bfloat16()
+    for part in parts[1:]:
+        in_bf16 = in_bf16 + part.bfloat16()
+    assert not torch.equal(in_bf16, want)
+    for r in got:
+        assert r["dtype"] == "torch.bfloat16"
+        assert r["replicated"] == [True, True, True]
+        assert torch.equal(torch.tensor(r["y"]).bfloat16(), want)
 
 
 MESHES = {"1x4": ((1, 4), ("data", "model")),

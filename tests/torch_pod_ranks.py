@@ -112,7 +112,8 @@ def serve_cases(payload: dict) -> dict:
 def place_multi_pod(payload: dict) -> dict:
     """The multi-pod production mesh, one reduced tree drawn piece by piece
     on it (``init_sharded_params``) against the whole tree distributed
-    (``distribute_params``), and the kernel wrappers handed a DTensor."""
+    (``distribute_params``), the kernel wrappers handed a DTensor, and a
+    bf16 product split over the model axis."""
     mesh = MS.make_production_mesh(multi_pod=True, device="cpu")
     cfg = f32_config(payload["arch"])
     drawn = S.init_sharded_params(cfg, mesh,
@@ -126,7 +127,26 @@ def place_multi_pod(payload: dict) -> dict:
     return {"mesh": [list(mesh.shape), list(mesh.mesh_dim_names)],
             "paths": sorted(a) == sorted(w), "differ": differ,
             "shapes": _local_shapes(drawn, S.flat_paths),
-            "refused": _refusals(mesh)}
+            "refused": _refusals(mesh),
+            "bf16_product": _bf16_split_product(mesh)}
+
+
+def _bf16_split_product(mesh) -> dict:
+    """A bf16 ``dense_apply`` whose contracted dim is split over the model
+    axis: this rank's partial product (its local shards' bf16 product) and
+    the gathered result."""
+    from torch.distributed.tensor import Replicate, Shard
+    from repro_torch.models import layers as L
+    g = torch.Generator().manual_seed(0)
+    x = torch.randn(2, 3, 64, generator=g).bfloat16()
+    w = torch.randn(64, 16, generator=g).bfloat16()
+    rest = (Replicate(),) * (mesh.ndim - 1)
+    xd = S.distribute(x, mesh, rest + (Shard(2),))
+    wd = S.distribute(w, mesh, rest + (Shard(0),))
+    y = L.dense_apply({"w": wd}, xd)
+    return {"partial": (xd.to_local() @ wd.to_local()).float().tolist(),
+            "y": y.full_tensor().float().tolist(), "dtype": str(y.dtype),
+            "replicated": [p.is_replicate() for p in y.placements]}
 
 
 def _refusals(mesh) -> dict:
