@@ -167,7 +167,30 @@ each and stopping with a traceback at the first failure:
     leave room for (said), at bs 1 and 4, 8 tokens, the adapter's HBM a
     card (chips 4, tp 4) beside each peak. ``--phase pod_serve`` runs
     only the device and this phase.
-17. ``serve_interleaved``: ``ManagedInterleaveRuntime`` (no trainer) over
+17. ``pod_train``: the sharded train step (``launch.steps.sharded_step``,
+    FSDP on, remat on, bs 4 x 512), one rank per visible card. On one
+    card: zamba2-1.2b at full width and depth (the train phase's
+    configuration) and a float32 copy of qwen2.5-14b at full width cut to
+    4 of 48 layers, each one step unsharded on rank 0 and one on the (1,
+    1) mesh from the same weights and batch (bitwise or not, recorded),
+    held to POD_TRAIN_TOL: loss and grad norm within 1e-5 relative, every
+    gradient leaf and m after the step within 1e-4 of its largest |value|,
+    v within 2e-4. On four cards (``--phase
+    pod_train``): the float32 copy on (4, 1), (2, 2) and (1, 4) against
+    rank 0's unsharded step; qwen2.5-14b at full width and all 48 layers
+    (bf16 weights, float32 master, m and v) on (4, 1) and (2, 2) with
+    batches from ``ShardedPrefetcher``: per card the init time, the median
+    step of 3 after a warm one, the peak memory beside the adapter's HBM
+    for the same plan (chips 4, tp the model axis, one microbatch, remat
+    on) and one profiled step; losses finite and the two meshes' first
+    losses within 1e-2; one full-width float32 Mixtral layer expert-
+    parallel on (1, 4) against rank 0's step, its routing equal away from
+    near ties; and zamba2-1.2b at full width cut to 6 layers saved on (2,
+    2) after a step and restored onto (4, 1) and unsharded, bitwise. K3
+    (and zamba2's K4) launched on every rank twice per attention site
+    (Mamba2 layer) a step and their backwards once. ``--phase pod_train``
+    runs only the device and this phase.
+18. ``serve_interleaved``: ``ManagedInterleaveRuntime`` (no trainer) over
     ``BatchInferenceServer(zamba2-1.2b, seq_len 2048, bs 8)`` and a uniform
     trace at 80% of the measured minibatch rate for 5 s: p50 / p99 latency
     and the kernels' launches per minibatch; then one minibatch under
@@ -175,7 +198,7 @@ each and stopping with a traceback at the first failure:
     runtime's admission gate: the same server behind
     ``AdmissionPolicy("shed").gate`` on a uniform 5 s trace at 150% of the
     minibatch rate, which must shed exactly the engine mask's count.
-18. ``train``: ``Trainer`` on zamba2-1.2b at full width and depth (remat on,
+19. ``train``: ``Trainer`` on zamba2-1.2b at full width and depth (remat on,
     float32 params, bf16 compute, AdamW) for a few steps of bs 4 x 512
     tokens: ms per step, tokens/s, first and last loss (finite), peak
     memory and every kernel's launches per step (forward, remat's second
@@ -183,13 +206,13 @@ each and stopping with a traceback at the first failure:
     2-layer full-width float32 copy takes one step on ``"cuda"`` and on
     ``"cpu"`` from the same params and batch: losses within 1e-4, every
     gradient leaf within 1e-3 of its largest |g|.
-19. ``serve_train_interleaved``: the runtime with that ``Trainer`` (warm
+20. ``serve_train_interleaved``: the runtime with that ``Trainer`` (warm
     from the train phase) and the ``serve_interleaved`` server on a uniform
     5 s trace whose batch period is the minibatch time plus 2.5 training
     steps: trained minibatches (at least one), p50 / p99 latency with and
     without the trainer, and the largest overrun of a training step past
     its predicted end.
-20. ``tiled_matmul``: the ``kernels.ops.tiled_matmul`` entry point on the
+21. ``tiled_matmul``: the ``kernels.ops.tiled_matmul`` entry point on the
     serving minibatch's MLP up-projection, (16384, 2048) x (2048, 8192)
     bf16, against ``torch.matmul``.
 
@@ -481,6 +504,28 @@ POD_PROFILED = "qwen2.5-14b"        # one decode step profiled per mesh
 POD_MOE, POD_MOE_BS, POD_MOE_STEPS = "mixtral-8x22b", (1, 4), 8
 POD_RESERVE = 4e9
 POD_WALL_S, POD_MOE_WALL_S = 420, 900
+# the pod_train phase: one rank per visible card, the sharded train step
+# (FSDP on, remat on, bs 4 x 512) against rank 0's unsharded step from the
+# same weights and batch; each gate a share of its limit: loss and grad
+# norm relative, every gradient leaf and m and v after the step of the
+# leaf's largest |value|. After one step m is 0.1 g and v 0.05 g^2 (each
+# times the clip factor): they carry the gradients' relative error, v
+# twice it, so they are held at the gradients' limit (a 1e-5 limit on m
+# would hold the gradients to 1e-5). qwen2.5-14b's float32 copy keeps
+# POD_TRAIN_F32_LAYERS of its 48 layers; at full depth (four cards) it
+# trains in bf16 with a float32 master, and its two meshes' first losses
+# agree within POD_TRAIN_FULL_TOL. The checkpoint round trip: zamba2-1.2b
+# at full width, POD_CKPT_LAYERS layers
+POD_TRAIN_BS, POD_TRAIN_SEQ = 4, 512
+POD_TRAIN_F32_LAYERS = 4
+POD_TRAIN_TOL = {"loss": 1e-5, "grad_norm": 1e-5, "grads": 1e-4,
+                 "m": 1e-4, "v": 2e-4}
+POD_TRAIN_FULL = "qwen2.5-14b"
+POD_TRAIN_FULL_MESHES = (("4x1", 1), ("2x2", 2))
+POD_TRAIN_STEPS = 3
+POD_TRAIN_FULL_TOL = 1e-2
+POD_CKPT_LAYERS = 6
+POD_TRAIN_WALL_S = (420, 1500)          # one card, four cards
 # training: bs 4 x 512 tokens at full width; the cuda-vs-cpu step on a
 # 2-layer full-width copy; the interleaved trace's slack per batch
 TRAIN_BS, TRAIN_SEQ, TRAIN_STEPS = 4, 512, 3
@@ -3707,6 +3752,425 @@ def phase_pod_serve(torch, rt, seed: int) -> dict:
     return out
 
 
+def routing_on_host(torch, r):
+    """A ``MoeRouting`` with its tensors copied to the host."""
+    return dataclasses.replace(r, **{
+        f.name: getattr(r, f.name).cpu() for f in dataclasses.fields(r)
+        if isinstance(getattr(r, f.name), torch.Tensor)})
+
+
+def pod_train_counts() -> dict:
+    """The attention and SSD kernels' launch counts, forward and backward,
+    and sets them to 0."""
+    import repro_torch.kernels.flash_attention.flash_attention as K3
+    import repro_torch.kernels.ssd_scan.ssd_scan as K4
+    wrappers = {"flash_attention": K3.flash_attention,
+                "flash_attention_bwd": K3.flash_attention_bwd,
+                "ssd_chunk": K4.ssd_chunk, "ssd_chunk_bwd": K4.ssd_chunk_bwd}
+    out = {k: fn.launches for k, fn in wrappers.items()}
+    for fn in wrappers.values():
+        fn.launches = 0
+    return out
+
+
+def pod_train_want(cfg, model: int, steps: int) -> dict:
+    """Each rank's launches in ``steps`` sharded train steps with remat on a
+    model axis of ``model`` cards: the attention kernel twice per attention
+    site a step and its backward once; the SSD kernel twice per Mamba2
+    layer and group of heads a rank holds, its backward once."""
+    attn, mamba = model_sites(cfg)
+    heads = cfg.ssm_spec.n_heads if mamba else 0
+    local = heads // model if heads and heads % model == 0 else heads
+    groups = max(1, local // (heads // cfg.ssm_groups)) if mamba else 0
+    fwd = 2 if cfg.remat else 1
+    return {"flash_attention": fwd * attn * steps,
+            "flash_attention_bwd": attn * steps,
+            "ssd_chunk": fwd * mamba * groups * steps,
+            "ssd_chunk_bwd": mamba * groups * steps}
+
+
+def pod_train_step(torch, cfg, params, step, batch, L=None) -> dict:
+    """One train step of ``step``, timed, with the kernels' launches (and
+    with ``L``, the first MoE layer's routing), through a spy around the
+    step's AdamW update that keeps the gradients it is given and the m
+    and v it leaves."""
+    from repro_torch.launch import steps as ST
+    from repro_torch.optim import adamw as A
+    record: dict = {}
+    opt = A.init_opt_state(params)
+    real = ST.adamw_update
+
+    def spy(grads, opt_state, params, opt_cfg):
+        stats = real(grads, opt_state, params, opt_cfg)
+        record.update(grads=grads, m=opt_state["m"], v=opt_state["v"])
+        return stats
+    ST.adamw_update = spy
+    try:
+        pod_train_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if L is None:
+            metrics, routing = step(params, opt, batch), None
+        else:
+            metrics, routing = captured_routing(
+                L, lambda: step(params, opt, batch))
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t0)
+    finally:
+        ST.adamw_update = real
+    return {"metrics": {k: float(v) for k, v in metrics.items()},
+            "ms": ms, "launches": pod_train_counts(), "routing": routing,
+            "grads": record["grads"], "m": record["m"], "v": record["v"],
+            "opt": opt}
+
+
+def pod_train_parity(torch, cfg, meshes, seed: int, bs: int, seq: int,
+                     moe: bool = False) -> dict:
+    """``cfg`` trained one step unsharded on rank 0's card and one step
+    sharded (FSDP on) on each ``(name, model axis)`` of ``meshes``, from
+    the same seeded weights and batch. Rank 0 holds every sharded step to
+    the unsharded one (POD_TRAIN_TOL: loss and grad norm, every gradient
+    leaf, m and v after the step, each as a share of its leaf's largest
+    |value|; with ``moe``, the first MoE layer's routing equal away from
+    near ties) and records whether it was bitwise."""
+    import torch.distributed as dist
+    from repro_torch import tree as T
+    from repro_torch.configs import base as C
+    from repro_torch.launch import mesh as MS
+    from repro_torch.launch import steps as ST
+    from repro_torch.models import layers as L
+    from repro_torch.models import model as M
+    from repro_torch.models import sharding as SH
+    rank = dist.get_rank()
+    dev = torch.device("cuda", torch.cuda.current_device())
+    batch = C.make_batch(cfg, seq, bs, "train",
+                         torch.Generator(device=dev).manual_seed(seed + 1))
+    shape = C.InputShape("train", seq, bs, "train")
+    out = {"layers": cfg.num_layers, "params": cfg.param_count(),
+           "bs": bs, "seq": seq, "runs": {}}
+    want = None
+    if rank == 0:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        params = M.init_params(cfg, torch.Generator(device=dev).manual_seed(
+            seed), dev)
+        for p in T.leaves(params):
+            p.requires_grad_(True)
+        want = pod_train_step(torch, cfg, params, ST.make_train_step(cfg),
+                              batch, L if moe else None)
+        del params, want["opt"]
+        out["runs"]["unsharded"] = {
+            "metrics": want["metrics"], "ms": want["ms"],
+            "launches": want["launches"],
+            "peak_bytes": torch.cuda.max_memory_allocated()}
+    dist.barrier()
+    for name, model in meshes:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        mesh = MS.make_host_mesh(model=model)
+        params = SH.init_sharded_params(
+            cfg, mesh, torch.Generator(device=dev).manual_seed(seed))
+        step, _ = ST.sharded_step(cfg, shape, mesh)
+        got = pod_train_step(torch, cfg, params, step, batch,
+                             L if moe else None)
+        rec = {"metrics": got["metrics"], "ms": got["ms"],
+               "launches": got["launches"],
+               "peak_bytes": torch.cuda.max_memory_allocated()}
+        shares, bitwise = {}, True
+        for tree in ("grads", "m", "v"):
+            worst = 0.0
+            for a, b in zip(T.leaves(got[tree]),
+                            T.leaves(want[tree]) if want else
+                            T.leaves(got[tree])):
+                full = a.detach().full_tensor()
+                if want is not None:
+                    err = float((full.float() - b.float()).abs().max())
+                    bitwise = bitwise and bool(torch.equal(full, b))
+                    scale = max(float(b.float().abs().max()), 1e-30)
+                    worst = max(worst, err / (POD_TRAIN_TOL[tree] * scale))
+                del full
+            shares[tree] = worst
+        if want is not None:
+            for k in ("loss", "grad_norm"):
+                w, g = want["metrics"][k], got["metrics"][k]
+                bitwise = bitwise and w == g
+                shares[k] = abs(g - w) / (POD_TRAIN_TOL[k] * abs(w))
+            rec["shares"] = shares
+            rec["bitwise"] = bitwise
+            if moe:
+                r = compare_routing(torch, f"pod_train {cfg.name} {name}",
+                                    got["routing"], routing_on_host(
+                                        torch, want["routing"]))
+                r.pop("held")
+                rec["routing"] = r
+            rec["ok"] = all(v <= 1.0 for v in shares.values()) and all(
+                math.isfinite(v) for v in got["metrics"].values())
+        want_launches = pod_train_want(cfg, model, 1)
+        if got["launches"] != want_launches:
+            rec["ok"] = False
+            rec["launches_want"] = want_launches
+        del params, got, step
+        out["runs"][name] = rec
+        dist.barrier()
+    del want
+    torch.cuda.empty_cache()
+    return out
+
+
+def pod_train_full(torch, seed: int) -> dict:
+    """qwen2.5-14b at full width and depth, bf16 weights with a float32
+    master and float32 m and v, FSDP on, on (4, 1) and (2, 2): each rank's
+    init time, POD_TRAIN_STEPS steps after a warm one on batches from
+    ``ShardedPrefetcher`` (median ms), peak memory beside the adapter's HBM
+    for the same plan, one profiled step, and the losses."""
+    import torch.distributed as dist
+    from repro_torch.configs import base as C
+    from repro_torch.core import gpu_adapter as GA
+    from repro_torch.data import pipeline as D
+    from repro_torch.launch import mesh as MS
+    from repro_torch.launch import steps as ST
+    from repro_torch.models import sharding as SH
+    from repro_torch.optim import adamw as A
+    dev = torch.device("cuda", torch.cuda.current_device())
+    cfg = dataclasses.replace(C.get_config(POD_TRAIN_FULL),
+                              param_dtype=torch.bfloat16)
+    shape = C.InputShape("train", POD_TRAIN_SEQ, POD_TRAIN_BS, "train")
+    out = {"arch": cfg.name, "layers": cfg.num_layers,
+           "params": cfg.param_count(), "bs": POD_TRAIN_BS,
+           "seq": POD_TRAIN_SEQ, "meshes": {}}
+    for name, model in POD_TRAIN_FULL_MESHES:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        mesh = MS.make_host_mesh(model=model)
+        t0 = time.perf_counter()
+        params = SH.init_sharded_params(
+            cfg, mesh, torch.Generator(device=dev).manual_seed(seed))
+        opt = A.init_opt_state(params)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        init_bytes = torch.cuda.max_memory_allocated()
+        step, shardings = ST.sharded_step(cfg, shape, mesh)
+        source = D.SyntheticTokenSource(cfg, POD_TRAIN_BS, POD_TRAIN_SEQ,
+                                        seed=seed)
+        feed = D.ShardedPrefetcher(source, mesh, shardings["batch"])
+        try:
+            losses, ms = [], []
+            for i in range(1 + POD_TRAIN_STEPS):
+                batch = next(feed)
+                if i == 1:
+                    pod_train_counts()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                losses.append(float(step(params, opt, batch)["loss"]))
+                torch.cuda.synchronize()
+                ms.append(1e3 * (time.perf_counter() - t0))
+            launches = pod_train_counts()
+            peak = torch.cuda.max_memory_allocated()
+            batch = next(feed)
+            profile = profile_device(torch, lambda: step(params, opt, batch))
+        finally:
+            feed.close()
+        plan = GA.GPUMode(tp=model, acc=GA.MAX_ACC,
+                          remat=0 if cfg.remat else 1)
+        _, hbm = GA.RooflineGPUModel(cfg, POD_TRAIN_SEQ, POD_TRAIN_BS,
+                                     "train", chips=4).time_power(plan)
+        want = pod_train_want(cfg, model, POD_TRAIN_STEPS)
+        out["meshes"][name] = {
+            "init_s": init_s, "init_peak_bytes": init_bytes,
+            "step_ms": ms[1:], "warm_ms": ms[0],
+            "median_ms": statistics.median(ms[1:]), "losses": losses,
+            "finite": all(math.isfinite(x) for x in losses),
+            "peak_bytes": peak, "adapter_plan": str(plan),
+            "adapter_hbm_bytes": hbm, "launches": launches,
+            "launches_ok": launches == want,
+            "profile": {**{k: profile[k] for k in (
+                "wall_s", "device_busy_s", "nccl_device_ms",
+                "matmul_device_ms", "k3_device_ms", "idle_share",
+                "device_ops")}, "top": profile["top"][:5]}}
+        del params, opt, step, batch
+        dist.barrier()
+    torch.cuda.empty_cache()
+    return out
+
+
+def pod_train_checkpoint(torch, seed: int, path: str) -> dict:
+    """zamba2-1.2b at full width cut to POD_CKPT_LAYERS layers: one step on
+    (2, 2), its ``(params, opt_state)`` saved, then restored onto (4, 1)
+    and, on rank 0, unsharded on its card; each leaf held bitwise against
+    the saved one."""
+    import torch.distributed as dist
+    from repro_torch import tree as T
+    from repro_torch.checkpoint import checkpoint as CK
+    from repro_torch.configs import base as C
+    from repro_torch.launch import mesh as MS
+    from repro_torch.launch import steps as ST
+    from repro_torch.models import sharding as SH
+    from repro_torch.optim import adamw as A
+    rank = dist.get_rank()
+    dev = torch.device("cuda", torch.cuda.current_device())
+    cfg = dataclasses.replace(C.get_config(ARCH), num_layers=POD_CKPT_LAYERS)
+    shape = C.InputShape("train", POD_TRAIN_SEQ, POD_TRAIN_BS, "train")
+    mesh = MS.make_host_mesh(model=2)
+    params = SH.init_sharded_params(
+        cfg, mesh, torch.Generator(device=dev).manual_seed(seed))
+    opt = A.init_opt_state(params)
+    step, _ = ST.sharded_step(cfg, shape, mesh)
+    pod_train_counts()
+    loss = float(step(params, opt, C.make_batch(
+        cfg, POD_TRAIN_SEQ, POD_TRAIN_BS, "train",
+        torch.Generator(device=dev).manual_seed(seed + 1)))["loss"])
+    launches = pod_train_counts()
+    saved = (params, opt)
+    t0 = time.perf_counter()
+    CK.save_checkpoint(path, saved, step=1)
+    save_s = time.perf_counter() - t0
+    other = MS.make_host_mesh(model=1)
+    _, sh = ST.sharded_step(cfg, shape, other)
+    t0 = time.perf_counter()
+    onto, at = CK.restore_checkpoint(path, saved,
+                                     (sh["params"], sh["opt_state"]), other)
+    restore_s = time.perf_counter() - t0
+    whole = None
+    if rank == 0:
+        like = T.tree_map(lambda t: torch.empty(t.shape, dtype=t.dtype,
+                                                device=dev), saved)
+        whole, _ = CK.restore_checkpoint(path, like)
+    equal_4x1, equal_whole = True, True
+    for i, (a, b) in enumerate(zip(T.leaves(saved), T.leaves(onto))):
+        full = a.detach().full_tensor()
+        equal_4x1 = equal_4x1 and bool(torch.equal(full, b.full_tensor()))
+        if whole is not None:
+            equal_whole = equal_whole and bool(
+                torch.equal(full, T.leaves(whole)[i]))
+    want = pod_train_want(cfg, 2, 1)
+    out = {"layers": cfg.num_layers, "params": cfg.param_count(),
+           "loss": loss, "step": at, "save_s": save_s,
+           "restore_4x1_s": restore_s, "bytes": Path(path).stat().st_size,
+           "equal_4x1": equal_4x1, "launches": launches,
+           "launches_ok": launches == want}
+    if rank == 0:
+        out["equal_unsharded"] = equal_whole
+    del params, opt, saved, onto, whole
+    dist.barrier()
+    torch.cuda.empty_cache()
+    return out
+
+
+def pod_train_rank(payload: dict) -> dict:
+    """One rank of the pod_train phase (``launch.ranks`` runs it, one
+    interpreter a card). On one card: zamba2-1.2b (the train phase's
+    configuration) and qwen2.5-14b's float32 copy, each one step
+    unsharded and one on the (1, 1) mesh. On four: the float32 copy on
+    (4, 1), (2, 2) and (1, 4), qwen2.5-14b at full width and depth
+    (``pod_train_full``), one Mixtral layer expert-parallel on (1, 4), and
+    the checkpoint round trip."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs import base as C
+    world = dist.get_world_size()
+    seed = payload["seed"]
+    out = {"rank": dist.get_rank(), "world": world, "runs": {}}
+    if world == 1:
+        out["runs"][ARCH] = pod_train_parity(
+            torch, C.get_config(ARCH), [("1x1", 1)], seed, POD_TRAIN_BS,
+            POD_TRAIN_SEQ)
+    f32 = dataclasses.replace(C.get_config(POD_TRAIN_FULL),
+                              compute_dtype=torch.float32,
+                              num_layers=POD_TRAIN_F32_LAYERS)
+    meshes = ([("1x1", 1)] if world == 1 else
+              [("4x1", 1), ("2x2", 2), ("1x4", 4)])
+    out["runs"][f"{POD_TRAIN_FULL}-float32"] = pod_train_parity(
+        torch, f32, meshes, seed, POD_TRAIN_BS, POD_TRAIN_SEQ)
+    if world == 4:
+        out["full"] = pod_train_full(torch, seed)
+        moe = dataclasses.replace(C.get_config(POD_MOE),
+                                  compute_dtype=torch.float32,
+                                  **MOE_PARITY_CUTS[POD_MOE])
+        out["runs"][f"{POD_MOE}-float32"] = pod_train_parity(
+            torch, moe, [("1x4", 4)], seed, MOE_TRAIN_BS, FAM_TRAIN_TEXT,
+            moe=True)
+        out["checkpoint"] = pod_train_checkpoint(torch, seed,
+                                                 payload["checkpoint"])
+    return out
+
+
+def phase_pod_train(torch, rt, seed: int) -> dict:
+    """The sharded train step on one rank per visible card
+    (``pod_train_rank``): every sharded step held to rank 0's unsharded
+    one by POD_TRAIN_TOL, the kernels launched on every rank's local
+    shards as remat's steps launch them; on four cards also qwen2.5-14b
+    trained at full width and depth (finite losses, the two meshes' first
+    losses within POD_TRAIN_FULL_TOL of each other) and the checkpoint
+    round trip bitwise. Fails if a rank fails or a gate is not met."""
+    import shutil
+    RK = rt["RK"]
+    torch.cuda.empty_cache()
+    world = torch.cuda.device_count()
+    t0 = time.perf_counter()
+    scratch = ROOT / "build" / "pod_train"
+    scratch.mkdir(parents=True, exist_ok=True)
+    try:
+        ranks = RK.run(f"{ROOT / 'chip_smoke.py'}:pod_train_rank",
+                       {"seed": seed,
+                        "checkpoint": str(scratch / "saved.npz")},
+                       world, device="cuda",
+                       wall_s=POD_TRAIN_WALL_S[world == 4])
+    except RK.RankError as e:
+        fail(f"pod_train: {e}")
+    finally:
+        shutil.rmtree(scratch, ignore_errors=True)
+    total = {name: 0 for name in KERNEL_ROWS}
+
+    def count(launches: dict) -> dict:
+        return {k: v + launches.get(k, 0) for k, v in total.items()}
+    faults = []
+    for name, run in ranks[0]["runs"].items():
+        for mesh, rec in run["runs"].items():
+            if mesh != "unsharded" and not rec.get("ok"):
+                faults.append(f"{name} {mesh}: shares {rec.get('shares')}, "
+                              f"launches {rec['launches']} (want "
+                              f"{rec.get('launches_want', 'as counted')})")
+        emit({"phase": "pod_train." + name, "world": world,
+              **{k: v for k, v in run.items() if k != "runs"},
+              "per_card": {r["rank"]: r["runs"][name]["runs"]
+                           for r in ranks}})
+        for r in ranks:
+            for mesh, rec in r["runs"][name]["runs"].items():
+                if mesh != "unsharded":
+                    total = count(rec["launches"])
+    if world == 4:
+        full = {r["rank"]: r["full"] for r in ranks}
+        first = {m: rec["losses"][0] for m, rec in full[0]["meshes"].items()}
+        a, b = first.values()
+        if abs(a - b) > POD_TRAIN_FULL_TOL * abs(a):
+            faults.append(f"{POD_TRAIN_FULL}: first losses {first}")
+        for r, rec in full.items():
+            for m, run in rec["meshes"].items():
+                if not (run["finite"] and run["launches_ok"]):
+                    faults.append(f"{POD_TRAIN_FULL} {m} rank {r}: losses "
+                                  f"{run['losses']}, launches "
+                                  f"{run['launches']}")
+                total = count(run["launches"])
+        emit({"phase": "pod_train." + POD_TRAIN_FULL, "world": world,
+              **{k: v for k, v in full[0].items() if k != "meshes"},
+              "first_losses": first,
+              "per_card": {r: rec["meshes"] for r, rec in full.items()}})
+        ck = {r["rank"]: r["checkpoint"] for r in ranks}
+        for r, rec in ck.items():
+            if not (rec["equal_4x1"] and rec.get("equal_unsharded", True)
+                    and rec["launches_ok"] and rec["step"] == 1):
+                faults.append(f"checkpoint rank {r}: {rec}")
+            total = count(rec["launches"])
+        emit({"phase": "pod_train.checkpoint", "world": world,
+              "per_card": ck})
+    out = {"phase": "pod_train", "world": world, "launches": total,
+           "wall_s": time.perf_counter() - t0}
+    emit(out)
+    if faults:
+        fail("pod_train: " + "; ".join(faults))
+    return out
+
+
 def profile_device(torch, fn) -> dict:
     """One call of ``fn`` (a minibatch forward, a training step) under
     ``torch.profiler``, tracing the device only (host operators add events
@@ -4092,10 +4556,11 @@ def main() -> int:
     ap.add_argument("--seed", type=int, default=0,
                     help="seed of the kernel-phase inputs and the models' "
                          "random weights")
-    ap.add_argument("--phase", choices=("all", "pod_serve"), default="all",
-                    help="pod_serve: only the device and pod_serve phases "
-                         "(one rank per visible card; no kernel or ok "
-                         "line)")
+    ap.add_argument("--phase", choices=("all", "pod_serve", "pod_train"),
+                    default="all",
+                    help="pod_serve, pod_train: only the device phase and "
+                         "that one (one rank per visible card; no kernel "
+                         "or ok line)")
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -4153,6 +4618,9 @@ def main() -> int:
     if args.phase == "pod_serve":
         phase_pod_serve(torch, rt, args.seed)
         return 0
+    if args.phase == "pod_train":
+        phase_pod_train(torch, rt, args.seed)
+        return 0
     kern = phase_kernels(torch, np, rt, K1, K2, K3, K4, K5, args.seed)
     launches = Launches({"maxplus_scan": K1.maxplus_scan,
                          "lane_sort": K2.lane_sort,
@@ -4180,6 +4648,7 @@ def main() -> int:
                                                    args.seed)
     phase_pod_plan(rt, moe_runs)
     paths["pod_serve"] = phase_pod_serve(torch, rt, args.seed)
+    paths["pod_train"] = phase_pod_train(torch, rt, args.seed)
     paths["serve_interleaved"] = phase_serve_interleaved(torch, np, rt,
                                                          launches, args.seed)
     paths["train"], trainer = phase_train(torch, np, rt, launches, args.seed)

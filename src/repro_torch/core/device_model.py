@@ -21,9 +21,7 @@ Anchors used for calibration (paper §2): ResNet-18 training 59.5 ms / 51.1 W
 at MAXN vs 491 ms / 14.7 W at 4c/422/115/665; MobileNet inference bs=64
 102 ms / 39.5 W at MAXN; BERT-L inference bs=1 66 ms / 56 W.
 
-The port's own copy of ``repro.core.device_model``, kept line for line
-except ``workload_from_model_config``, which needs the model configs and
-arrives with them.
+The port's own copy of ``repro.core.device_model``, kept line for line.
 """
 from __future__ import annotations
 
@@ -237,6 +235,26 @@ INFER_WORKLOADS = {
         mem_fixed=0.0015, mem_per_sample=0.00015,
         p_gpu=16.0, p_cpu=9.0, p_mem=6.0, util_half_bs=4.0),
 }
+
+
+def workload_from_model_config(cfg, kind: str, tokens_per_sample: int = 512) -> WorkloadProfile:
+    """Map one of the assigned architectures onto a WorkloadProfile so Fulcrum
+    can schedule *our* models: GPU work from active-param FLOPs, memory work
+    from parameter bytes, CPU work from layer-dispatch overhead."""
+    n_active = cfg.active_param_count()
+    flops_per_sample = (6.0 if kind == "train" else 2.0) * n_active * tokens_per_sample
+    edge_flops = 5e12                  # Orin-class sustained FLOP/s
+    edge_bw = 2.04e11                  # LPDDR5 bytes/s
+    gpu_s = flops_per_sample / edge_flops
+    mem_s = cfg.param_count() * 2 / edge_bw
+    cpu_s = cfg.num_layers * 2.5e-4    # kernel-launch / host overhead
+    return WorkloadProfile(
+        name=f"{cfg.name}-{kind}", kind=kind,
+        gpu_fixed=0.3 * gpu_s, gpu_per_sample=0.7 * gpu_s / 16,
+        cpu_fixed=0.8 * cpu_s, cpu_per_sample=0.2 * cpu_s / 16,
+        mem_fixed=0.7 * mem_s, mem_per_sample=0.3 * mem_s / 16,
+        p_gpu=20 + min(18.0, n_active / 5e8),
+        p_cpu=8.0, p_mem=6.0)
 
 
 # ---------------------------------------------------------------------------

@@ -5,15 +5,15 @@ batches on the device (``repro.data.pipeline`` on PyTorch).
 of the same seed, so its tokens are bitwise equal to the reference's.
 ``Prefetcher`` copies each batch to the device from pinned memory with
 ``non_blocking`` on a host thread, so the next batch's copy overlaps the
-current step. Mesh shardings (the reference's ``ShardedPrefetcher`` with
-``shardings``) wait for the pod layer's training half (ROADMAP queue 1
-item 8b-ii).
+current step. ``ShardedPrefetcher`` is the reference's: on a mesh every
+rank draws the same batches from the same seed and keeps its shard of
+each entry by the batch shardings, as a DTensor, with no communication.
 """
 from __future__ import annotations
 
 import queue as queue_mod
 import threading
-from typing import Iterator
+from typing import Iterator, Optional
 
 import numpy as np
 import torch
@@ -124,3 +124,40 @@ class Prefetcher:
     def close(self) -> None:
         self._stop.set()
         self._thread.join(timeout=5.0)
+
+
+class ShardedPrefetcher(Prefetcher):
+    """``Prefetcher`` onto a mesh (the reference's ``ShardedPrefetcher``):
+    with ``mesh`` and ``shardings`` (``{name: placements}``, as
+    ``sharded_step``'s ``shardings["batch"]``) each entry becomes a
+    DTensor of its placements whose local shard is cut from the host
+    batch before its copy to the mesh's device (every rank draws the whole
+    batch from the same source, so no rank sends anything). Without them
+    it is ``Prefetcher`` onto the current CUDA device."""
+
+    def __init__(self, source, mesh=None, shardings: Optional[dict] = None,
+                 depth: int = 2):
+        if (mesh is None) != (shardings is None):
+            raise ValueError("a mesh and its shardings come together")
+        self.mesh, self.shardings = mesh, shardings
+        kind = "cuda" if mesh is None else mesh.device_type
+        super().__init__(source, torch.device(
+            "cuda", torch.cuda.current_device()) if kind == "cuda"
+            else torch.device(kind), depth)
+
+    def _place(self, batch: dict) -> dict:
+        if self.mesh is None:
+            return super()._place(batch)
+        from torch.distributed.tensor import DTensor
+
+        from repro_torch.models.sharding import local_shard
+        out = {}
+        for k, v in batch.items():
+            place = self.shardings[k]
+            t = local_shard(torch.from_numpy(np.ascontiguousarray(v)),
+                             self.mesh, place).contiguous()
+            if self.device.type == "cuda":
+                t = t.pin_memory().to(self.device, non_blocking=True)
+            out[k] = DTensor.from_local(t, self.mesh, place,
+                                        run_check=False)
+        return out

@@ -4,9 +4,8 @@ depths whose measured costs extrapolate linearly to the full depth.
 Counterpart of the analytic parts of ``repro.launch.dryrun``. The
 reference's ``_compile_once`` and ``collective_bytes`` lower and compile a
 step with XLA and read its HLO; they have no torch counterpart. In their
-place the pod layer's training half (ROADMAP queue 1 item 8b-ii) is to
-measure a sharded step on the cards at the two probe depths, with its
-NCCL bytes.
+place the dry run's main loop (ROADMAP queue 1 item 8b-iii) is to measure a
+sharded step on the cards at the two probe depths, with its NCCL bytes.
 """
 from __future__ import annotations
 

@@ -45,7 +45,8 @@ import torch.nn.functional as F
 from repro_torch.kernels import ops
 from repro_torch.kernels.flash_attention.flash_attention import \
     flash_attention
-from repro_torch.models.sharding import is_dtensor, local_map
+from repro_torch.models.sharding import (grad_scaled, is_dtensor, local_map,
+                                         sum_over)
 
 Params = dict
 DEFAULT_ROPE_THETA = 10_000.0
@@ -598,19 +599,27 @@ def moe_apply(p: Params, x: torch.Tensor,
 
 def _moe_local(router: torch.Tensor, x: torch.Tensor, w1: torch.Tensor,
                w3: torch.Tensor, w2: torch.Tensor, spec: MoeSpec,
-               e0: int = 0, reduce_ye: Optional[Callable] = None
+               e0: int = 0, reduce_ye: Optional[Callable] = None,
+               route_grad: float = 1.0, aux_grad: float = 1.0
                ) -> tuple[torch.Tensor, torch.Tensor]:
     """The routed experts on one device's tokens x (B, S, d): the float32
     combine (B, S, d) and the aux loss of these tokens. ``w1`` ... hold
     experts ``e0 ..`` (all experts, or one rank's); a choice to an expert
     not held adds nothing here. ``reduce_ye`` sums the experts' float32
-    outputs over ranks that each hold a slice of every expert's FFN dim."""
+    outputs over ranks that each hold a slice of every expert's FFN dim.
+    ``route_grad`` and ``aux_grad`` scale the gradients that reach the
+    router and x through the routing, and through the aux loss alone
+    (0 where another rank of the model axis counts them)."""
     b, s, d = x.shape
     g_row = moe_groups(s, spec.group_size)
     g, t = b * g_row, s // g_row
     e, k = spec.n_experts, spec.top_k
     xg = x.reshape(g, t, d)
-    r = moe_route(router, xg, spec)
+    if route_grad != 1.0:
+        r = moe_route(grad_scaled(router, route_grad),
+                      grad_scaled(xg, route_grad), spec)
+    else:
+        r = moe_route(router, xg, spec)
     cap = r.capacity
     dev = x.device
 
@@ -641,7 +650,8 @@ def _moe_local(router: torch.Tensor, x: torch.Tensor, w1: torch.Tensor,
     picked = ye[torch.where(held, slot - lo, 0)]             # (G, T, K, d)
     weight = (r.gate * held).to(x.dtype).float()[..., None]
     y = (weight * picked.float()).sum(dim=2)
-    return y.reshape(b, s, d), r.aux
+    aux = r.aux if aux_grad == 1.0 else grad_scaled(r.aux, aux_grad)
+    return y.reshape(b, s, d), aux
 
 
 def _moe_sharded(p: Params, x: torch.Tensor,
@@ -655,36 +665,49 @@ def _moe_sharded(p: Params, x: torch.Tensor,
     the axis before the combine). The weights are gathered over the data
     axes first (their FSDP storage). The aux loss is averaged over the
     batch shards. Arctic's dense residual runs as a DTensor MLP (tensor
-    parallel)."""
+    parallel).
+
+    Under autograd the router's and x's gradients are partial over every
+    mesh dim: the ranks of a batch axis route other rows, and those of the
+    model axis run other experts (or other slices of the FFN dim, whose
+    sum passes its gradient to each slice unchanged). What every rank of
+    the model axis repeats adds to them on its first rank only: the aux
+    loss, and with the FFN dim split the routing and combine too."""
     from torch.distributed.tensor import Partial, Replicate, Shard
     mesh = x.device_mesh
     m = _model_dim(mesh)
     plan = _batch_plan(x)
     coord, size = _model_coords(mesh)
     ep = spec.n_experts % size == 0
+    once = 1.0 if coord == 0 else 0.0
+    shards = math.prod(mesh.size(i) for i, b in enumerate(plan) if b)
 
     def weight(ffn_dim: int) -> tuple:
         return tuple((Shard(0) if ep else Shard(ffn_dim)) if i == m
                      else Replicate() for i in range(mesh.ndim))
 
-    reduce_ye = None
-    if not ep:
-        def reduce_ye(t):
-            import torch.distributed as dist
-            dist.all_reduce(t, group=mesh.get_group(m))
-            return t
-
     def experts(router, xl, w1, w3, w2):
-        return _moe_local(router, xl, w1, w3, w2, spec,
-                          e0=coord * w1.shape[0] if ep else 0,
-                          reduce_ye=reduce_ye)
+        y, aux = _moe_local(
+            router, xl, w1, w3, w2, spec,
+            e0=coord * w1.shape[0] if ep else 0,
+            reduce_ye=None if ep else functools.partial(
+                sum_over, group=mesh.get_group(m)),
+            route_grad=1.0 if ep else once, aux_grad=once if ep else 1.0)
+        # each batch shard's mean over its groups, summed: the mean
+        return y, aux / shards
     whole = (Replicate(),) * mesh.ndim
     rows = _split(plan, mesh, 0, None, False)
+    every = tuple(Partial() if i == m or b else Replicate()
+                  for i, b in enumerate(plan))
     y, aux = local_map(experts, mesh, (
         whole, rows, weight(2), weight(2), weight(1)), (
         tuple(Partial() if i == m and ep else pl for i, pl in enumerate(rows)),
-        tuple(Partial("avg") if b else Replicate() for b in plan)))(
-        p["router"], x, p["w1"], p["w3"], p["w2"])
+        tuple(Partial() if b else Replicate() for b in plan)),
+        grads=(every, tuple(Partial() if i == m else pl
+                            for i, pl in enumerate(rows)),
+               *(tuple(Partial() if pl.is_replicate() and b else pl
+                       for pl, b in zip(weight(f), plan)) for f in (2, 2, 1))
+               ))(p["router"], x, p["w1"], p["w3"], p["w2"])
     y = y.redistribute(mesh, rows).to(x.dtype)
     aux = aux.redistribute(mesh, whole)
     if spec.dense_residual:

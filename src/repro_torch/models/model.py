@@ -537,11 +537,51 @@ def forward(params: dict, batch: dict, cfg: ModelConfig) -> tuple[torch.Tensor,
 
 def softmax_xent(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     """Per-token cross entropy in float32; the logsumexp runs over every
-    column of ``logits`` (the padded vocabulary, as in the reference)."""
+    column of ``logits`` (the padded vocabulary, as in the reference).
+    DTensor logits take ``_softmax_xent_sharded``."""
+    if is_dtensor(logits):
+        return _softmax_xent_sharded(logits, labels)
     logits = logits.float()
     logz = torch.logsumexp(logits, dim=-1)
     gold = logits.gather(-1, labels.long()[..., None])[..., 0]
     return logz - gold
+
+
+def _softmax_xent_sharded(logits: torch.Tensor,
+                          labels: torch.Tensor) -> torch.Tensor:
+    """``softmax_xent`` on a mesh, each rank on its own rows and, where the
+    model axis divides the vocabulary, its own columns: the row's largest
+    logit (a max over the axis, outside autograd: the logsumexp's
+    gradient does not depend on it), the sum of exps and the gold logit
+    (held by the rank whose columns hold the label, zero on the others)
+    are completed over the model axis. Its result is (..., ) per token,
+    split as the rows. A model axis of one card, or one that does not
+    divide the vocabulary, runs ``softmax_xent`` on whole rows."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import Replicate, Shard
+    mesh = logits.device_mesh
+    m = mesh.mesh_dim_names.index("model")
+    group = mesh.get_group(m)
+    first = mesh.get_local_rank(m) * (logits.shape[-1] // mesh.size(m))
+    split = mesh.size(m) > 1 and logits.shape[-1] % mesh.size(m) == 0
+    rows = tuple(Shard(0) if i != m and p.is_shard(0) else Replicate()
+                 for i, p in enumerate(logits.placements))
+    cols = tuple(Shard(logits.ndim - 1) if i == m and split else p
+                 for i, p in enumerate(rows))
+
+    def xent(lg, lb):
+        if not split:
+            return softmax_xent(lg, lb)
+        lg = lg.float()
+        top = lg.detach().amax(dim=-1, keepdim=True)
+        dist.all_reduce(top, op=dist.ReduceOp.MAX, group=group)
+        total = L.sum_over(torch.exp(lg - top).sum(dim=-1), group)
+        ids = lb.long() - first
+        inside = (ids >= 0) & (ids < lg.shape[-1])
+        gold = lg.gather(-1, ids.clamp(0, lg.shape[-1] - 1)[..., None])
+        gold = L.sum_over(torch.where(inside, gold[..., 0], 0.0), group)
+        return top[..., 0] + torch.log(total) - gold
+    return L.local_map(xent, mesh, (cols, rows), rows)(logits, labels)
 
 
 def train_loss(params: dict, batch: dict, cfg: ModelConfig

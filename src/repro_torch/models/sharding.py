@@ -258,7 +258,8 @@ def is_dtensor(x) -> bool:
     return mod is not None and isinstance(x, mod.DTensor)
 
 
-def local_map(fn: Callable, mesh, ins: tuple, outs) -> Callable:
+def local_map(fn: Callable, mesh, ins: tuple, outs,
+              grads: tuple = None) -> Callable:
     """``fn`` on each rank's local shards, in the manner of
     ``torch.distributed.tensor.experimental.local_map`` with its inputs
     redistributed. Argument i, a DTensor, is laid out as ``ins[i]`` (its
@@ -266,26 +267,89 @@ def local_map(fn: Callable, mesh, ins: tuple, outs) -> Callable:
     local tensor: where the DTensor already lies so, its own, so that
     writes in place land in it. A tensor ``fn`` returns goes back on the
     mesh as a DTensor of ``outs`` (its placements, even splits), a tuple
-    of them each by its entry of ``outs``; None stays None."""
-    from torch.distributed.tensor import DTensor
+    of them each by its entry of ``outs``; None stays None.
 
-    def local(x, place):
+    Under autograd an output's gradient reaches ``fn`` whole in its
+    ``outs`` layout (a ``Partial`` output's as ``Replicate``), and input
+    i's local gradient leaves in ``grads[i]``, then goes back to the
+    input's own layout. By default that is ``ins[i]``, except on a mesh
+    dim where the input is replicated and some output is split or
+    partial: the ranks there did different parts of the work, so each
+    holds a part of the gradient (``Partial``). Work that every rank of
+    such a dim repeats must add to the gradient on one of them only
+    (``grad_scaled``)."""
+    from torch.distributed.tensor import DTensor, Partial, Placement
+
+    if outs is None:
+        out_list = []
+    elif all(isinstance(p, Placement) for p in outs):
+        out_list = [outs]
+    else:
+        out_list = [o for o in outs if o is not None]
+    split = [any(not o[d].is_replicate() for o in out_list)
+             for d in range(mesh.ndim)]
+    if grads is None:
+        grads = tuple(None if p is None else tuple(
+            Partial() if pl.is_replicate() and split[d] else pl
+            for d, pl in enumerate(p)) for p in ins)
+
+    def local(x, place, grad):
         if place is None:
             return x
         if tuple(x.placements) != tuple(place):
             x = x.redistribute(mesh, place)
-        return x.to_local()
+        return x.to_local(grad_placements=grad)
 
     def wrap(y, place):
         return None if y is None else DTensor.from_local(y, mesh, place,
                                                          run_check=False)
 
     def run(*args):
-        out = fn(*(local(a, p) for a, p in zip(args, ins, strict=True)))
+        out = fn(*(local(a, p, g) for a, p, g in zip(args, ins, grads,
+                                                       strict=True)))
         if isinstance(out, tuple):
             return tuple(wrap(y, p) for y, p in zip(out, outs, strict=True))
         return wrap(out, outs)
     return run
+
+
+class _GradScaled(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, s):
+        ctx.s = s
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (g if g is None or ctx.s == 1 else g * ctx.s), None
+
+
+def grad_scaled(x: torch.Tensor, s: float) -> torch.Tensor:
+    """``x`` itself, whose gradient is multiplied by ``s``: with 0 on all
+    but one rank, work that every rank repeats adds to a ``Partial``
+    gradient once. Every rank keeps the same autograd graph (a rank
+    without the node would skip the backward's collectives)."""
+    return _GradScaled.apply(x, s)
+
+
+class _SumOver(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, group):
+        import torch.distributed as dist
+        t = t.clone()
+        dist.all_reduce(t, group=group)
+        return t
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def sum_over(t: torch.Tensor, group) -> torch.Tensor:
+    """The sum of every rank's ``t`` over ``group`` (all-reduce). Its
+    gradient passes unchanged: the ranks use the sum alike, so each holds
+    the whole gradient of its own term."""
+    return _SumOver.apply(t, group)
 
 
 def mesh_shape(mesh) -> MeshShape:
@@ -327,7 +391,7 @@ def param_shardings(cfg: ModelConfig, mesh, fsdp_on: bool = True):
                          param_specs(cfg, mesh, fsdp_on))
 
 
-def _local_shard(full: torch.Tensor, mesh, place: tuple) -> torch.Tensor:
+def local_shard(full: torch.Tensor, mesh, place: tuple) -> torch.Tensor:
     """This rank's shard of ``full`` under ``place``: the dims split over
     mesh dims in their order (even splits; the specs shard only dims that
     divide)."""
@@ -350,7 +414,7 @@ def distribute(t: torch.Tensor, mesh, place: tuple):
     from torch.distributed.tensor import DTensor
     if isinstance(t, DTensor):
         return t.redistribute(mesh, place)
-    local = _local_shard(t, mesh, place)
+    local = local_shard(t, mesh, place)
     local = t.contiguous() if local is t else local.clone(
         memory_format=torch.contiguous_format)
     return DTensor.from_local(local, mesh, place, run_check=False)

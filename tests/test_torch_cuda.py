@@ -38,7 +38,9 @@ Float32 comparisons run with TF32 off for matrix products and cuDNN.
 The sharded steps run once on a world of one NCCL rank through
 ``launch.ranks`` (reduced zamba2-1.2b, float32): logits within 1e-5 of the
 unsharded steps' largest |logit|, K3 and K4 launched on the rank's
-shards.
+shards; and so does the sharded train step with remat: loss, grad norm
+and every gradient leaf within 1e-5 of the unsharded step's, K3 and K4
+twice per site or layer and their backwards once.
 """
 import dataclasses
 import functools
@@ -1342,3 +1344,27 @@ def test_cuda_sharded_steps_on_one_rank_match_the_unsharded_ones(hopper):
     assert worst <= 1e-5
     assert got["launches"] == {"flash_attention": cfg.n_attn_sites,
                                "ssd_chunk": cfg.num_layers}
+
+
+def test_cuda_sharded_train_step_on_one_rank_matches_the_unsharded_one(
+        hopper):
+    """A world-1 NCCL run through ``launch.ranks`` of reduced zamba2-1.2b
+    in float32 with remat (``torch_pod_ranks.card_train_case``): the
+    sharded train step's loss, grad norm and every gradient leaf within
+    1e-5 of the unsharded step's (of each leaf's largest |g|), K3 and K4
+    launched on the rank's shards twice per site or layer (remat) and
+    their backwards once."""
+    from repro_torch.launch import ranks
+    target = str(Path(__file__).with_name("torch_pod_ranks.py"))
+    cfg = TC.reduced(TC.get_config("zamba2-1.2b"))
+    (got,) = ranks.run(f"{target}:card_train_case",
+                       {"arch": "zamba2-1.2b", "batch": 2, "seq": 40}, 1,
+                       device="cuda", wall_s=300)
+    print(f"sharded vs unsharded train step: {got}")
+    assert got["loss"] <= 1e-5 and got["grad_norm"] <= 1e-5
+    assert got["grads"] <= 1e-5
+    sites, layers = cfg.n_attn_sites, cfg.num_layers
+    assert got["launches"] == {"flash_attention": 2 * sites,
+                               "flash_attention_bwd": sites,
+                               "ssd_chunk": 2 * layers,
+                               "ssd_chunk_bwd": layers}

@@ -159,3 +159,19 @@ def test_h100_plan_within_budget_and_near_the_oracle(arch, shape):
     else:
         assert sol is not None and sol.power <= TMESH.HBM_BYTES
         assert sol.time <= opt[1] * 1.25
+
+
+@pytest.mark.parametrize("tokens", [512, 4096])
+@pytest.mark.parametrize("kind", ["train", "infer"])
+@pytest.mark.parametrize("arch", TC.ARCH_IDS)
+def test_workload_from_model_config_is_the_references(arch, kind, tokens):
+    """The scheduler's profile of a registered configuration, field for
+    field and bitwise (the default ``tokens_per_sample`` is 512)."""
+    import dataclasses
+
+    from repro.core.device_model import workload_from_model_config as ref
+    from repro_torch.core.device_model import workload_from_model_config
+    kw = {} if tokens == 512 else {"tokens_per_sample": tokens}
+    want = ref(RC.get_config(arch), kind, **kw)
+    got = workload_from_model_config(TC.get_config(arch), kind, **kw)
+    assert dataclasses.asdict(got) == dataclasses.asdict(want)

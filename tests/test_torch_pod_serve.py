@@ -326,10 +326,3 @@ def test_placements_follow_the_spec_in_the_meshs_order():
     one = S.MeshShape((2, 1, 4), ("pod", "data", "model"))
     assert S.placements(S.Spec("model", ("pod", "data")), one) == \
         (Shard(1), Replicate(), Shard(0))
-
-
-def test_the_sharded_train_step_names_its_item():
-    mesh = S.MeshShape((1, 4), ("data", "model"))
-    cfg = TC.reduced(TC.get_config("zamba2-1.2b"))
-    with pytest.raises(NotImplementedError, match="8b-ii"):
-        TS.sharded_step(cfg, TC.INPUT_SHAPES["train_4k"], mesh)

@@ -1,11 +1,13 @@
-"""Rank programs of ``tests/test_torch_pod_serve.py``.
+"""Rank programs of ``tests/test_torch_pod_serve.py`` and
+``tests/test_torch_pod_train.py``.
 
 ``repro_torch.launch.ranks`` runs each function here in fresh
 interpreters, one per rank, inside a gloo process group. Nothing here
 imports jax: the reference's parameters and prompts arrive as NumPy
 arrays in the payload's ``inputs`` file, and what a rank finds goes back
 as JSON (tokens, local shard shapes, messages) and, from rank 0, as the
-gathered logits and caches in one ``.npz`` per case under ``out``.
+gathered logits and caches (or gradients and trained state) in one
+``.npz`` per case under ``out``.
 """
 import dataclasses
 from pathlib import Path
@@ -15,6 +17,7 @@ import torch
 import torch.distributed as dist
 
 from repro_torch import convert
+from repro_torch import tree as T
 from repro_torch.configs import base as C
 from repro_torch.launch import mesh as MS
 from repro_torch.launch import steps as ST
@@ -237,3 +240,337 @@ def card_case(payload: dict) -> dict:
                                         cfg)
             got, dcache = decode(sharded, dcache, {"tokens": tok}, pos)
     return {"err": err, "scale": scale, "launches": launches}
+
+
+# ---------------------------------------------------------------------------
+# the sharded train step
+# ---------------------------------------------------------------------------
+
+STEP_OPTIONS = ("microbatches",)      # a case's overrides of the step
+
+
+def tree_key(arch: str, over: dict) -> str:
+    """The name a case's parameters and batch go under in the inputs: the
+    configuration's, and the expert count where the case changes it."""
+    return arch + (f"@{over['n_experts']}" if "n_experts" in over else "")
+
+
+def train_config(arch: str, over: dict) -> M.ModelConfig:
+    """``f32_config(arch)`` with the case's overrides: ``n_experts``,
+    ``remat``, and ``param_dtype`` by name (``"bfloat16"``: bf16 matrices
+    with a float32 master copy in the optimizer state)."""
+    over = {k: v for k, v in over.items() if k not in STEP_OPTIONS}
+    if "param_dtype" in over:
+        over["param_dtype"] = getattr(torch, over["param_dtype"])
+    return dataclasses.replace(f32_config(arch), **over)
+
+
+def train_params(tree: dict, cfg: M.ModelConfig) -> dict:
+    """The port's parameters from a reference tree, matrices (and the
+    router) in ``cfg.param_dtype``, as ``init_params`` stores them."""
+    params = convert.model_params(tree, cfg)
+    if cfg.param_dtype == torch.float32:
+        return params
+    return T.tree_map(lambda t: t.to(cfg.param_dtype) if t.dim() >= 2
+                      else t, params)
+
+
+def case_name(arch: str, fsdp: bool, over: dict) -> str:
+    extra = ",".join(f"{k}={v}" for k, v in sorted(over.items()))
+    return f"{arch}|{fsdp}|{extra}"
+
+
+def _gathered(prefix: str, tree) -> dict:
+    return {f"{prefix}/{p}": t.detach().full_tensor().float().clone()
+            for p, t in S.flat_paths(tree)}
+
+
+def _spied_update(record: dict):
+    """A spy around the train step's AdamW update that keeps, at the first
+    step, the gradients it is given (DTensors), whether each came in its
+    parameter's placements, and the optimizer state it leaves."""
+    real = ST.adamw_update
+
+    def spy(grads, opt_state, params, opt_cfg):
+        stats = real(grads, opt_state, params, opt_cfg)
+        if not record:
+            record["grads"] = T.tree_map(lambda g: g.detach(), grads)
+            record["placed"] = all(
+                g.placements == p.placements for g, p in
+                zip(T.leaves(grads), T.leaves(params)))
+            record["state"] = {k: _gathered(k, opt_state[k])
+                               for k in ("m", "v")}
+        return stats
+    return spy
+
+
+def _adamw_parity(cfg, mesh, fsdp: bool, params0: dict, grads: dict,
+                  opt_cfg) -> dict:
+    """Two AdamW updates from ``params0`` (whole tensors) with the same
+    gradients ``grads`` (DTensors), on the mesh and on whole tensors: the
+    largest difference of each tree after them, as a share of its leaf's
+    largest |value|."""
+    from repro_torch.optim import adamw as A
+    whole = T.tree_map(lambda t: t.clone(), params0)
+    sharded = S.distribute_params(T.tree_map(lambda t: t.clone(), params0),
+                                  cfg, mesh, fsdp)
+    g_whole = T.tree_map(lambda g: g.full_tensor(), grads)
+    st_w, st_s = A.init_opt_state(whole), A.init_opt_state(sharded)
+    for _ in range(2):
+        A.adamw_update(g_whole, st_w, whole, opt_cfg)
+        A.adamw_update(grads, st_s, sharded, opt_cfg)
+    worst = {}
+    for name, a, b in (("params", whole, sharded),
+                       *((k, st_w[k], st_s[k]) for k in ("m", "v", "master")
+                         if k in st_w)):
+        errs = [float((y.full_tensor().float() - x.float()).abs().max())
+                / max(float(x.float().abs().max()), 1e-30)
+                for x, y in zip(T.leaves(a), T.leaves(b))]
+        worst[name] = max(errs)
+    return worst
+
+
+def _train_case(mesh, inputs, arch: str, fsdp: bool, over: dict,
+                payload: dict, out_dir: Path) -> dict:
+    from repro_torch.optim import adamw as A
+    cfg = train_config(arch, over)
+    key = tree_key(arch, over)
+    tree = nested({k.split("|", 2)[2]: inputs[k] for k in inputs.files
+                   if k.startswith(f"{key}|param|")})
+    params0 = train_params(tree, cfg)
+    params = S.distribute_params(T.tree_map(torch.clone, params0), cfg,
+                                 mesh, fsdp)
+    batch = {k.split("|", 2)[2]: torch.from_numpy(inputs[k])
+             for k in inputs.files if k.startswith(f"{key}|batch|")}
+    opt_cfg = A.AdamWConfig(**payload["opt"])
+    step, shardings = ST.sharded_step(
+        cfg, C.InputShape("t", payload["seq"], payload["batch"], "train"),
+        mesh, fsdp, opt_cfg=opt_cfg,
+        microbatches=over.get("microbatches", 1))
+    opt_state = A.init_opt_state(params)
+    first: dict = {}
+    real = ST.adamw_update
+    ST.adamw_update = _spied_update(first)
+    try:
+        metrics = [step(params, opt_state, batch) for _ in range(2)]
+    finally:
+        ST.adamw_update = real
+    arrays = _gathered("grads", first["grads"])
+    for k, v in first["state"].items():
+        arrays.update(v)
+    name = case_name(arch, fsdp, over)
+    if dist.get_rank() == 0:
+        np.savez(out_dir / f"{name.replace('|', '_')}.npz",
+                 **{k: v.numpy() for k, v in arrays.items()})
+    local = {k: {p: list(t.to_local().shape) for p, t in S.flat_paths(tree)}
+             for k, tree in (("params", params),
+                             *((k, opt_state[k]) for k in ("m", "v", "master")
+                               if k in opt_state))}
+    opt_place = shardings["opt_state"]
+    return {"metrics": [{k: float(v) for k, v in m.items()} for m in metrics],
+            "grads_placed": first["placed"], "local": local,
+            "adamw": _adamw_parity(cfg, mesh, fsdp, params0, first["grads"],
+                                   opt_cfg),
+            "opt_keys": sorted(opt_place),
+            "step": {"value": int(opt_state["step"].full_tensor()),
+                     "replicated": all(p.is_replicate() for p in
+                                       opt_state["step"].placements),
+                     "spec_replicated": all(p.is_replicate()
+                                            for p in opt_place["step"])},
+            "state": (params, opt_state)}
+
+
+def train_cases(payload: dict) -> dict:
+    """The sharded train step of every ``[arch, fsdp, overrides]`` case on
+    the ``(data, model)`` mesh ``payload["shape"]``: two steps from the
+    reference's parameters on the same batch; rank 0 writes the first
+    step's gradients and the state after the second, gathered. Then the
+    extras the payload names: ``prefetch``, ``spy``, ``checkpoint``."""
+    data, model = payload["shape"]
+    mesh = MS.make_host_mesh(model=model, device="cpu")
+    inputs = np.load(payload["inputs"])
+    out_dir = Path(payload["out"])
+    found, kept = {}, None
+    for arch, fsdp, over in payload["cases"]:
+        rec = _train_case(mesh, inputs, arch, fsdp, over, payload, out_dir)
+        state = rec.pop("state")
+        if [arch, fsdp, over] == payload.get("checkpoint"):
+            kept = (arch, fsdp, over, state)
+        found[case_name(arch, fsdp, over)] = rec
+    if payload.get("prefetch"):
+        found["prefetch"] = _prefetch(mesh, payload)
+    if payload.get("spy"):
+        found["spy"] = _spy(mesh, inputs, payload)
+    if payload.get("checkpoint"):
+        found["checkpoint"] = _checkpoints(mesh, kept, payload, out_dir)
+    return found
+
+
+def _prefetch(mesh, payload: dict) -> dict:
+    """Two batches of each configuration's ``SyntheticTokenSource`` through
+    ``ShardedPrefetcher`` onto the mesh: each rank writes its local shards
+    (``prefetch_rank<r>.npz``) and returns their placements."""
+    from repro_torch.data.pipeline import ShardedPrefetcher, \
+        SyntheticTokenSource
+    b, s, seed = payload["batch"], payload["seq"], payload["prefetch_seed"]
+    arrays, places = {}, {}
+    for arch in payload["prefetch"]:
+        cfg = f32_config(arch)
+        _, shardings = ST.sharded_step(cfg, C.InputShape("t", s, b, "train"),
+                                       mesh)
+        pf = ShardedPrefetcher(SyntheticTokenSource(cfg, b, s, seed), mesh,
+                               shardings["batch"])
+        try:
+            for i in range(2):
+                batch = next(pf)
+                for k, v in batch.items():
+                    arrays[f"{arch}|{i}|{k}"] = v.to_local().numpy()
+                    places[f"{arch}|{i}|{k}"] = {
+                        "same": tuple(v.placements) ==
+                        tuple(shardings["batch"][k]),
+                        "shape": list(v.shape)}
+        finally:
+            pf.close()
+    np.savez(Path(payload["out"]) / f"prefetch_rank{dist.get_rank()}.npz",
+             **arrays)
+    return {"coords": mesh.get_coordinate(), "placed": places}
+
+
+def _spy(mesh, inputs, payload: dict) -> dict:
+    """One sharded train step of ``payload["spy"]`` (remat on) with the
+    attention and SSD kernels' entry points and their plain backwards
+    wrapped in recorders: for every call, whether an argument was a
+    DTensor, and the head count it saw."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.flash_attention import flash_attention as FA
+    from repro_torch.kernels.ssd_scan import ssd_scan as SS
+    from repro_torch.models import layers as L
+    from repro_torch.optim import adamw as A
+    calls = []
+
+    def record(kind, head_dim, fn):
+        def spy(*args, **kw):
+            tensors = [a for a in args if isinstance(a, torch.Tensor)]
+            calls.append({"kind": kind,
+                          "dtensor": any(S.is_dtensor(a) for a in tensors),
+                          "heads": int(args[0].shape[head_dim])})
+            return fn(*args, **kw)
+        return spy
+    patched = ((L, "flash_attention", "K3", 1),
+               (FA, "flash_attention_bwd_plain", "K3_bwd", 1),
+               (ops, "ssd_chunk", "K4", 3),
+               (SS, "ssd_chunk_bwd_plain", "K4_bwd", 3))
+    real = {(mod, name): getattr(mod, name) for mod, name, _, _ in patched}
+    arch = payload["spy"]
+    cfg = dataclasses.replace(f32_config(arch), remat=True)
+    tree = nested({k.split("|", 2)[2]: inputs[k] for k in inputs.files
+                   if k.startswith(f"{arch}|param|")})
+    params = S.distribute_params(convert.model_params(tree, cfg), cfg, mesh)
+    batch = {k.split("|", 2)[2]: torch.from_numpy(inputs[k])
+             for k in inputs.files if k.startswith(f"{arch}|batch|")}
+    step, _ = ST.sharded_step(
+        cfg, C.InputShape("t", payload["seq"], payload["batch"], "train"),
+        mesh)
+    for mod, name, kind, dim in patched:
+        setattr(mod, name, record(kind, dim, real[(mod, name)]))
+    try:
+        loss = step(params, A.init_opt_state(params), batch)["loss"]
+    finally:
+        for (mod, name), fn in real.items():
+            setattr(mod, name, fn)
+    return {"calls": calls, "finite": bool(torch.isfinite(loss))}
+
+
+def _checkpoints(mesh, kept, payload: dict, out_dir: Path) -> dict:
+    """The kept case's trained ``(params, opt_state)`` saved from this mesh,
+    then restored onto the (4, 1) and (1, 4) meshes of the same ranks and
+    unsharded, each held bitwise against the saved state (and its
+    placements against the sharded step's); and the reference's checkpoint
+    ``payload["ref_checkpoint"]`` restored onto this mesh, gathered by
+    rank 0 into ``ref_restored.npz``."""
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.checkpoint import checkpoint as CK
+    arch, fsdp, over, state = kept
+    cfg = train_config(arch, over)
+    path = out_dir / "saved.npz"
+    CK.save_checkpoint(path, state, step=2)
+    want = {p: t.full_tensor() for p, t in S.flat_paths(list(state))}
+    shape = C.InputShape("t", payload["seq"], payload["batch"], "train")
+    out = {"written": path.exists()}
+    for name, dims in (("4x1", (4, 1)), ("1x4", (1, 4))):
+        other = init_device_mesh("cpu", dims, mesh_dim_names=("data", "model"))
+        _, sh = ST.sharded_step(cfg, shape, other, fsdp)
+        place = (sh["params"], sh["opt_state"])
+        got, step = CK.restore_checkpoint(path, state, place, other)
+        flat_place = dict(S.flat_paths(list(place)))
+        out[name] = {
+            "step": step,
+            "equal": all(torch.equal(t.full_tensor(), want[p])
+                         and t.dtype == want[p].dtype
+                         for p, t in S.flat_paths(list(got))),
+            "placed": all(tuple(t.placements) == tuple(flat_place[p])
+                          for p, t in S.flat_paths(list(got)))}
+    like = T.tree_map(lambda t: torch.empty(t.shape, dtype=t.dtype), state)
+    got, step = CK.restore_checkpoint(path, like)
+    out["unsharded"] = {
+        "step": step,
+        "equal": all(not S.is_dtensor(t) and torch.equal(t, want[p])
+                     for p, t in S.flat_paths(list(got)))}
+    got, step = CK.restore_checkpoint(
+        payload["ref_checkpoint"], state,
+        (S.param_shardings(cfg, mesh, fsdp),
+         ST.sharded_step(cfg, shape, mesh, fsdp)[1]["opt_state"]), mesh)
+    arrays = {p: t.full_tensor().numpy() for p, t in S.flat_paths(list(got))}
+    if dist.get_rank() == 0:
+        np.savez(out_dir / "ref_restored.npz", **arrays)
+    out["ref"] = {"step": step, "local": {
+        p: list(t.to_local().shape) for p, t in S.flat_paths(list(got))}}
+    return out
+
+
+def card_train_case(payload: dict) -> dict:
+    """One reduced configuration in float32 with remat on the cards (NCCL):
+    the port's own weights on each rank's card, one unsharded train step
+    and one sharded on the (1, world) mesh from the same weights and
+    batch; the loss's and grad norm's relative differences, the largest
+    gradient leaf's difference as a share of its largest |g|, and the
+    sharded step's kernel launches."""
+    from repro_torch.kernels.flash_attention import flash_attention as K3
+    from repro_torch.kernels.ssd_scan import ssd_scan as K4
+    from repro_torch.optim import adamw as A
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda", torch.cuda.current_device())
+    cfg = dataclasses.replace(f32_config(payload["arch"]), remat=True)
+    b, s = payload["batch"], payload["seq"]
+    mesh = MS.make_host_mesh(model=dist.get_world_size())
+    batch = C.make_batch(cfg, s, b, "train",
+                         torch.Generator(device=dev).manual_seed(1))
+    params = M.init_params(cfg, torch.Generator(device=dev).manual_seed(0))
+    for p in T.leaves(params):
+        p.requires_grad_(True)
+    want, wgrads = ST.loss_and_grads(params, batch, cfg)
+    sharded = S.init_sharded_params(cfg, mesh, torch.Generator(
+        device=dev).manual_seed(0))
+    step, _ = ST.sharded_step(cfg, C.InputShape("t", s, b, "train"), mesh)
+    record: dict = {}
+    real = ST.adamw_update
+    ST.adamw_update = _spied_update(record)
+    wrappers = (K3.flash_attention, K3.flash_attention_bwd, K4.ssd_chunk,
+                K4.ssd_chunk_bwd)
+    for fn in wrappers:
+        fn.launches = 0
+    try:
+        got = step(sharded, A.init_opt_state(sharded), batch)
+    finally:
+        ST.adamw_update = real
+    launches = {fn.__name__: fn.launches for fn in wrappers}
+    wnorm = float(A.global_norm(wgrads))
+    worst = max(float((g.full_tensor() - w).abs().max())
+                / max(float(w.abs().max()), 1e-30)
+                for g, w in zip(T.leaves(record["grads"]),
+                                T.leaves(wgrads)))
+    return {"loss": abs(float(got["loss"]) - float(want["loss"]))
+            / abs(float(want["loss"])),
+            "grad_norm": abs(float(got["grad_norm"]) - wnorm) / wnorm,
+            "grads": worst, "launches": launches}
