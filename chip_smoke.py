@@ -103,15 +103,18 @@ each and stopping with a traceback at the first failure:
     (every weight outside the vocabulary tables times every prompt token
     at the bf16 rate; every bf16 weight read once a token), and one K3
     launch per attention layer (K4 per Mamba2 layer) per prefill;
-    stablelm-12b's at head dim 160. Then a 1-layer full-width float32 copy
+    stablelm-12b's at head dim 160. Then the two ``HEAD_DIM_MODELS``, the
+    repo's dense block at phi-3-mini's published widths (head dim 96) and
+    at gemma-7b's (head dim 256), the same way. Then a 1-layer full-width
+    float32 copy
     of each on ``"cuda"`` and on ``"cpu"`` (bs 2, 64 text tokens): logits
     within 1e-3, 8 greedy tokens equal up to the first step whose top-two
     logits on ``"cpu"`` lie within that tolerance (reported).
-    mamba2-780m, internvl2-1b and stablelm-12b also take one float32
-    training step on both (``FAM_TRAIN``'s batch x 256 text tokens):
-    losses within 1e-4, gradients within 1e-3 of each leaf's largest |g|
-    (K4's backward at n = 128, K3's under GQA 7 and at D = 160 under GQA
-    4).
+    mamba2-780m, internvl2-1b, stablelm-12b and the two head-dim models
+    also take one float32 training step on both (``FAM_TRAIN``'s batch x
+    256 text tokens): losses within 1e-4, gradients within 1e-3 of each
+    leaf's largest |g| (K4's backward at n = 128, K3's under GQA 7, at D =
+    160 under GQA 4, and at D = 96 and 256).
 13. ``moe``: mixtral-8x22b and arctic-480b at full published width with
     their depth cut to fit the card (``MOE_LAYERS``: 12 of 56 and 2 of 35
     layers), each served as the families are, in bf16: load s, peak
@@ -231,8 +234,12 @@ families: K4 both ways at mamba2-780m's serving shape (``SSD_N128_SHAPE``,
 n = 128) and K3 at minitron-4b's prefill (``ATTN_GQA_SHAPE``, D = 128),
 timed with their bounds; K3 at stablelm-12b's head dim 160, both ways at
 its prefill (``ATTN_D160_SHAPE``) beside SDPA and its backward, and at
-a ragged windowed shape (``ATTN_D160_CHECKS``) in both types, and a head
-dim outside ``HEAD_DIMS`` refused with no launch; for the MoE pair, K3 at each configuration's
+a ragged windowed shape (``ATTN_D160_CHECKS``) in both types; K3 across
+its head dims (``ATTN_WIDE_*``: both ways, both types, ragged and
+windowed, at D from 1 to 256, a B x H past grid y's 65,535, timed beside
+SDPA at the head-dim models' prefills and at two operation-bound shapes),
+and a head dim past ``MAX_HEAD_DIM`` refused with no launch; for the MoE
+pair, K3 at each configuration's
 prefill (``moe_attention_shapes``: Mixtral's GQA 6 and Arctic's GQA 7)
 and at Mixtral's windowed prompt, beside SDPA (given the window as a
 mask).
@@ -434,10 +441,31 @@ SSD_DRAWS = 4
 # keep the script's time
 FAMILIES = ("stablelm-1.6b", "minitron-4b", "qwen2.5-14b", "stablelm-12b",
             "mamba2-780m", "internvl2-1b", "musicgen-medium")
+# and K3 at head dims no registered configuration has, through the same
+# entry points: the repo's dense block (RMSNorm, SwiGLU, RoPE) at two
+# public models' published widths. These are cases of the head dim, not
+# ports of the models: Gemma's GeGLU, sqrt(d_model) embedding scale and
+# tied head stay out. The JAX package registers neither, so they are
+# built here (``head_dim_config``) and in the CPU tests, not in configs/
+HEAD_DIM_MODELS = {
+    # hf:microsoft/Phi-3-mini-4k-instruct: 3072 / 32 heads = head dim 96
+    "phi3-mini-widths": dict(
+        num_layers=32, d_model=3072, n_heads=32, n_kv_heads=32, d_ff=8192,
+        vocab_size=32064, rope_theta=10_000.0,
+        source="hf:microsoft/Phi-3-mini-4k-instruct"),
+    # hf:google/gemma-7b: 16 heads of 256 (4096 wide) on d_model 3072
+    "gemma-7b-widths": dict(
+        num_layers=28, d_model=3072, n_heads=16, n_kv_heads=16,
+        head_dim=256, d_ff=24576, vocab_size=256000, rope_theta=10_000.0,
+        source="hf:google/gemma-7b"),
+}
 FAM_BS, FAM_PROMPT, FAM_STEPS = 4, 512, 16
 FAM_PARITY_BS, FAM_PARITY_TEXT, FAM_PARITY_STEPS = 2, 64, 8
 FAM_PARITY_LAYERS = 1
-FAM_TRAIN = {"mamba2-780m": 2, "internvl2-1b": 2, "stablelm-12b": 1}
+# gemma-7b-widths' one-layer float32 copy is 1.85 B parameters (its
+# vocabulary tables 1.57 B of them), stablelm-12b's 1.31 B: bs 1
+FAM_TRAIN = {"mamba2-780m": 2, "internvl2-1b": 2, "stablelm-12b": 1,
+             "phi3-mini-widths": 2, "gemma-7b-widths": 1}
 FAM_TRAIN_TEXT = 256
 # the kernel phase's checks at those shapes: K4 at mamba2-780m's serving
 # shape (bs 8 x 2048 tokens: 48 heads, p 64, n 128), both ways; K3 at
@@ -447,11 +475,25 @@ ATTN_GQA_SHAPE = (4, 24, 512, 128)
 # K3 at stablelm-12b's head dim (5120 / 32 = 160): its prefill after
 # _repeat_kv (bs 4 x 512, 32 heads from 8 KV heads), both ways, timed; a
 # ragged S with a window, both ways in float32 and bf16 (the forward in
-# bf16 timed beside SDPA given the window as a mask); and a head dim
-# outside HEAD_DIMS, which must raise and launch nothing
+# bf16 timed beside SDPA given the window as a mask)
 ATTN_D160_SHAPE = (FAM_BS, 32, FAM_PROMPT, 160)
 ATTN_D160_CHECKS = ((1, 32, 300, 160, 64),)
-ATTN_REFUSED_D = 96
+# K3 across its head dims (1 to MAX_HEAD_DIM = 256): both ways in float32
+# and bf16 against the plain versions at each D of ATTN_WIDE_DIMS on a
+# ragged S with a window and on one without, and at the reference's own
+# kernel test's shape (tests/test_kernels.py, D = 32); both ways in bf16 at
+# a B x H past grid y's 65,535 (ATTN_WIDE_BH); timed both ways beside SDPA
+# at the two head-dim models' prefills (HEAD_DIM_MODELS, bs 4 x 512) and at
+# two operation-bound shapes; and a head dim past the limit
+# (ATTN_REFUSED_D), which must raise and launch nothing
+ATTN_WIDE_DIMS = (1, 8, 32, 48, 80, 96, 100, 112, 192, 200, 256)
+ATTN_WIDE_CHECKS = (tuple((1, 2, 300, d, 64) for d in ATTN_WIDE_DIMS)
+                    + tuple((2, 3, 129, d, None) for d in ATTN_WIDE_DIMS)
+                    + ((2, 1, 256, 32, None),))
+ATTN_WIDE_BH = (1, 65600, 64, 64)
+ATTN_WIDE_TIMED = ((FAM_BS, 32, FAM_PROMPT, 96), (FAM_BS, 16, FAM_PROMPT, 256),
+                   (8, 32, 2048, 96), (8, 16, 2048, 256))
+ATTN_REFUSED_D = 257
 # the moe phase: mixtral-8x22b and arctic-480b at full published width with
 # the depth cut to fit one card (bf16 layers of 5.01 and 27.2 GB), each
 # served as the families are (FAM_BS, FAM_PROMPT, FAM_STEPS); Mixtral's
@@ -961,9 +1003,9 @@ def time_attention(torch, K3, gen, dev, reps: int) -> dict:
 
 
 def check_head_dim_refused(torch, K3, dev) -> dict:
-    """K3 on a head dim outside ``HEAD_DIMS`` (``ATTN_REFUSED_D``): a
-    ``ValueError`` naming the head dims it takes, and no launch — no
-    fallback to the plain version."""
+    """K3 on a head dim past ``MAX_HEAD_DIM`` (``ATTN_REFUSED_D``): a
+    ``ValueError`` naming the limit, and no launch — no fallback to the
+    plain version."""
     q = torch.zeros((1, 2, 64, ATTN_REFUSED_D), dtype=torch.bfloat16,
                     device=dev)
     n0 = K3.flash_attention.launches
@@ -973,9 +1015,10 @@ def check_head_dim_refused(torch, K3, dev) -> dict:
         msg = str(e)
     else:
         fail(f"flash_attention at head dim {ATTN_REFUSED_D} did not raise")
-    if str(K3.HEAD_DIMS) not in msg or K3.flash_attention.launches != n0:
+    limit = f"MAX_HEAD_DIM = {K3.MAX_HEAD_DIM}"
+    if limit not in msg or K3.flash_attention.launches != n0:
         fail(f"flash_attention at head dim {ATTN_REFUSED_D}: expected a "
-             f"refusal naming {K3.HEAD_DIMS} and no launch, got {msg!r} and "
+             f"refusal naming {limit} and no launch, got {msg!r} and "
              f"{K3.flash_attention.launches - n0} launch(es)")
     return {"head_dim": ATTN_REFUSED_D, "refused": msg}
 
@@ -984,8 +1027,7 @@ def time_attention_d160(torch, K3, gen, dev) -> dict:
     """K3 at head dim 160: forward and backward in bf16 at
     ``ATTN_D160_SHAPE``, timed beside SDPA and its backward; the
     ``ATTN_D160_CHECKS`` shapes both ways in float32 and bf16, the bf16
-    forward timed beside SDPA with the window as a mask; and
-    ``check_head_dim_refused``."""
+    forward timed beside SDPA with the window as a mask."""
     fwd = attention_fwd_timed(torch, K3, ATTN_D160_SHAPE, gen, dev, 10, 2)
     bwd = attention_bwd_timed(torch, K3, ATTN_D160_SHAPE, gen, dev, 10, 1)
     edges, checks = [], []
@@ -999,8 +1041,48 @@ def time_attention_d160(torch, K3, gen, dev) -> dict:
                 torch, K3, (b, h, s, d), dtype, window, gen, dev)[1]})
     torch.cuda.empty_cache()
     return {"forward": fwd, "backward": bwd, "edges": edges,
-            "checks": checks, "refusal": check_head_dim_refused(torch, K3,
-                                                                dev)}
+            "checks": checks}
+
+
+def brief(rec: dict) -> dict:
+    """A check's record without its per-gradient detail."""
+    return {k: rec[k] for k in ("shape", "window", "dtype", "max_abs_err",
+                                "limit_share")}
+
+
+def time_attention_wide(torch, K3, gen, dev) -> dict:
+    """K3 across its head dims: the ``ATTN_WIDE_CHECKS`` both ways in
+    float32 and bf16 (each with the route it took), ``ATTN_WIDE_BH`` both
+    ways in bf16, the ``ATTN_WIDE_TIMED`` shapes timed both ways in bf16
+    beside SDPA and its backward, and ``check_head_dim_refused``."""
+    fwd, bwd = [], []
+    for (b, h, s, d, window) in ATTN_WIDE_CHECKS:
+        for dtype in (torch.float32, torch.bfloat16):
+            way = K3.route(d, dtype)._asdict()
+            fwd.append({**brief(check_attention(
+                torch, K3, (b, h, s, d), dtype, window, gen, dev)[1]),
+                "route": way})
+            bwd.append({**brief(check_attention_bwd(
+                torch, K3, (b, h, s, d), dtype, window, gen, dev)[1]),
+                "route": way})
+    torch.cuda.empty_cache()
+    past = {"forward": brief(check_attention(
+        torch, K3, ATTN_WIDE_BH, torch.bfloat16, None, gen, dev)[1])}
+    torch.cuda.empty_cache()
+    past["backward"] = brief(check_attention_bwd(
+        torch, K3, ATTN_WIDE_BH, torch.bfloat16, None, gen, dev)[1])
+    torch.cuda.empty_cache()
+    timed = {}
+    for shape in ATTN_WIDE_TIMED:
+        timed["x".join(map(str, shape))] = {
+            "route": K3.route(shape[3], torch.bfloat16)._asdict(),
+            "forward": attention_fwd_timed(torch, K3, shape, gen, dev, 10, 2),
+            "backward": attention_bwd_timed(torch, K3, shape, gen, dev, 5, 1)}
+    return {"head_dims": list(ATTN_WIDE_DIMS),
+            "max_limit_share": max(r["limit_share"] for r in fwd + bwd),
+            "checks": fwd, "checks_backward": bwd, "bh_past_grid_y": past,
+            "timed": timed,
+            "refusal": check_head_dim_refused(torch, K3, dev)}
 
 
 def ssd_case(torch, shape, gen, dev):
@@ -1387,6 +1469,8 @@ def phase_kernels(torch, np, rt, K1, K2, K3, K4, K5, seed: int) -> dict:
     k3_d128 = attention_fwd_timed(torch, K3, ATTN_GQA_SHAPE, gen, dev, 10, 2)
     # stablelm-12b's: K3 at head dim 160, both ways
     k3_d160 = time_attention_d160(torch, K3, gen, dev)
+    # every head dim up to 256, and the head-dim models' prefills
+    k3_wide = time_attention_wide(torch, K3, gen, dev)
     # the moe phase's: each configuration's prefill, and Mixtral's prompt
     # past its window
     k3_moe = {name: attention_fwd_timed(torch, K3, shape, gen, dev,
@@ -1414,6 +1498,7 @@ def phase_kernels(torch, np, rt, K1, K2, K3, K4, K5, seed: int) -> dict:
            "ssd_chunk_n128": k4_n128, "ssd_chunk_bwd_n128": k4b_n128,
            "flash_attention_d128_gqa": k3_d128,
            "flash_attention_d160": k3_d160,
+           "flash_attention_wide": k3_wide,
            "flash_attention_moe": k3_moe,
            "fused_window_library": "no single PyTorch call plans, admits "
                                    "and folds a window"}
@@ -2894,15 +2979,23 @@ def prefill_bound_ms(cfg, bs: int, plen: int) -> float:
     return 1e3 * flops / OPS_PER_S["bfloat16"]
 
 
+def head_dim_config(M, name: str):
+    """``HEAD_DIM_MODELS[name]`` as a dense ``ModelConfig`` of ``M`` (the
+    port's ``models.model``; the CPU tests pass the reference's too)."""
+    return M.ModelConfig(name=name, arch_type="dense",
+                         **HEAD_DIM_MODELS[name])
+
+
 def phase_families(torch, np, rt, launches: Launches, seed: int) -> dict:
-    """The dense, ssm, vlm and audio configurations: each served at full
-    width and depth on the card, a FAM_PARITY_LAYERS float32 copy cuda
-    against cpu, and FAM_TRAIN's float32 training step cuda against
-    cpu."""
+    """The dense, ssm, vlm and audio configurations and the two
+    ``HEAD_DIM_MODELS``: each served at full width and depth on the card,
+    a FAM_PARITY_LAYERS float32 copy cuda against cpu, and FAM_TRAIN's
+    float32 training step cuda against cpu."""
     C = rt["C"]
     runs, total = {}, {name: 0 for name in launches.wrappers}
-    for arch in FAMILIES:
-        cfg = C.get_config(arch)
+    for arch in FAMILIES + tuple(HEAD_DIM_MODELS):
+        cfg = (head_dim_config(rt["M"], arch) if arch in HEAD_DIM_MODELS
+               else C.get_config(arch))
         t0 = time.perf_counter()
         rec = serve_family(torch, rt, launches, cfg, seed)
         rec["prefill_bound_ms"] = prefill_bound_ms(cfg, FAM_BS, FAM_PROMPT)
@@ -2920,7 +3013,7 @@ def phase_families(torch, np, rt, launches: Launches, seed: int) -> dict:
         rec["wall_s_all"] = time.perf_counter() - t0
         runs[arch] = rec
         emit({"phase": "families." + arch, **rec})
-    out = {"phase": "families", "archs": list(FAMILIES),
+    out = {"phase": "families", "archs": list(runs),
            "launches": total,
            "summary": {a: {k: r.get(k) for k in
                            ("prefill_ms", "prefill_bound_ms",

@@ -5,18 +5,19 @@
 // split-TF32 mma.sync, cp.async and named barriers, and the host-side
 // tensor maps.
 //
-// Tile layout: a bf16 tile of R rows (R a multiple of 64) and D columns
-// (D in {64, 128, 160}) sits in shared memory as padded_cols(D) / 64
-// column blocks of R rows x 128 bytes, each written by TMA with the
-// 128-byte swizzle (16-byte chunk c of row r at chunk c ^ (r % 8)), every
-// block 1024-byte aligned. One tensor map per (B*H, S, D) tensor loads
-// 64 x 64 boxes; rows past S, and at D = 160 the last block's columns
-// 160-191, arrive as zeros and count toward the barrier's transaction
-// bytes like the rest. The same tile is read K-major by wgmma when a
-// product contracts over D (D / 16 steps, never the padding), and MN-major
-// (the instruction's transpose bit) when it contracts over the rows; then
-// its N spans every block, padding included (N = 192 at D = 160), and the
-// padded columns of the result are never stored.
+// Tile layout: a bf16 tile of R rows (R a multiple of 64) and W columns
+// (W = padded_cols(D) in {64, 128, 192, 256} for a row of D columns, D a
+// multiple of 8) sits in shared memory as W / 64 column blocks of R rows x
+// 128 bytes, each written by TMA with the 128-byte swizzle (16-byte chunk
+// c of row r at chunk c ^ (r % 8)), every block 1024-byte aligned. One
+// tensor map per (B*H, S, D) tensor loads 64 x 64 boxes; rows past S and
+// columns past D (the last block's, where D is not a multiple of 64)
+// arrive as zeros and count toward the barrier's transaction bytes like
+// the rest. The same tile is read K-major by wgmma when a product
+// contracts over D (ceil(D / 16) steps: the zeros past D add nothing), and
+// MN-major (the instruction's transpose bit) when it contracts over the
+// rows; then its N spans whole blocks, padding included (N = 192 at D =
+// 160), and the padded columns of the result are never stored.
 #pragma once
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -97,19 +98,21 @@ __device__ __forceinline__ void bulk_load(void* dst, const void* src,
       : "memory");
 }
 
-// rows [r0, r0 + rows) of matrix ``bh`` into a tile of ``R`` rows laid out
-// as above (``rows`` a multiple of 64, ``padded_cols(D) / 64`` column
-// blocks: rows x padded_cols(D) x 2 bytes of transactions)
+// rows [r0, r0 + rows) and columns [c0, c0 + padded_cols(D)) of matrix
+// ``bh`` into a tile of ``R`` rows laid out as above (``rows`` a multiple
+// of 64, ``padded_cols(D) / 64`` column blocks: rows x padded_cols(D) x 2
+// bytes of transactions)
 template <int D>
 __device__ __forceinline__ void tma_tile(uint8_t* tile, int R, int rows,
                                          const CUtensorMap* map,
-                                         uint64_t* bar, int r0, int bh) {
+                                         uint64_t* bar, int r0, int bh,
+                                         int c0 = 0) {
   constexpr int blocks = padded_cols(D) / kBox;
 #pragma unroll
   for (int c = 0; c < blocks; ++c)
     for (int rb = 0; rb < rows / kBox; ++rb)
-      tma_load(tile + c * R * kRowBytes + rb * kBoxBytes, map, bar, c * kBox,
-               r0 + rb * kBox, bh);
+      tma_load(tile + c * R * kRowBytes + rb * kBoxBytes, map, bar,
+               c0 + c * kBox, r0 + rb * kBox, bh);
 }
 
 // ---- wgmma ----------------------------------------------------------------
@@ -517,8 +520,8 @@ static inline EncodeTiledFn encode_tiled() {
 
 // the 3-D map (D, S, B*H) of a row-major bf16 (B*H, S, D) tensor: 64 x 64
 // boxes, 128-byte swizzle, zeros past S and past D (a box that starts at
-// column 128 of D = 160). ``base`` must be 16-byte aligned, and so must a
-// row (D a multiple of 8).
+// column 128 of D = 160, or a box wider than D < 64). ``base`` must be
+// 16-byte aligned, and so must a row (D a multiple of 8).
 static inline bool make_tile_map(CUtensorMap* map, const void* base,
                                  int64_t BH, int64_t S, int D) {
   const EncodeTiledFn fn = encode_tiled();

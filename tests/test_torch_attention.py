@@ -12,7 +12,11 @@ The plain backward (``flash_attention_bwd_plain``) is held to ``jax.vjp``
 of ``attention_ref`` element by element, within 1e-4 (float32) and 2e-2
 (bf16) of |value| plus the gradient's RMS, windowed and ragged included; on
 CPU tensors the differentiable ``flash_attention`` runs it. Each holds at
-the head dims the CUDA kernels take, 64, 128 and 160 (stablelm-12b's).
+head dims across the CUDA kernels' range of 1 to ``MAX_HEAD_DIM`` (256):
+the reference's own test's 32, 64, 128, stablelm-12b's 160, phi-3-mini's
+96, gemma-7b's 256, and 100, which the bf16 kernels take through a
+zero-padded copy (``route``). The new Pallas cases run the reference's
+kernel under ``jax.enable_x64(True)``.
 
 The CUDA kernels themselves are held to the plain versions on the card by
 ``tests/test_torch_cuda.py`` and ``chip_smoke.py``.
@@ -55,6 +59,22 @@ def test_plain_matches_pallas_kernel_in_interpret_mode_at_head_dim_160(
     q, k, v = _qkv(13, (1, 2, 256, 160))
     want = np.asarray(pallas_flash(*map(jnp.asarray, (q, k, v)),
                                    window=window, interpret=True))
+    got = K3.flash_attention(*map(torch.from_numpy, (q, k, v)), window=window)
+    np.testing.assert_allclose(got.numpy(), want, **TOL)
+
+
+@pytest.mark.parametrize("shape,window", [
+    ((2, 1, 256, 32), None), ((1, 2, 256, 96), None), ((1, 2, 256, 96), 64),
+    ((1, 2, 256, 256), None), ((1, 2, 256, 256), 64)])
+def test_plain_matches_pallas_kernel_in_interpret_mode_at_other_head_dims(
+        shape, window):
+    """The reference's own kernel test's shape (``tests/test_kernels.py``,
+    D = 32), phi-3-mini's head dim 96 and gemma-7b's 256: the Pallas
+    kernel's blocks span all of D and its docstring sizes it for D <= 256."""
+    q, k, v = _qkv(14, shape)
+    with jax.enable_x64(True):
+        want = np.asarray(pallas_flash(*map(jnp.asarray, (q, k, v)),
+                                       window=window, interpret=True))
     got = K3.flash_attention(*map(torch.from_numpy, (q, k, v)), window=window)
     np.testing.assert_allclose(got.numpy(), want, **TOL)
 
@@ -105,17 +125,71 @@ def test_inputs_the_kernel_refuses_raise():
 
 
 def test_the_kernel_takes_head_dims_64_128_160_and_names_them():
-    """``HEAD_DIMS`` is what the CUDA kernels are built for; the kernel's
-    wrapper refuses any other D before it loads a library, naming them
-    (so on CPU tensors too: no fallback to the plain version)."""
-    assert K3.HEAD_DIMS == (64, 128, 160)
+    """The CUDA kernels take every head dim from 1 to ``MAX_HEAD_DIM``
+    (64, 128 and 160 among them, as before); the wrapper refuses D = 0 and
+    anything past 256 before it loads a library, naming the limit (so on
+    CPU tensors too: no fallback to the plain version), and launches
+    nothing."""
+    assert K3.MAX_HEAD_DIM == 256
+    assert [K3.route(d, torch.bfloat16).width for d in (64, 128, 160)] == \
+        [64, 128, 192]
     before = K3.flash_attention.launches
-    for d in (32, 96, 192, 256):
+    for d in (257, 320, 512, 0):
         q = torch.zeros(1, 2, 8, d)
         with pytest.raises(ValueError,
-                           match=r"head dims \(64, 128, 160\), got %d" % d):
+                           match=r"MAX_HEAD_DIM = 256, got %d" % d):
             K3.flash_attention_fwd(q, q, q)
     assert K3.flash_attention.launches == before
+
+
+def test_route_covers_every_head_dim_up_to_256():
+    """``route`` at every D from 1 to 256 in both types: float32 runs on
+    the CUDA cores and takes D as it is; bf16 below D = 8 too; bf16 from 8
+    runs on the tensor cores and copies D zero-padded to the next multiple
+    of 8 where a row would not span a multiple of 16 bytes (TMA's rule).
+    The tile width is that row in whole 64-column blocks, and the tensor
+    cores at width 256 split each tile's output columns over two blocks."""
+    for d in range(1, K3.MAX_HEAD_DIM + 1):
+        for dtype, size in ((torch.float32, 4), (torch.bfloat16, 2)):
+            way = K3.route(d, dtype)
+            tensor = dtype == torch.bfloat16 and d >= 8
+            assert way.cores == ("tensor" if tensor else "cuda")
+            row = d if way.padded_to is None else way.padded_to
+            if tensor:
+                assert row * size % 16 == 0 and row - d < 8
+                assert (way.padded_to is None) == (d % 8 == 0)
+            else:
+                assert way.padded_to is None
+            assert way.width in (64, 128, 192, 256)
+            assert way.width - 64 < row <= way.width
+            assert way.split == (2 if tensor and way.width == 256 else 1)
+    assert K3.route(100, torch.bfloat16) == K3.Route(128, 1, 104, "tensor")
+    assert K3.route(200, torch.bfloat16) == K3.Route(256, 2, None, "tensor")
+    assert K3.route(1, torch.bfloat16) == K3.Route(64, 1, None, "cuda")
+    assert K3.route(1, torch.float32) == K3.Route(64, 1, None, "cuda")
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        K3.route(64, torch.float16)
+
+
+def test_zero_padded_columns_leave_the_attention_unchanged():
+    """The bf16 route's copy: q, k, v padded with zero columns, scaled by
+    the real head dim, give the unpadded output in their first D columns
+    and zeros after; so do the gradients."""
+    d, dp = 100, K3.route(100, torch.bfloat16).padded_to
+    q, k, v, do = (torch.from_numpy(a) for a in
+                   _qkv(15, (1, 2, 70, d)) + _qkv(16, (1, 2, 70, d))[:1])
+    pad = [torch.nn.functional.pad(t, (0, dp - d)) for t in (q, k, v, do)]
+    fix = (dp / d) ** 0.5          # the plain version scales by 1/sqrt(dp)
+    out = K3.flash_attention_plain(q, k, v, window=30)
+    out_p = K3.flash_attention_plain(pad[0] * fix, pad[1], pad[2], window=30)
+    torch.testing.assert_close(out_p[..., :d], out, rtol=1e-5, atol=1e-6)
+    assert not out_p[..., d:].any()
+    want = K3.flash_attention_bwd_plain(q, k, v, out, do, window=30)
+    got = K3.flash_attention_bwd_plain(pad[0] * fix, pad[1], pad[2], out_p,
+                                       pad[3], window=30)
+    for g, w, mul in zip(got, want, (fix, 1.0, 1.0)):
+        torch.testing.assert_close(g[..., :d] * mul, w, rtol=1e-5, atol=1e-6)
+        assert not g[..., d:].any()
 
 
 # ---------------------------------------------------------------------------
@@ -216,6 +290,29 @@ def _near(got, want, tol):
     (300, 160, None, np.float32), (200, 160, 64, np.float32),
     (130, 160, None, "bfloat16"), (100, 160, 30, "bfloat16")])
 def test_plain_backward_matches_jax_vjp_of_the_oracle(S, D, window, dtype):
+    _vjp_case(S, D, window, dtype, out_f32=False)
+
+
+@pytest.mark.parametrize("S,D,window,dtype", [
+    (130, 96, None, np.float32), (100, 100, 30, np.float32),
+    (200, 256, 64, np.float32), (96, 96, 40, "bfloat16"),
+    (77, 100, None, "bfloat16"), (130, 256, None, "bfloat16")])
+def test_plain_backward_matches_jax_vjp_at_head_dims_96_100_256(S, D, window,
+                                                                dtype):
+    """In bf16 the plain backward is handed the forward's output in
+    float32, the output ``jax.vjp`` differentiates through. The bf16 output
+    that the kernel reads (and its plain version with it, so the card's
+    comparison is unaffected) moves ``D = rowsum(dO O)`` by some 2^-9
+    sqrt(D) of its size: at D = 100 and 256 that alone takes dQ and dK to
+    1.1-1.6x the 2e-2 limit here, against 0.04-0.2x with the float32
+    output."""
+    _vjp_case(S, D, window, dtype, out_f32=True)
+
+
+def _vjp_case(S, D, window, dtype, out_f32):
+    """``flash_attention_bwd_plain`` against ``jax.vjp`` of the oracle on
+    NumPy inputs, given the plain forward's output in the input type or,
+    with ``out_f32``, in float32."""
     q, k, v, do = _qkv(7, (1, 2, S, D)) + _qkv(8, (1, 2, S, D))[:1]
     jdt, tdt = ((jnp.bfloat16, torch.bfloat16) if dtype == "bfloat16"
                 else (jnp.float32, torch.float32))
@@ -224,7 +321,8 @@ def test_plain_backward_matches_jax_vjp_of_the_oracle(S, D, window, dtype):
     want = jax.jit(lambda ins, cot: jax.vjp(
         lambda a, b, c: attention_ref(a, b, c, window=window), *ins)[1](cot))(
             tuple(jin[:3]), jin[3])
-    out = K3.flash_attention_plain(*tin[:3], window=window)
+    out = K3.flash_attention_plain(
+        *(t.float() if out_f32 else t for t in tin[:3]), window=window)
     got = K3.flash_attention_bwd_plain(*tin[:3], out, tin[3], window=window)
     tol = 1e-4 if dtype == np.float32 else 2e-2
     for g, w in zip(got, want):
@@ -295,7 +393,8 @@ def _tensor_core_roundings(q, k, v, do, window):
 
 
 _RULE_SHAPES = [((1, 4, 2048, 64), None), ((1, 2, 1000, 128), 256),
-                ((1, 2, 600, 160), 128)]
+                ((1, 2, 600, 160), 128), ((1, 2, 1000, 96), None),
+                ((1, 2, 600, 256), 128)]
 
 
 def _rule_case(shape, window):
@@ -312,6 +411,19 @@ def test_tensor_core_roundings_take_under_half_the_row_limit(shape, window):
     got, want = _rule_case(shape, window)
     for name, g, w in zip(("O", "dQ", "dK", "dV"), got, want):
         assert _row_share(g, w) < 0.5, name
+
+
+def test_tensor_core_roundings_break_the_row_rule_below_head_dim_8():
+    """Why ``route`` sends bf16 below D = 8 to the CUDA cores: there the
+    tensor cores' rounding of P and dS to bf16 alone takes more than the
+    per-row limit (whose scale is a row's RMS over D, one element at D =
+    1), while from D = 8 it stays under half of it, as at the rule
+    shapes."""
+    shares = {}
+    for d in (1, 2, 8):
+        got, want = _rule_case((2, 3, 129, d), None)
+        shares[d] = max(_row_share(g, w) for g, w in zip(got, want))
+    assert shares[1] > 1.0 and shares[2] > 1.0 and shares[8] < 0.5, shares
 
 
 @pytest.mark.parametrize("fault", ["late_half_5pct", "last_tile_zeroed"])

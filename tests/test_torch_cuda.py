@@ -16,7 +16,11 @@ query for O and dQ, a key for dK and dV): the RMS of that row of want,
 floored at 0.05 x want's RMS and at 1e-3. The bf16 kernels feed the
 tensor cores P and dS rounded to bf16; where a row's few large terms
 cancel, that moves it by more than 2e-2 of its own small values. Both
-backwards form rowsum(dO O) from the forward kernel's output. The SSD
+backwards form rowsum(dO O) from the forward kernel's output. K3 is held
+so at head dims from 1 to 256 (``WIDE_CASES``: ragged, windowed, and a B x
+H past grid y's 65,535), each by the route its wrapper picks; the dense
+model at head dims 96 and 256 (``head_dim_model``) serves and trains as
+on the CPU, and 257 is refused with no launch. The SSD
 chunk meets its plain version within rtol 2e-4, atol 1e-4
 (``tests/test_kernels.py``'s tolerance), its backward element by element
 within 2e-4 (|want| + max(RMS, 0.1)).
@@ -667,12 +671,20 @@ def _attn_close(got, want, dtype, what):
 D160_CASES = [(1, 2, 256, 160, None), (2, 3, 300, 160, None),
               (1, 2, 300, 160, 64), (1, 1, 1, 160, None),
               (1, 2, 65, 160, 1), (4, 32, 512, 160, None)]
+# every width from 1 to 256: the CUDA-core route below D = 8 in bf16, the
+# zero-padded copy (1, 100), the column halves at width 256 (200, 256),
+# ragged with a window and without; the reference's own test shape (D =
+# 32); a B x H past grid y's 65,535
+WIDE_DIMS = (1, 8, 32, 48, 80, 96, 100, 112, 192, 200, 256)
+WIDE_CASES = ([(1, 2, 300, d, 64) for d in WIDE_DIMS]
+              + [(2, 3, 129, d, None) for d in WIDE_DIMS]
+              + [(2, 1, 256, 32, None), (1, 65600, 64, 64, None)])
 
 
 @pytest.mark.parametrize("B,H,S,D,window", [
     (1, 2, 256, 64, None), (2, 3, 300, 64, None), (1, 2, 300, 128, 50),
     (1, 1, 1, 64, None), (2, 2, 129, 128, None), (1, 4, 1000, 64, 512),
-    (1, 2, 65, 64, 1), (8, 32, 2048, 64, None)] + D160_CASES)
+    (1, 2, 65, 64, 1), (8, 32, 2048, 64, None)] + D160_CASES + WIDE_CASES)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_cuda_flash_attention_matches_plain(hopper, B, H, S, D, window, dtype):
     gen = torch.Generator(device=hopper).manual_seed(B * S + D)
@@ -734,9 +746,9 @@ def test_cuda_ssd_chunk_matches_plain(hopper, shape):
 
 
 def test_cuda_model_kernels_refuse_what_they_do_not_take(hopper):
-    q = torch.zeros((1, 1, 8, 32), device=hopper)
+    q = torch.zeros((1, 1, 8, 257), device=hopper)
     n0 = K3.flash_attention.launches
-    with pytest.raises(ValueError, match="head dims"):
+    with pytest.raises(ValueError, match="MAX_HEAD_DIM = 256"):
         K3.flash_attention(q, q, q)
     assert K3.flash_attention.launches == n0
     with pytest.raises(TypeError, match="float32 or bfloat16"):
@@ -973,13 +985,26 @@ def _narrow_stablelm(head_dim):
     return cfg
 
 
-def test_cuda_serves_head_dim_160_as_cpu(hopper):
-    """stablelm-12b's head dim through K3 on cuda: a narrow copy's
-    prefill launches K3 once a layer at D = 160, its logits within 1e-3 of
-    cpu's, 8 greedy tokens equal; one training step launches K3's backward
-    once a layer, the loss within 1e-4 and every gradient leaf within 1e-3
-    of its largest |g| of cpu's."""
-    cfg = _narrow_stablelm(160)
+def head_dim_model(M, name, **over):
+    """``chip_smoke.HEAD_DIM_MODELS[name]`` as a ``ModelConfig`` of ``M``
+    (the port's ``models.model`` or the reference's), narrowed to 2 layers
+    of 2 heads at its head dim: d_model 192 for phi3-mini-widths (head dim
+    d_model / heads = 96, as its own), 128 with ``head_dim`` 256 set for
+    gemma-7b-widths (as its own sets it, wider than d_model), d_ff 256, a
+    512-token vocabulary; ``over`` sets other fields."""
+    cfg = smoke()[0].head_dim_config(M, name)
+    narrow = dict(num_layers=2, n_heads=2, n_kv_heads=2, d_ff=256,
+                  vocab_size=512, vocab_pad_multiple=128,
+                  d_model=128 if cfg.head_dim else 2 * cfg.resolved_head_dim)
+    return dataclasses.replace(cfg, **{**narrow, **over})
+
+
+def _serves_as_cpu(dev, cfg):
+    """A float32 ``cfg`` through K3 on cuda: its prefill launches K3 once a
+    layer, its logits within 1e-3 of cpu's, 8 greedy tokens equal; one
+    training step launches K3's backward once a layer, the loss within
+    1e-4 and every gradient leaf within 1e-3 of its largest |g| of
+    cpu's."""
     gpu = GenerationServer(cfg, max_seq=80, bs=2, backend="cuda")
     cpu = GenerationServer(cfg, max_seq=80, bs=2, backend="cpu",
                            params=gpu.params)
@@ -995,34 +1020,55 @@ def test_cuda_serves_head_dim_160_as_cpu(hopper):
                                   cpu.generate(prompt, 8, 70))
     toks = np.random.default_rng(3).integers(0, cfg.vocab_size, (2, 101))
     out = {}
-    for dev in (hopper, torch.device("cpu")):
-        params = T.tree_map(lambda t: t.detach().float().to(dev).clone()
+    for d in (dev, torch.device("cpu")):
+        params = T.tree_map(lambda t: t.detach().float().to(d).clone()
                             .requires_grad_(), gpu.params)
-        batch = {"tokens": torch.from_numpy(toks[:, :-1]).int().to(dev),
-                 "labels": torch.from_numpy(toks[:, 1:]).int().to(dev)}
+        batch = {"tokens": torch.from_numpy(toks[:, :-1]).int().to(d),
+                 "labels": torch.from_numpy(toks[:, 1:]).int().to(d)}
         n0 = K3.flash_attention_bwd.launches
         metrics, grads = loss_and_grads(params, batch, cfg)
         torch.cuda.synchronize()
-        if dev.type == "cuda":
+        if d.type == "cuda":
             assert K3.flash_attention_bwd.launches == n0 + cfg.num_layers
-        out[dev.type] = (float(metrics["loss"]),
-                         [g.cpu() for g in T.leaves(grads)])
+        out[d.type] = (float(metrics["loss"]),
+                       [g.cpu() for g in T.leaves(grads)])
     (lg, gg), (lc, gc) = out["cuda"], out["cpu"]
     assert abs(lg - lc) <= 1e-4
     for a, b in zip(gg, gc):
         _near(a, b, 1e-3, "gradient")
 
 
-def test_cuda_refuses_head_dim_96_without_a_fallback(hopper):
-    """A head dim K3 does not take (96: not in ``HEAD_DIMS``) raises on
-    cuda, naming the ones it takes, and launches nothing."""
-    assert 96 not in K3.HEAD_DIMS
-    srv = GenerationServer(_narrow_stablelm(96), max_seq=40, bs=1,
+def test_cuda_serves_head_dim_160_as_cpu(hopper):
+    """stablelm-12b's head dim through K3 on cuda, as ``_serves_as_cpu``
+    holds it."""
+    _serves_as_cpu(hopper, _narrow_stablelm(160))
+
+
+@pytest.mark.parametrize("name", ["phi3-mini-widths", "gemma-7b-widths"])
+def test_cuda_serves_head_dims_96_and_256_as_cpu(hopper, name):
+    """The dense block at phi-3-mini's head dim 96 and gemma-7b's 256
+    (``head_dim_model``) through K3 on cuda, as ``_serves_as_cpu`` holds
+    it."""
+    cfg = head_dim_model(TM, name, compute_dtype=torch.float32)
+    assert cfg.resolved_head_dim == {"phi3-mini-widths": 96,
+                                     "gemma-7b-widths": 256}[name]
+    _serves_as_cpu(hopper, cfg)
+
+
+def test_cuda_refuses_head_dim_257_without_a_fallback(hopper):
+    """A head dim past ``MAX_HEAD_DIM`` raises on cuda, naming the limit,
+    and launches nothing: the wrapper at 257, and a server at 258 (RoPE
+    takes even head dims only, so the model's path meets K3 at 258)."""
+    assert K3.MAX_HEAD_DIM == 256
+    q = torch.zeros((1, 2, 64, 257), dtype=torch.bfloat16, device=hopper)
+    n0 = K3.flash_attention.launches
+    with pytest.raises(ValueError, match=r"MAX_HEAD_DIM = 256, got 257"):
+        K3.flash_attention(q, q, q)
+    srv = GenerationServer(_narrow_stablelm(258), max_seq=40, bs=1,
                            backend="cuda")
     prompt = TC.make_batch(srv.cfg, 32, 1, "prefill",
                            torch.Generator().manual_seed(3))
-    n0 = K3.flash_attention.launches
-    with pytest.raises(ValueError, match=r"head dims \(64, 128, 160\)"):
+    with pytest.raises(ValueError, match=r"MAX_HEAD_DIM = 256, got 258"):
         srv.prefill(prompt)
     assert K3.flash_attention.launches == n0
 
@@ -1073,7 +1119,7 @@ def _near(got, want, tol, what):
     (1, 2, 256, 64, None), (2, 3, 300, 64, None), (1, 2, 300, 128, 50),
     (1, 1, 1, 64, None), (2, 2, 129, 128, None), (1, 4, 1000, 64, 512),
     (1, 2, 65, 64, 1), (4, 32, 512, 64, None), (8, 32, 2048, 64, None)]
-    + D160_CASES)
+    + D160_CASES + WIDE_CASES)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_cuda_flash_attention_bwd_matches_plain(hopper, B, H, S, D, window,
                                                 dtype):

@@ -20,7 +20,11 @@ product, the port's kernel keeps them in float32); ``train_loss`` within
 (8 heads on 2 KV heads, D = 128, ``rope_theta`` 1e6, qkv bias) and
 ``stablelm-12b`` at its real head dim 160 (which the card's attention
 kernel refuses; the plain version on the CPU takes any D) meet the same
-limits. Rotary frequencies are bitwise the reference's.
+limits. Rotary frequencies are bitwise the reference's. So do the dense
+block at two head dims no registered configuration has, built in both
+packages from ``chip_smoke.HEAD_DIM_MODELS`` and narrowed by
+``test_torch_cuda.head_dim_model``: phi-3-mini's published widths (head
+dim 96) and gemma-7b's (head dim 256, set wider than d_model).
 """
 import dataclasses
 
@@ -41,12 +45,15 @@ from repro_torch.convert import model_params
 from repro_torch.launch import steps as TS
 from repro_torch.models import layers as TL
 from repro_torch.models import model as TM
+from test_torch_cuda import head_dim_model, smoke
 
 FAMILIES = ["stablelm-1.6b", "minitron-4b", "qwen2.5-14b", "stablelm-12b",
             "mamba2-780m", "internvl2-1b", "musicgen-medium"]
 F32_TOL, BF16_TOL = 1e-4, 2e-2
 LOSS_TOL, GRAD_TOL = 1e-5, 1e-4
 B, S = 2, 45          # S = 45: the SSD scan pads to 64 (two chunks of 32)
+# chip_smoke.py's HEAD_DIM_MODELS and their head dims
+HEAD_DIM_NAMES = {"phi3-mini-widths": 96, "gemma-7b-widths": 256}
 
 
 def cfgs(arch: str, f32: bool = True, **over):
@@ -57,6 +64,15 @@ def cfgs(arch: str, f32: bool = True, **over):
         tcfg = dataclasses.replace(tcfg, compute_dtype=torch.float32)
     return (dataclasses.replace(jcfg, **over),
             dataclasses.replace(tcfg, **over))
+
+
+def head_dim_cfgs(name: str, f32: bool = True):
+    """The reference's and the port's ``head_dim_model`` copies of
+    ``name``, in float32 compute unless ``f32`` is False."""
+    if not f32:
+        return head_dim_model(JM, name), head_dim_model(TM, name)
+    return (head_dim_model(JM, name, compute_dtype=jnp.float32),
+            head_dim_model(TM, name, compute_dtype=torch.float32))
 
 
 def numpy_params(jcfg, seed: int) -> dict:
@@ -310,3 +326,63 @@ def test_narrow_attention_cases_match_the_reference(case):
     want = model_params(jax.tree.map(np.asarray, jgrads), tcfg)
     for g, w in zip(T.leaves(grads), T.leaves(want)):
         within(g.numpy(), w.numpy(), GRAD_TOL, case)
+
+
+# ---------------------------------------------------------------------------
+# head dims no registered configuration has: 96 and 256
+# ---------------------------------------------------------------------------
+
+def test_head_dim_models_have_the_published_widths():
+    """Both packages build ``HEAD_DIM_MODELS`` alike at full size: every
+    field, the head dim, the parameter count and the
+    padded vocabulary (``param_count``: 3.72 B and 8.54 B)."""
+    mod = smoke()[0]
+    for name, hd in HEAD_DIM_NAMES.items():
+        jcfg, tcfg = (mod.head_dim_config(JM, name),
+                      mod.head_dim_config(TM, name))
+        for f in dataclasses.fields(jcfg):
+            if f.name not in ("param_dtype", "compute_dtype"):
+                assert getattr(tcfg, f.name) == getattr(jcfg, f.name), \
+                    (name, f.name)
+        assert tcfg.resolved_head_dim == jcfg.resolved_head_dim == hd
+        assert tcfg.arch_type == "dense" and tcfg.norm == "rmsnorm" \
+            and tcfg.activation == "swiglu"
+        assert tcfg.param_count() == jcfg.param_count()
+        assert tcfg.padded_vocab == jcfg.padded_vocab
+    assert round(mod.head_dim_config(TM, "phi3-mini-widths").param_count()
+                 / 1e9, 2) == 3.72
+    assert round(mod.head_dim_config(TM, "gemma-7b-widths").param_count()
+                 / 1e9, 2) == 8.54
+
+
+@pytest.mark.parametrize("name", list(HEAD_DIM_NAMES))
+def test_head_dim_models_match_the_reference(name):
+    """The narrowed copies (2 layers): forward logits within 1e-4 in
+    float32 and 2e-2 in bf16 of the largest |logit|, loss within 1e-5 and
+    every gradient leaf within 1e-4 of its largest |g|."""
+    jcfg, tcfg = head_dim_cfgs(name)
+    assert tcfg.resolved_head_dim == jcfg.resolved_head_dim \
+        == HEAD_DIM_NAMES[name]
+    ptree = numpy_params(jcfg, 40 + HEAD_DIM_NAMES[name])
+    jp, tp = jax.tree.map(jnp.asarray, ptree), model_params(ptree, tcfg)
+    batch = numpy_batch(tcfg, 8)
+    jl, _ = jax.jit(JM.forward, static_argnums=2)(jp, to_jax(batch), jcfg)
+    tl, _ = TM.forward(tp, to_torch(batch), tcfg)
+    within(tl.numpy(), jl, F32_TOL, name)
+    jb, tb = head_dim_cfgs(name, f32=False)
+    tl16 = TM.forward(TM.cast_params(model_params(ptree, tb),
+                                     tb.compute_dtype), to_torch(batch), tb)[0]
+    jl16 = jax.jit(JM.forward, static_argnums=2)(jp, to_jax(batch), jb)[0]
+    within(tl16.float().numpy(), np.asarray(jl16, np.float32), BF16_TOL,
+           f"{name} bf16")
+    (jloss, _), jgrads = jax.jit(
+        jax.value_and_grad(JM.train_loss, has_aux=True), static_argnums=2)(
+            jp, to_jax(batch), jcfg)
+    met, grads = TS.loss_and_grads(
+        T.tree_map(lambda p: p.clone().requires_grad_(), tp),
+        to_torch(batch), tcfg)
+    np.testing.assert_allclose(float(met["loss"]), float(jloss),
+                               rtol=LOSS_TOL, atol=LOSS_TOL)
+    want = model_params(jax.tree.map(np.asarray, jgrads), tcfg)
+    for g, w in zip(T.leaves(grads), T.leaves(want)):
+        within(g.numpy(), w.numpy(), GRAD_TOL, name)

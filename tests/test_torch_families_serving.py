@@ -41,7 +41,8 @@ from repro_torch.launch import train as ttrain
 from repro_torch.models import layers as TL
 from repro_torch.models import model as TM
 from repro_torch.runtime import serving as TSV
-from test_torch_families import (FAMILIES, cfgs, numpy_batch, numpy_params,
+from test_torch_families import (FAMILIES, HEAD_DIM_NAMES, cfgs,
+                                 head_dim_cfgs, numpy_batch, numpy_params,
                                  to_jax, to_torch, within)
 
 TOL = 1e-4
@@ -85,7 +86,12 @@ def test_prefill_and_decode_match_the_reference_in_f32(family):
     """A prompt of T_PROMPT positions into a cache for T_PROMPT +
     DECODE_STEPS, then DECODE_STEPS tokens; the ssm stack has no KV cache
     (``cache_len_for`` is 0)."""
-    arch, jcfg, tcfg, jp, tp, _ = family
+    _prefill_and_decode(*family[:5])
+
+
+def _prefill_and_decode(arch, jcfg, tcfg, jp, tp):
+    """Prefill and DECODE_STEPS decode steps of both packages from the same
+    parameters: logits and caches within TOL."""
     prompt = numpy_batch(tcfg, 3, s=T_PROMPT, kind="prefill")
     max_seq = T_PROMPT + DECODE_STEPS
     jlog, jc = jax.jit(JM.prefill, static_argnums=(2, 3, 4))(
@@ -388,7 +394,12 @@ def test_generate_gives_the_reference_tokens_in_f32(arch):
     prefill / decode loop; audio decodes codebook 0's argmax on every
     codebook) from the same parameters."""
     jcfg, tcfg = cfgs(arch)
-    ptree = numpy_params(jcfg, 50)
+    _generate_tokens(jcfg, tcfg, numpy_params(jcfg, 50))
+
+
+def _generate_tokens(jcfg, tcfg, ptree):
+    """Both packages' ``GenerationServer`` from the same parameters: equal
+    greedy tokens."""
     bs, plen, steps = 2, 24, 8
     jsrv = JSV.GenerationServer(jcfg, max_seq=plen + steps, bs=bs, seed=0)
     jsrv.params = jax.tree.map(jnp.asarray, ptree)
@@ -400,6 +411,18 @@ def test_generate_gives_the_reference_tokens_in_f32(arch):
     got = tsrv.generate(to_torch(prompt), steps, plen)
     assert got.shape == (bs, steps)
     np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("name", list(HEAD_DIM_NAMES))
+def test_head_dim_models_serve_as_the_reference(name):
+    """The dense block at head dims 96 and 256 (``head_dim_cfgs``):
+    prefill logits and caches, DECODE_STEPS decode steps within TOL, and
+    the greedy tokens of both packages' servers equal."""
+    jcfg, tcfg = head_dim_cfgs(name)
+    ptree = numpy_params(jcfg, 70 + HEAD_DIM_NAMES[name])
+    _prefill_and_decode(name, jcfg, tcfg, jax.tree.map(jnp.asarray, ptree),
+                        model_params(ptree, tcfg))
+    _generate_tokens(jcfg, tcfg, ptree)
 
 
 @pytest.mark.parametrize("arch", ["zamba2-1.2b", "musicgen-medium",
