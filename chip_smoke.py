@@ -193,7 +193,28 @@ each and stopping with a traceback at the first failure:
     (and zamba2's K4) launched on every rank twice per attention site
     (Mamba2 layer) a step and their backwards once. ``--phase pod_train``
     runs only the device and this phase.
-18. ``serve_interleaved``: ``ManagedInterleaveRuntime`` (no trainer) over
+18. ``dryrun``: ``launch.dryrun``'s measured pairs at full width from
+    seeded weights, one rank per visible card: each probe depth's sharded
+    step once under the collective counter and twice timed (the split by
+    ``split_rule``: train_4k in 32 microbatches of 8 x 4,096, or more where
+    a microbatch's logits pass DRYRUN_LOGITS_BYTES, prefill_32k in 32
+    slices of one row), each pair through ``run_pair``. On one card, on
+    the (1, 1) mesh: stablelm-1.6b at train_4k (64 microbatches of 4 x
+    4,096), qwen2.5-14b at long_500k and mamba2-780m at decode_32k (also
+    at its full 48 layers, beside the extrapolation): every pair ok, zero
+    collective bytes. On four cards (``--phase dryrun``) on the
+    production meshes: qwen2.5-14b
+    at the four shapes (long_500k also at full depth, its bytes equal to
+    the extrapolation kind by kind), zamba2-1.2b at train_4k, Mixtral at
+    decode_32k and stablelm-1.6b at decode_32k on (1, 1, 4); then the
+    counter's two risks on (1, 4): the collectives of a backward pass and
+    a redistribution inside ``local_map``. Per pair: the probes' step ms,
+    peak memory and collective bytes by kind, bytes a layer, the
+    extrapolated full-depth step and its model-FLOPs share of the cards'
+    bf16 peak, the knob adapter's predicted time and HBM; K3 and K4
+    launched as the steps expect on every rank. ``--phase dryrun`` runs
+    only the device and this phase.
+19. ``serve_interleaved``: ``ManagedInterleaveRuntime`` (no trainer) over
     ``BatchInferenceServer(zamba2-1.2b, seq_len 2048, bs 8)`` and a uniform
     trace at 80% of the measured minibatch rate for 5 s: p50 / p99 latency
     and the kernels' launches per minibatch; then one minibatch under
@@ -201,7 +222,7 @@ each and stopping with a traceback at the first failure:
     runtime's admission gate: the same server behind
     ``AdmissionPolicy("shed").gate`` on a uniform 5 s trace at 150% of the
     minibatch rate, which must shed exactly the engine mask's count.
-19. ``train``: ``Trainer`` on zamba2-1.2b at full width and depth (remat on,
+20. ``train``: ``Trainer`` on zamba2-1.2b at full width and depth (remat on,
     float32 params, bf16 compute, AdamW) for a few steps of bs 4 x 512
     tokens: ms per step, tokens/s, first and last loss (finite), peak
     memory and every kernel's launches per step (forward, remat's second
@@ -209,13 +230,13 @@ each and stopping with a traceback at the first failure:
     2-layer full-width float32 copy takes one step on ``"cuda"`` and on
     ``"cpu"`` from the same params and batch: losses within 1e-4, every
     gradient leaf within 1e-3 of its largest |g|.
-20. ``serve_train_interleaved``: the runtime with that ``Trainer`` (warm
+21. ``serve_train_interleaved``: the runtime with that ``Trainer`` (warm
     from the train phase) and the ``serve_interleaved`` server on a uniform
     5 s trace whose batch period is the minibatch time plus 2.5 training
     steps: trained minibatches (at least one), p50 / p99 latency with and
     without the trainer, and the largest overrun of a training step past
     its predicted end.
-21. ``tiled_matmul``: the ``kernels.ops.tiled_matmul`` entry point on the
+22. ``tiled_matmul``: the ``kernels.ops.tiled_matmul`` entry point on the
     serving minibatch's MLP up-projection, (16384, 2048) x (2048, 8192)
     bf16, against ``torch.matmul``.
 
@@ -568,6 +589,30 @@ POD_TRAIN_STEPS = 3
 POD_TRAIN_FULL_TOL = 1e-2
 POD_CKPT_LAYERS = 6
 POD_TRAIN_WALL_S = (420, 1500)          # one card, four cards
+# the dryrun phase: launch.dryrun's measured pairs, at full width, from
+# seeded weights, DRYRUN_REPS timed steps a depth after a warm-up step
+# counted by its collective counter, each pair through run_pair. One
+# card: DRYRUN_ONE_CARD's (arch, shape, multi_pod, full) on the (1, 1)
+# mesh: every pair ok, zero collective bytes. Four cards (--phase
+# dryrun): DRYRUN_PAIRS' on the production meshes:
+# every pair ok or skipped by the fit rule, collective bytes above zero,
+# the full-depth run's bytes equal to their extrapolation kind by kind;
+# then DRYRUN_CHECK's (arch, layers, batch, seq) train loss on (1, 4):
+# the counter sees its backward's collectives, and a redistribution
+# inside local_map
+DRYRUN_ONE_CARD = (("stablelm-1.6b", "train_4k", False, False),
+                   ("qwen2.5-14b", "long_500k", False, False),
+                   ("mamba2-780m", "decode_32k", False, True))
+DRYRUN_PAIRS = (("qwen2.5-14b", "train_4k", False, False),
+                ("qwen2.5-14b", "prefill_32k", False, False),
+                ("qwen2.5-14b", "decode_32k", False, False),
+                ("zamba2-1.2b", "train_4k", False, False),
+                ("mixtral-8x22b", "decode_32k", False, False),
+                ("stablelm-1.6b", "decode_32k", True, False),
+                ("qwen2.5-14b", "long_500k", False, True))
+DRYRUN_CHECK = ("qwen2.5-14b", 2, 4, 512)
+DRYRUN_REPS = 2
+DRYRUN_WALL_S = (420, 1500)             # one card, four cards
 # training: bs 4 x 512 tokens at full width; the cuda-vs-cpu step on a
 # 2-layer full-width copy; the interleaved trace's slack per batch
 TRAIN_BS, TRAIN_SEQ, TRAIN_STEPS = 4, 512, 3
@@ -4264,6 +4309,273 @@ def phase_pod_train(torch, rt, seed: int) -> dict:
     return out
 
 
+def dryrun_want(cfg, kind: str, model: int, split: dict, steps: int) -> dict:
+    """Each rank's launches in ``steps`` dry-run steps of ``kind`` at
+    ``cfg``'s depth on a model axis of ``model`` cards: a train step runs
+    ``pod_train_want``'s step once a microbatch, a prefill one forward a
+    slice (no remat), decode no kernel (its attention and SSM step are
+    plain ops on the cache)."""
+    zero = {k: 0 for k in TRAIN_KERNELS}
+    if kind == "decode":
+        return zero
+    n = split.get("microbatches", split.get("chunks", 1))
+    if kind == "train":
+        return pod_train_want(cfg, model, steps * n)
+    fwd = pod_train_want(dataclasses.replace(cfg, remat=False), model,
+                         steps * n)
+    return {**zero, "flash_attention": fwd["flash_attention"],
+            "ssd_chunk": fwd["ssd_chunk"]}
+
+
+def dryrun_pair_want(cfg, kind: str, model: int, rec: dict) -> dict:
+    """``dryrun_want`` summed over the depths ``rec`` ran (its probes and,
+    where it ran, the full depth), a warm-up step and DRYRUN_REPS each."""
+    depths = [int(d) for d in rec["probes"]]
+    if "skipped" not in rec["full"] and cfg.num_layers not in depths:
+        depths.append(cfg.num_layers)
+    total = {k: 0 for k in TRAIN_KERNELS}
+    for d in depths:
+        want = dryrun_want(dataclasses.replace(cfg, num_layers=d), kind,
+                           model, rec["split"], 1 + DRYRUN_REPS)
+        total = {k: total[k] + want[k] for k in total}
+    return total
+
+
+def dryrun_adapter(cfg, shape, devices: int, model: int,
+                   split: dict) -> dict:
+    """The knob adapter's predicted step time and HBM a card for the
+    pair's plan (chips ``devices``, tp the model axis, microbatches the
+    split's, capped at the space's MAX_ACC, the configuration's remat)."""
+    from repro_torch.core import gpu_adapter as GA
+    n = split.get("microbatches", 1)
+    mode = GA.GPUMode(tp=model, acc=max(1, GA.MAX_ACC // n),
+                      remat=0 if cfg.remat else 1)
+    t, hbm = GA.RooflineGPUModel(cfg, shape.seq_len, shape.global_batch,
+                                 shape.kind, chips=devices).time_power(mode)
+    return {"mode": str(mode), "predicted_ms": 1e3 * t,
+            "predicted_hbm_bytes": hbm}
+
+
+def dryrun_checks(torch, seed: int) -> dict:
+    """Two risks of the collective counter, on the (1, 4) mesh: that it
+    sees the collectives of a backward pass (autograd runs a CUDA backward
+    on its device threads: ``off_thread``), counted in
+    DRYRUN_CHECK's train loss and its gradients apart; and that it sees a
+    redistribution inside ``sharding.local_map`` (an all-gather of the
+    local shard)."""
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor.experimental import implicit_replication
+    from repro_torch import tree as T
+    from repro_torch.configs import base as C
+    from repro_torch.launch import dryrun as DR
+    from repro_torch.launch import mesh as MS
+    from repro_torch.launch import steps as ST
+    from repro_torch.models import model as M
+    from repro_torch.models import sharding as SH
+    arch, layers, bs, seq = DRYRUN_CHECK
+    dev = torch.device("cuda", torch.cuda.current_device())
+    mesh = MS.make_production_mesh()
+    cfg = dataclasses.replace(C.get_config(arch), num_layers=layers)
+    params = SH.init_sharded_params(
+        cfg, mesh, torch.Generator(device=dev).manual_seed(seed))
+    leaves = T.leaves(params)
+    for p in leaves:
+        p.requires_grad_(True)
+    shape = C.InputShape("train", seq, bs, "train")
+    _, sh = ST.sharded_step(cfg, shape, mesh)
+    batch = {k: SH.distribute(v, mesh, sh["batch"][k]) for k, v in
+             C.make_batch(cfg, seq, bs, "train", torch.Generator(
+                 device=dev).manual_seed(seed + 1)).items()}
+    fwd, bwd = DR.CollectiveCounter(), DR.CollectiveCounter()
+    with implicit_replication(), M.activation_sharding(
+            ST._act_constraint(mesh, bs)):
+        with fwd:
+            loss, _ = M.train_loss(params, batch, cfg)
+        with bwd:
+            grads = torch.autograd.grad(loss, leaves)
+    torch.cuda.synchronize()
+    del grads, loss, params, leaves
+    x = SH.distribute(torch.randn(64, 1024, device=dev), mesh,
+                      (Replicate(), Shard(0)))
+    inside = DR.CollectiveCounter()
+    with inside:
+        SH.local_map(lambda t: t * 2, mesh, ((Replicate(), Replicate()),),
+                     (Replicate(), Replicate()))(x)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return {"forward": fwd.record(), "backward": bwd.record(),
+            "local_map": inside.record(),
+            "local_map_want": x.to_local().numel() * 4}
+
+
+def dryrun_rank(payload: dict) -> dict:
+    """One rank of the dryrun phase (``launch.ranks`` runs it):
+    ``run_pair`` for DRYRUN_ONE_CARD on one card, DRYRUN_PAIRS on four (a
+    pair that raises on every rank is recorded and the next one runs),
+    then on four ``dryrun_checks``. Each pair with the kernels' launches
+    in its run and the launches expected."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs import base as C
+    from repro_torch.launch import dryrun as DR
+    from repro_torch.launch import mesh as MS
+    world = dist.get_world_size()
+    model = 1 if world == 1 else MS.CARDS_PER_HOST
+    out = {"rank": dist.get_rank(), "world": world, "pairs": {}}
+    for arch, name, multi, full in (DRYRUN_ONE_CARD if world == 1
+                                    else DRYRUN_PAIRS):
+        key = f"{arch}|{name}|{'multi' if multi else 'single'}"
+        pod_train_counts()
+        t0 = time.perf_counter()
+        try:
+            rec = DR.run_pair(arch, name, multi, reps=DRYRUN_REPS, full=full)
+        except Exception:
+            import traceback
+            rec = {"arch": arch, "shape": name, "ok": False,
+                   "error": traceback.format_exc()[-2000:]}
+            torch.cuda.empty_cache()
+            out["pairs"][key] = rec
+            continue
+        rec["wall_s"] = time.perf_counter() - t0
+        rec["launches"] = pod_train_counts()
+        rec["launches_want"] = dryrun_pair_want(
+            C.get_config(arch), C.INPUT_SHAPES[name].kind, model, rec)
+        out["pairs"][key] = rec
+    if world > 1:
+        out["checks"] = dryrun_checks(torch, payload["seed"])
+    return out
+
+
+def dryrun_summary(C, rec: dict) -> dict:
+    """One pair's line: the probes' step ms and peak bytes, the
+    collective bytes a layer by kind, the extrapolated full-depth step
+    and its model-FLOPs share of the cards' bf16 peak, the knob adapter's
+    prediction, the full-depth run beside its extrapolation, or the fit
+    rule's skip."""
+    out = {k: rec.get(k) for k in ("arch", "shape", "mesh", "devices",
+                                   "ok", "split", "tokens", "model_flops",
+                                   "wall_s", "launches", "launches_want")}
+    if "error" in rec:
+        out["error"] = rec["error"]
+        return out
+    if "skipped" in rec:
+        out["skipped"] = rec["skipped"]
+        return out
+    cfg = C.get_config(rec["arch"])
+    (l1, p1), (l2, p2) = sorted((int(d), p) for d, p in
+                                rec["probes"].items())
+    out["probes"] = {d: {"step_ms": p["cost"]["step_ms_runs"],
+                         "warm_ms": [r["warm_ms"] for r in p["per_rank"]],
+                         "setup_s": max(r["setup_s"] for r in p["per_rank"]),
+                         "peak_bytes": p["memory"]["peak_bytes"],
+                         "state_bytes": p["state"]["total"],
+                         "collectives": {k: p["collectives"][k] for k in (
+                             "total", "counts", "off_thread",
+                             "equal_over_ranks")}}
+                     for d, p in ((l1, p1), (l2, p2))}
+    out["bytes_per_layer"] = {
+        k: (p2["collectives"][k] - p1["collectives"][k]) / (l2 - l1)
+        for k in ("all-gather", "all-reduce", "reduce-scatter", "all-to-all",
+                  "collective-permute")}
+    extr = rec["extrapolated"]
+    out["layers"] = cfg.num_layers
+    out["extrapolated"] = extr
+    out["model_flops_share"] = (
+        rec["model_flops"] / (extr["step_ms"] / 1e3 * rec["devices"]
+                              * OPS_PER_S["bfloat16"])
+        if extr["step_ms"] else None)
+    model = 4 if rec["devices"] == 4 else 1
+    out["adapter"] = dryrun_adapter(cfg, C.INPUT_SHAPES[rec["shape"]],
+                                    rec["devices"], model, rec["split"])
+    full = rec["full"]
+    if "skipped" in full:
+        out["full"] = full
+    else:
+        coll = full["collectives"]
+        out["full"] = {
+            "step_ms": full["cost"]["step_ms_runs"],
+            "median_ms": full["cost"]["step_ms"],
+            "peak_bytes": full["memory"]["peak_bytes"],
+            "time_share_of_extrapolation": (
+                full["cost"]["step_ms"] / extr["step_ms"]),
+            "peak_share_of_extrapolation": (
+                full["memory"]["peak_bytes"] / extr["peak_bytes"]
+                if extr["peak_bytes"] else None),
+            "bytes": {k: coll[k] for k in extr["collectives_by_kind"]},
+            "bytes_equal_extrapolation": all(
+                coll[k] == v for k, v in extr["collectives_by_kind"].items())}
+    return out
+
+
+def phase_dryrun(torch, rt, seed: int) -> dict:
+    """The dry run on one rank per visible card
+    (``dryrun_rank``): one line per pair (``dryrun_summary``), the whole
+    records written to build/dryrun_smoke.json. Fails unless every pair is
+    ok (on four cards: or skipped by the fit rule) and every rank
+    launched the kernels its steps expect; on one card unless every
+    collective count is zero; on four unless some bytes were counted, the
+    full-depth bytes equal their extrapolation kind by kind, and the
+    counter saw the backward's collectives and the one inside
+    ``local_map``."""
+    RK, C = rt["RK"], rt["C"]
+    torch.cuda.empty_cache()
+    world = torch.cuda.device_count()
+    t0 = time.perf_counter()
+    try:
+        ranks = RK.run(f"{ROOT / 'chip_smoke.py'}:dryrun_rank",
+                       {"seed": seed}, world, device="cuda",
+                       wall_s=DRYRUN_WALL_S[world == 4])
+    except RK.RankError as e:
+        fail(f"dryrun: {e}")
+    out_path = ROOT / "build" / "dryrun_smoke.json"
+    out_path.write_text(json.dumps(ranks, indent=1))
+    total = {name: 0 for name in KERNEL_ROWS}
+    faults = []
+    for key, rec in ranks[0]["pairs"].items():
+        line = dryrun_summary(C, rec)
+        emit({"phase": "dryrun." + key, **line})
+        if "error" in rec or not (rec["ok"] or (
+                world == 4 and "skipped" in rec)):
+            faults.append(f"{key}: not ok ({rec.get('error', 'skipped')})")
+            continue
+        for r in ranks:
+            got = r["pairs"][key]
+            total = {k: v + got["launches"].get(k, 0)
+                     for k, v in total.items()}
+            if got["launches"] != got["launches_want"]:
+                faults.append(f"{key} rank {r['rank']}: launches "
+                              f"{got['launches']}, want "
+                              f"{got['launches_want']}")
+        if "skipped" in rec:
+            continue
+        counted = rec["extrapolated"]["collective_bytes"]
+        if world == 1 and (counted != 0 or any(
+                p["collectives"]["total"] for p in rec["probes"].values())):
+            faults.append(f"{key}: {counted} collective bytes at world 1")
+        if world == 4 and not counted > 0:
+            faults.append(f"{key}: no collective bytes counted")
+        if "skipped" not in rec["full"] and world == 4 and not \
+                line["full"]["bytes_equal_extrapolation"]:
+            faults.append(f"{key}: full-depth bytes {line['full']['bytes']}"
+                          f" against {rec['extrapolated']}")
+    if world == 4:
+        checks = ranks[0]["checks"]
+        emit({"phase": "dryrun.checks", **checks})
+        if not checks["backward"]["total"] > 0:
+            faults.append(f"dryrun: no backward collective counted "
+                          f"({checks['backward']})")
+        if checks["local_map"]["all-gather"] != checks["local_map_want"]:
+            faults.append(f"dryrun: local_map's all-gather "
+                          f"{checks['local_map']}")
+    out = {"phase": "dryrun", "world": world, "launches": total,
+           "pairs": len(ranks[0]["pairs"]),
+           "wall_s": time.perf_counter() - t0}
+    emit(out)
+    if faults:
+        fail("dryrun: " + "; ".join(faults))
+    return out
+
+
 def profile_device(torch, fn) -> dict:
     """One call of ``fn`` (a minibatch forward, a training step) under
     ``torch.profiler``, tracing the device only (host operators add events
@@ -4649,11 +4961,12 @@ def main() -> int:
     ap.add_argument("--seed", type=int, default=0,
                     help="seed of the kernel-phase inputs and the models' "
                          "random weights")
-    ap.add_argument("--phase", choices=("all", "pod_serve", "pod_train"),
+    ap.add_argument("--phase",
+                    choices=("all", "pod_serve", "pod_train", "dryrun"),
                     default="all",
-                    help="pod_serve, pod_train: only the device phase and "
-                         "that one (one rank per visible card; no kernel "
-                         "or ok line)")
+                    help="pod_serve, pod_train, dryrun: only the device "
+                         "phase and that one (one rank per visible card; "
+                         "no kernel or ok line)")
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -4714,6 +5027,9 @@ def main() -> int:
     if args.phase == "pod_train":
         phase_pod_train(torch, rt, args.seed)
         return 0
+    if args.phase == "dryrun":
+        phase_dryrun(torch, rt, args.seed)
+        return 0
     kern = phase_kernels(torch, np, rt, K1, K2, K3, K4, K5, args.seed)
     launches = Launches({"maxplus_scan": K1.maxplus_scan,
                          "lane_sort": K2.lane_sort,
@@ -4742,6 +5058,7 @@ def main() -> int:
     phase_pod_plan(rt, moe_runs)
     paths["pod_serve"] = phase_pod_serve(torch, rt, args.seed)
     paths["pod_train"] = phase_pod_train(torch, rt, args.seed)
+    paths["dryrun"] = phase_dryrun(torch, rt, args.seed)
     paths["serve_interleaved"] = phase_serve_interleaved(torch, np, rt,
                                                          launches, args.seed)
     paths["train"], trainer = phase_train(torch, np, rt, launches, args.seed)
