@@ -13,9 +13,13 @@ each and stopping with a traceback at the first failure:
     at the engine's full shapes — the max-plus scan at 8192 lanes x 8192
     events, the lane sort at 512 x 8192, at 1 x 32768 (its global-pass
     path) and at the sweeps' sort chunks, 577 x 7263 and 34663 x 121, and
-    the fused fleet window on the K = 512 fleet's second window and on a
-    shedding one — with times, the bytes-over-bandwidth bound and the
-    one-call library yardstick where PyTorch has one.
+    the fused fleet window on three windows captured from the card's fleet
+    (the K = 512 scaling row's second, the shed row's at K = 512 and the K
+    = 64 row's second), each with its route and its device time split by
+    part (``fused_split``) — with times, the bytes-over-bandwidth bound and
+    the one-call library yardstick where PyTorch has one. ``--phase
+    fleet`` runs only the device phase, the fused window's part of this
+    one and the fleet phase (9).
  3. ``execute``: the README quickstart (GMD concurrent plan for mobilenet,
     executed over a 120 s Poisson trace) on ``backend="cuda"`` and again on
     ``"cpu"``, compared to the engine tolerance.
@@ -279,6 +283,7 @@ before printing any result.
 from __future__ import annotations
 
 import argparse
+import ctypes
 import dataclasses
 import functools
 import json
@@ -425,7 +430,7 @@ FLEET_ADM_MODES = {"shed": {}, "defer": dict(defer_cap=2000),
 # matrix's shed row run at K = 512
 FLEET_FUSED_KS = (64, 512)
 FLEET_FUSED_ADM = ("shed", "defer")
-FUSED_K = 512
+FUSED_K, FUSED_K_SMALL = 512, 64
 # the runtime's admission gate: a uniform trace at this multiple of the
 # server's minibatch rate, for this long, against a budget of 2 minibatches
 GATE_LOAD, GATE_DURATION = 1.5, 5.0
@@ -672,8 +677,14 @@ K4_BWD_FUNCTIONS = ("query_pass", "state_pass", "key_pass",
 K1_FUNCTIONS = ("maxplus_scan_kernel",)
 K2_FUNCTIONS = ("sort_rows_warp", "sort_rows_block", "sort_pieces",
                 "merge_pieces", "merge_global", "count_over")
-# and of the fused fleet window (csrc/fused_window.cu)
+# and of the fused fleet window (csrc/fused_window.cu: one template, its
+# staged and global routes' instantiations)
 KF_FUNCTIONS = ("fused_window_kernel",)
+# what the fused window's diagnostic build (build.VARIANTS'
+# fused_window_stamps) exports beside fused_window_launch
+KF_STAMP_SIGNATURES = {
+    "fused_window_stamps": ([ctypes.c_void_p, ctypes.c_int64], ctypes.c_int),
+    "fused_window_stamp_labels": ([], ctypes.c_char_p)}
 MODEL_KERNELS = ("flash_attention", "ssd_chunk")
 # library matmul kernels by name (cuBLAS / cuBLASLt on sm_90), lower case
 MATMUL_KERNELS = ("gemm", "gemv", "nvjet", "xmma", "cutlass", "splitk")
@@ -703,6 +714,28 @@ def cuda_ms(torch, fn, reps: int) -> float:
     start.record()
     for _ in range(reps):
         fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def graph_ms(torch, fn, reps: int) -> float:
+    """Mean device milliseconds of ``fn`` over ``reps`` calls captured in
+    one CUDA graph and replayed between CUDA events, after a warm-up call
+    and a warm-up replay: the kernels back to back, without the host time
+    of the calls between them."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
@@ -861,15 +894,37 @@ def fused_inputs(rt, K: int, rates, spec_kw: dict, cfg_kw: dict) -> tuple:
     return seen[-1]
 
 
-def check_fused(torch, np, rt, args, what: str) -> tuple:
-    """The fused kernel against its plain version on the same card inputs:
-    every field bitwise but the fold's (latencies, the last completion),
-    which meet ENG_TOL. Returns (max |Δ| of the fold, the kernel's
-    unpacked result)."""
+def fused_shapes(rt) -> dict:
+    """The fused window's wrapper arguments at its three measured windows,
+    captured from ``serve_fleet(fused=True)`` on the card: the K = 512
+    scaling row's second window (a carried backlog, previous modes, no
+    admission), the admission matrix's shed row run at K = 512 (its second
+    window) and the K = 64 scaling row's second window (the fleet phase's
+    size)."""
+    scaling = (dict(seed=3, dispatch="least-backlog"),
+               dict(FLEET_CL, mode_switch_s=0.25))
+    return {"k512": fused_inputs(
+                rt, FUSED_K, [30.0 * m * FUSED_K for m in FLEET_RATES[:2]],
+                *scaling),
+            "shed_row": fused_inputs(
+                rt, FUSED_K,
+                [30.0 * m * FUSED_K for m in FLEET_ADM_RATES[:2]],
+                dict(seed=3, dispatch="least-backlog", migrate_backlog=True,
+                     fleet_power_budget=27.0 * FUSED_K),
+                dict(FLEET_CL, mode_switch_s=0.25, burst_quantile=0.95,
+                     admission="shed")),
+            "k64": fused_inputs(
+                rt, FUSED_K_SMALL,
+                [30.0 * m * FUSED_K_SMALL for m in FLEET_RATES[:2]],
+                *scaling)}
+
+
+def compare_fused(np, rt, got, want, what: str) -> tuple:
+    """A fused window's result against the plain version's on the same
+    inputs: every field bitwise but the fold's (latencies, the last
+    completion), which meet ENG_TOL. Returns (max |Δ| of the fold, the
+    result unpacked)."""
     KF, FW = rt["KF"], rt["FW"]
-    got = KF.fused_window(*args)
-    torch.cuda.synchronize()
-    want = KF.fused_window_plain(*args)
     g, w = (FW.unpack_window(x.cpu().numpy()) for x in (got, want))
     for f in KF.OUT_FIELDS:
         if f != "clock_out" and g[f].tobytes() != w[f].tobytes():
@@ -888,49 +943,129 @@ def check_fused(torch, np, rt, args, what: str) -> tuple:
     return err, g
 
 
-def time_fused(torch, np, rt, args, shed_args, reps: int) -> dict:
-    """The fused kernel on the K = 512 scaling row's window: checked, timed
-    beside its plain version, with its device time under the profiler;
-    also checked and timed on the K = 512 shed row's window (admission
-    on)."""
+def check_fused(torch, np, rt, args, what: str) -> tuple:
+    """The fused kernel against its plain version on the same card inputs
+    (``compare_fused``)."""
     KF = rt["KF"]
-    t, p, bsf, ids, rows = args[:5]
-    K, T = rows.shape[0], rows.shape[1] - KF.N_IN
-    err, g = check_fused(torch, np, rt, args, f"fused_window {K}x{T}")
-    shed_err, sg = check_fused(torch, np, rt, shed_args,
-                               "fused_window, shed row")
-    if not sg["n_rej"].any():
-        fail("fused_window: the shed row's window rejected nothing")
-    ms = cuda_ms(torch, lambda: KF.fused_window(*args), reps)
-    plain_ms = cuda_ms(torch, lambda: KF.fused_window_plain(*args), 2)
-    prof = profile_device(torch, lambda: [KF.fused_window(*args)
-                                          for _ in range(reps)])
+    got = KF.fused_window(*args)
+    torch.cuda.synchronize()
+    return compare_fused(np, rt, got, KF.fused_window_plain(*args), what)
+
+
+def launch_fused(torch, KF, lib, args, out) -> None:
+    """One launch of a fused-window library's ``fused_window_launch`` (this
+    tree's or another build of the source) on the wrapper's arguments,
+    into ``out``."""
+    t, p, bsf, ids, rows, sc, ab, trims, mb = args
+    err = lib.fused_window_launch(
+        t.data_ptr(), p.data_ptr(), bsf.data_ptr(), ids.data_ptr(),
+        t.shape[0], rows.data_ptr(), out.data_ptr(), rows.shape[0],
+        rows.shape[1] - KF.N_IN, float(sc), float(ab), int(bool(trims)),
+        int(mb), torch.cuda.current_stream().cuda_stream)
+    if err:
+        fail(f"fused_window_launch returned CUDA error {err}")
+
+
+def fused_split(torch, np, KF, lib, args) -> dict:
+    """Where a fused window's device time goes, from a diagnostic build
+    (``-DKF_STAMPS``): thread 0 of each block stamps the SM clock at the
+    end of each part of the design and the global timer at its start and
+    end. Two launches on ``args``, the second read: per part its mean and
+    largest microseconds over the blocks and those of the block that took
+    longest; the clock's ns a cycle from the global timer; the span from
+    the first block's start to the last one's end."""
+    K, T = args[4].shape[0], args[4].shape[1] - KF.N_IN
+    out = torch.empty((K, KF.N_OUT + 2 * T), dtype=torch.float64,
+                      device=args[4].device)
+    for _ in range(2):
+        launch_fused(torch, KF, lib, args, out)
+    torch.cuda.synchronize()
+    labels = lib.fused_window_stamp_labels().decode().split(",")
+    blocks = min(K, 4096)
+    stamps = np.zeros((blocks, 8), np.int64)
+    err = lib.fused_window_stamps(stamps.ctypes.data, blocks)
+    if err:
+        fail(f"fused_window_stamps returned CUDA error {err}")
+    clock = stamps[:, :len(labels) + 1]
+    parts = np.diff(clock, axis=1).astype(np.float64)
+    total = (clock[:, -1] - clock[:, 0]).astype(np.float64)
+    ns_per_cycle = float((stamps[:, 7] - stamps[:, 6]).sum() / total.sum())
+    us = parts * ns_per_cycle / 1e3
+    worst = int(np.argmax(total))
+    return {"labels": labels, "blocks": blocks,
+            "ns_per_cycle": ns_per_cycle,
+            "mean_us": dict(zip(labels, us.mean(axis=0).tolist())),
+            "max_us": dict(zip(labels, us.max(axis=0).tolist())),
+            "slowest_block": {"block": worst,
+                              "us": dict(zip(labels, us[worst].tolist())),
+                              "total_us": float(total[worst])
+                              * ns_per_cycle / 1e3},
+            "span_us": float(stamps[:, 7].max() - stamps[:, 6].min()) / 1e3}
+
+
+def fused_bound(np, KF, args, g) -> tuple:
+    """The fused window's least time on its inputs (ms, what bounds it,
+    bytes, operations): each input read once and each output written once
+    (the grid's three float64 columns and int32 mode ids, the rows, the
+    result); about 9 float64 operations per grid entry per rung a device
+    runs (two products, a difference, two quotients, a sum, three
+    comparisons), 4 per arrival an admitting device judges, 2 per batch
+    folded and 1 per latency."""
+    t, bsf, rows = args[0], args[2], args[4]
     N = t.shape[0]
-    # each input read once, each output written once: the grid's three
-    # float64 columns and int32 mode ids, the rows, the result; about 9
-    # float64 operations per grid entry per rung a device runs (two
-    # products, a difference, two quotients, a sum, three comparisons), 4
-    # per arrival an admitting device judges, 2 per batch folded and 1 per
-    # latency
+    K, T = rows.shape[0], rows.shape[1] - KF.N_IN
     nbytes = 28.0 * N + 8.0 * rows.numel() + 8.0 * K * (KF.N_OUT + 2 * T)
     adm = int(g["n_adm"].sum() + g["n_rej"].sum()) if args[7] else 0
     served = int((g["n_batches"] * np.where(
         g["solved"], bsf.cpu().numpy()[g["sel"]], 0)).sum())
     ops = (9.0 * N * int(g["rungs"].sum()) + 4.0 * adm
            + 2.0 * int(g["n_batches"].sum()) + served)
-    b_ms, by = bound(nbytes, ops)
-    shed_ms = cuda_ms(torch, lambda: KF.fused_window(*shed_args), reps)
-    return {"shape": [K, T], "grid_entries": N, "trims": bool(args[7]),
-            "kernel_ms": ms,
-            "kernel_device_ms": prof["kf_device_ms"] / max(1, reps),
+    return (*bound(nbytes, ops), nbytes, ops)
+
+
+def time_fused(torch, np, rt, shapes: dict, reps: int) -> dict:
+    """The fused kernel at each of ``fused_shapes``' windows: checked
+    against its plain version; timed over ``reps`` wrapper calls replayed
+    from a CUDA graph (``kernel_ms``: the kernel back to back), between
+    CUDA events around the calls themselves (``wrapper_ms``: paced by the
+    wrapper's host time where the kernel is shorter) and under the
+    profiler (device time a launch); beside the plain version and the
+    bound, with its route and ``fused_split``'s split of the diagnostic
+    build. The K = 512 scaling row's window is the record's own; the
+    others sit under their names."""
+    KF = rt["KF"]
+    stamps = rt["BUILD"].load("fused_window_stamps", dict(
+        KF_STAMP_SIGNATURES,
+        fused_window_launch=KF._SIGNATURES["fused_window_launch"]))
+    recs = {}
+    for name, args in shapes.items():
+        t, rows = args[0], args[4]
+        K, T = rows.shape[0], rows.shape[1] - KF.N_IN
+        err, g = check_fused(torch, np, rt, args,
+                             f"fused_window {name} {K}x{T}")
+        if name == "shed_row" and not g["n_rej"].any():
+            fail("fused_window: the shed row's window rejected nothing")
+        ms = graph_ms(torch, lambda: KF.fused_window(*args), reps)
+        wrapper_ms = cuda_ms(torch, lambda: KF.fused_window(*args), reps)
+        prof = profile_device(torch, lambda: [KF.fused_window(*args)
+                                              for _ in range(reps)])
+        plain_ms = cuda_ms(torch, lambda: KF.fused_window_plain(*args), 2)
+        b_ms, by, nbytes, ops = fused_bound(np, KF, args, g)
+        recs[name] = {
+            "shape": [K, T], "route": KF.route(K, T, t.shape[0], args[8]),
+            "grid_entries": t.shape[0], "trims": bool(args[7]),
+            "kernel_ms": ms, "wrapper_ms": wrapper_ms,
+            "kernel_device_ms": prof["kf_device_ms"]
+            / max(1, prof["kf_kernels"]),
             "plain_ms": plain_ms, "library_ms": None, "bound_ms": b_ms,
             "bound_by": by, "bound_bytes": nbytes, "bound_ops": ops,
             "rungs_run": int(g["rungs"].sum()),
-            "solved": int(g["solved"].sum()), "max_abs_err": err,
-            "shed_row": {"shape": [shed_args[4].shape[0],
-                                   shed_args[4].shape[1] - KF.N_IN],
-                         "rejected": int(sg["n_rej"].sum()),
-                         "kernel_ms": shed_ms, "max_abs_err": shed_err}}
+            "solved": int(g["solved"].sum()),
+            "rejected": int(g["n_rej"].sum()),
+            "batches": int(g["n_batches"].sum()), "max_abs_err": err,
+            "split": fused_split(torch, np, KF, stamps, args)}
+    main = recs.pop("k512")
+    return {**main, **recs}
 
 
 def attention_pairs(S: int, window) -> int:
@@ -1457,9 +1592,9 @@ def phase_device(torch, build) -> dict:
         timeout=60, check=True).stdout.strip().splitlines()[0]
     print(smi, flush=True)
     t0 = time.perf_counter()
-    nvcc_s = build.build_all()
+    nvcc_s = build.build_all(build.SOURCES + tuple(build.VARIANTS))
     build_s = time.perf_counter() - t0
-    ptxas = [ln.strip() for name in build.SOURCES
+    ptxas = [ln.strip() for name in build.SOURCES + tuple(build.VARIANTS)
              for ln in (build.build_log(name) or "").splitlines()
              if "registers" in ln or "spill" in ln or "Compiling" in ln]
     out = {"phase": "device", "nvidia_smi": smi,
@@ -1523,17 +1658,7 @@ def phase_kernels(torch, np, rt, K1, K2, K3, K4, K5, seed: int) -> dict:
                                           else (3, 1)), window=window)
               for name, (shape, window)
               in moe_attention_shapes(rt["C"]).items()}
-    kf = time_fused(torch, np, rt, fused_inputs(
-        rt, FUSED_K, [30.0 * m * FUSED_K for m in FLEET_RATES[:2]],
-        dict(seed=3, dispatch="least-backlog"),
-        dict(FLEET_CL, mode_switch_s=0.25)),
-        fused_inputs(rt, FUSED_K,
-                     [30.0 * m * FUSED_K for m in FLEET_ADM_RATES[:2]],
-                     dict(seed=3, dispatch="least-backlog",
-                          migrate_backlog=True,
-                          fleet_power_budget=27.0 * FUSED_K),
-                     dict(FLEET_CL, mode_switch_s=0.25, burst_quantile=0.95,
-                          admission="shed")), reps=20)
+    kf = time_fused(torch, np, rt, fused_shapes(rt), reps=20)
     out = {"phase": "kernels", "maxplus_scan": k1, **k2,
            "maxplus_scan_library": "no single PyTorch call computes the "
                                    "max-plus recurrence with fills",
@@ -2538,10 +2663,13 @@ def phase_fleet(torch, np, rt, launches: Launches) -> dict:
         window, no K1), against the row's unfused cuda run and against the
         fused window on cpu."""
         nonlocal total
+        kf_routes = dict(rt["KF"].fused_window.routes)
         launches.reset()
         got, wall = fleet_run(rt, F.serve_fleet, K, rates, spec_kw, cfg_kw,
                               "cuda", seed, fused=True)
         counts = launches.read(f"fleet/fused_{what}", FUSED_KERNELS)
+        kf_routes = {r: n - kf_routes[r]
+                     for r, n in rt["KF"].fused_window.routes.items()}
         want = {"fused_window": len(got), "maxplus_scan": 0,
                 "lane_sort": sorts(got)}
         for k, n in want.items():
@@ -2563,6 +2691,7 @@ def phase_fleet(torch, np, rt, launches: Launches) -> dict:
                    unfused_configs_per_s=K * len(got) / unf_wall,
                    speedup_over_unfused=unf_wall / wall,
                    cpu_backend_wall_s=cpu_wall, launches=counts,
+                   fused_window_routes=kf_routes,
                    launches_per_window={k: n / len(got)
                                         for k, n in counts.items() if n},
                    max_abs_latency_err_vs_unfused_s=err,
@@ -4962,11 +5091,14 @@ def main() -> int:
                     help="seed of the kernel-phase inputs and the models' "
                          "random weights")
     ap.add_argument("--phase",
-                    choices=("all", "pod_serve", "pod_train", "dryrun"),
+                    choices=("all", "pod_serve", "pod_train", "dryrun",
+                             "fleet"),
                     default="all",
                     help="pod_serve, pod_train, dryrun: only the device "
                          "phase and that one (one rank per visible card; "
-                         "no kernel or ok line)")
+                         "no kernel or ok line); fleet: the device phase, "
+                         "the fused window's kernel records and the fleet "
+                         "phase")
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -5016,7 +5148,7 @@ def main() -> int:
               PowerModeSpace=PowerModeSpace, TRAIN=TRAIN_WORKLOADS,
               INFER=INFER_WORKLOADS, C=C, SV=SV, IR=IR, TL=TL, A=A, ST=ST,
               T=T, M=M, L=L, D=D, OPS=OPS, CC=CC, B=B, F=F, Oracle=Oracle,
-              KF=KF, FW=FW, NN=NN, GA=GA, RK=RK,
+              KF=KF, FW=FW, NN=NN, GA=GA, RK=RK, BUILD=build,
               QuadrantRanges=QuadrantRanges,
               strategy_profilers=strategy_profilers)
 
@@ -5030,7 +5162,6 @@ def main() -> int:
     if args.phase == "dryrun":
         phase_dryrun(torch, rt, args.seed)
         return 0
-    kern = phase_kernels(torch, np, rt, K1, K2, K3, K4, K5, args.seed)
     launches = Launches({"maxplus_scan": K1.maxplus_scan,
                          "lane_sort": K2.lane_sort,
                          "flash_attention": K3.flash_attention,
@@ -5039,6 +5170,12 @@ def main() -> int:
                          "ssd_chunk_bwd": K4.ssd_chunk_bwd,
                          "tiled_matmul": K5.tiled_matmul,
                          "fused_window": KF.fused_window})
+    if args.phase == "fleet":
+        emit({"phase": "kernels_fused_window",
+              **time_fused(torch, np, rt, fused_shapes(rt), reps=20)})
+        phase_fleet(torch, np, rt, launches)
+        return 0
+    kern = phase_kernels(torch, np, rt, K1, K2, K3, K4, K5, args.seed)
     paths = {"execute": phase_execute(torch, np, rt, launches),
              "serve_dynamic": phase_serve_dynamic(torch, np, rt, launches),
              "serve_closed_loop": phase_serve_closed_loop(torch, np, rt,

@@ -63,8 +63,9 @@ def device_mode_ids(grid: ObservationGrid, device: torch.device
 
 
 def _grid_max_bs(grid: ObservationGrid) -> int:
-    """The admission ring's size: the grid's largest batch size (a forming
-    batch never holds more members than its bs)."""
+    """The grid's largest batch size: the plain version's admission ring
+    (a forming batch never holds more members than its bs) and the
+    kernel's quotient tables (whole batch sizes up to it) are this long."""
     return int(grid.bs.max()) if grid.bs is not None and len(grid) else 1
 
 

@@ -36,6 +36,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 SOURCES = ("maxplus_scan", "lane_sort", "flash_attention",
            "flash_attention_bwd", "ssd_chunk", "ssd_chunk_bwd",
            "tiled_matmul", "fused_window")
+# diagnostic builds, never launched by a wrapper: library name -> (the
+# source it compiles, its extra nvcc flags)
+VARIANTS = {"fused_window_stamps": ("fused_window", ("-DKF_STAMPS",))}
 
 _LIBS: dict = {}
 _LOCK = threading.Lock()
@@ -49,9 +52,15 @@ def _nvcc() -> str:
     return nvcc
 
 
+def _recipe(name: str) -> tuple:
+    """The source a library compiles and its nvcc flags."""
+    src, extra = VARIANTS.get(name, (name, ()))
+    return CSRC / f"{src}.cu", NVCC_FLAGS + tuple(extra)
+
+
 def _source(name: str) -> bytes:
     """``csrc/<name>.cu`` and the ``csrc`` headers it includes by name."""
-    src = (CSRC / f"{name}.cu").read_bytes()
+    src = _recipe(name)[0].read_bytes()
     heads = re.findall(rb'^#include "([^"]+)"', src, flags=re.M)
     return src + b"".join((CSRC / h.decode()).read_bytes() for h in heads)
 
@@ -59,17 +68,17 @@ def _source(name: str) -> bytes:
 def library_path(name: str) -> Path:
     """Where the library of ``csrc/<name>.cu`` lives for the current source
     and headers."""
-    digest = hashlib.sha256(_source(name)
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    digest = hashlib.sha256(_source(name) + " ".join(
+        _recipe(name)[1]).encode()).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 
 def build_all(names: Sequence[str] = SOURCES) -> dict:
-    """Compile every listed source whose library is missing, one ``nvcc``
-    each, all started together. Returns ``{name: seconds}`` for the sources
-    it compiled (the ptxas report of each lands beside its library as
-    ``.log``); raises ``RuntimeError`` with the compiler's output on
-    failure."""
+    """Compile every listed source (or ``VARIANTS`` entry) whose library is
+    missing, one ``nvcc`` each, all started together. Returns ``{name:
+    seconds}`` for the sources it compiled (the ptxas report of each lands
+    beside its library as ``.log``); raises ``RuntimeError`` with the
+    compiler's output on failure."""
     todo = [n for n in names if not library_path(n).exists()]
     if not todo:
         return {}
@@ -79,8 +88,9 @@ def build_all(names: Sequence[str] = SOURCES) -> dict:
     for n in todo:
         out = library_path(n)
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        src, flags = _recipe(n)
         procs[n] = (subprocess.Popen(
-            [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{n}.cu")],
+            [nvcc, *flags, "-o", str(tmp), str(src)],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True),
             tmp, out, time.perf_counter())
     seconds, failed = {}, []
@@ -89,7 +99,7 @@ def build_all(names: Sequence[str] = SOURCES) -> dict:
         seconds[n] = time.perf_counter() - t0
         out.with_suffix(".log").write_text(log)
         if proc.returncode != 0:
-            failed.append(f"nvcc failed on {n}.cu:\n{log}")
+            failed.append(f"nvcc failed on {_recipe(n)[0].name}:\n{log}")
             tmp.unlink(missing_ok=True)
         else:
             os.replace(tmp, out)         # atomic: a reader never sees half

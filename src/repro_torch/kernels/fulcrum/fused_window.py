@@ -50,7 +50,13 @@ within ``atol=1e-8, rtol=1e-9``.
    positions with a bounded drop loop, compaction by a prefix count).
  * ``fused_window`` launches ``csrc/fused_window.cu`` (one block per
    device) for CUDA tensors, takes the plain version only for CPU
-   tensors, and counts launches in ``fused_window.launches``.
+   tensors, and counts launches in ``fused_window.launches`` and by route
+   in ``fused_window.routes``.
+ * ``route(K, T, N, max_bs)`` names the kernel's route before the launch:
+   ``"staged"`` for rows of up to ``STAGE_MAX_T`` arrivals (the times and
+   the walk's records in shared memory), ``"global"`` past it (the walk on
+   the global rows, its records in the output rows). The launcher's
+   ``fused_window_route`` applies the same rule.
 """
 from __future__ import annotations
 
@@ -68,14 +74,33 @@ OUT_FIELDS = ("solved", "sel", "lam", "power", "mode_id", "switch",
               "clock_out", "rung", "rungs")
 N_IN, N_OUT = len(IN_FIELDS), len(OUT_FIELDS)
 ADMIT_EPS = 1e-12             # controller._admit_mask's slack
-MAX_RING = 1024               # the largest batch size the kernel takes
+MAX_RING = 1024               # the largest max_bs the kernel takes
+STAGE_MAX_T = 12288           # the longest row staged in shared memory
+# the routes in the order of the launcher's codes (fused_window_route)
+ROUTES = ("staged", "global")
 
 _IN = {f: i for i, f in enumerate(IN_FIELDS)}
 _SIGNATURES = {"fused_window_launch": (
     [ctypes.c_void_p] * 4 + [ctypes.c_int64] + [ctypes.c_void_p] * 2
     + [ctypes.c_int64] * 2 + [ctypes.c_double] * 2 + [ctypes.c_int] * 2
     + [ctypes.c_void_p], ctypes.c_int),
-    "fused_window_stage_max_t": ([], ctypes.c_int64)}
+    "fused_window_stage_max_t": ([], ctypes.c_int64),
+    "fused_window_route": ([ctypes.c_int64] * 3 + [ctypes.c_int],
+                           ctypes.c_int)}
+
+
+def route(K: int, T: int, N: int, max_bs: int) -> str:
+    """The kernel route of a window of ``K`` devices with rows of ``T``
+    arrivals, on a grid of ``N`` entries, batches of up to ``max_bs``:
+    ``"staged"`` when ``T <= STAGE_MAX_T``, else ``"global"``; K, N and
+    max_bs do not move it. Raises ``ValueError`` on what the launcher
+    refuses. The launcher applies the same rule."""
+    if K < 0 or T < 0 or N < 1:
+        raise ValueError(f"route needs K >= 0, T >= 0 and N >= 1, got K={K}, "
+                         f"T={T}, N={N}")
+    if not 1 <= max_bs <= MAX_RING:
+        raise ValueError(f"max_bs must be in [1, {MAX_RING}], got {max_bs}")
+    return ROUTES[0] if T <= STAGE_MAX_T else ROUTES[1]
 
 
 def _rung(t, p, bsf, ts, ps, pb, ar, b_h, b_l):
@@ -244,8 +269,9 @@ def fused_window(t: torch.Tensor, p: torch.Tensor, bsf: torch.Tensor,
                  max_bs: int) -> torch.Tensor:
     """One fleet window, (K, N_OUT + 2 T) (see the module's layout).
 
-    CUDA tensors launch the hand-written kernel on the current stream (and
-    add one to ``fused_window.launches``); CPU tensors run the plain
+    CUDA tensors launch the hand-written kernel on the current stream by
+    ``route``'s route (and add one to ``fused_window.launches`` and to the
+    route's count in ``fused_window.routes``); CPU tensors run the plain
     version. Anything else raises."""
     build.refuse_dtensor("fused_window", t, p, bsf, mode_ids, rows)
     _check(t, p, bsf, mode_ids, rows, max_bs)
@@ -260,6 +286,7 @@ def fused_window(t: torch.Tensor, p: torch.Tensor, bsf: torch.Tensor,
                       device=rows.device)
     if K == 0:
         return out
+    way = route(K, T, t.shape[0], max_bs)
     lib = build.load("fused_window", _SIGNATURES)
     with torch.cuda.device(rows.device):
         err = lib.fused_window_launch(
@@ -269,7 +296,9 @@ def fused_window(t: torch.Tensor, p: torch.Tensor, bsf: torch.Tensor,
             int(max_bs), torch.cuda.current_stream().cuda_stream)
     build.check(lib, err, "fused_window")
     fused_window.launches += 1
+    fused_window.routes[way] += 1
     return out
 
 
 fused_window.launches = 0
+fused_window.routes = dict.fromkeys(ROUTES, 0)

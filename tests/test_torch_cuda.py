@@ -31,8 +31,13 @@ one tenant gives the pair path's bits. The batched grid solvers on the card
 return the CPU backend's solutions bitwise.
 The fused fleet window's kernel meets its plain version bitwise in every
 selection, count, clock before the fold and admitted time, latencies and
-the last completion within the engine tolerance, on the shared-memory and
-the global-memory route and on grids whose entries tie; ``serve_fleet(
+the last completion within the engine tolerance, on both of ``route``'s
+routes (rows up to ``STAGE_MAX_T`` arrivals staged in shared memory, longer
+ones on the global rows, at the limit and one past it), on grids whose
+entries tie, at bs = 1 and 64 alone, with batch sizes inside and outside
+the kernel's quotient tables, where every judged batch drops, where drops
+reach into carried prefixes, with no arrivals, and from 1 device to
+2,000; ``serve_fleet(
 fused=True)`` on the card makes the CPU backend's decisions with one
 ``fused_window`` launch per window and no K1 launch.
 The tiled matmul meets its plain version within ``tests/test_kernels.py``'s
@@ -648,6 +653,145 @@ def test_cuda_fused_window_builds_once_across_shapes(hopper):
     assert build._LIBS["fused_window"] is lib
     assert path.stat().st_mtime_ns == mtime
     assert len(list(path.parent.glob("libfused_window-*.so"))) >= 1
+
+
+def grid_of_bs(grid, b):
+    """``grid``'s entries of batch size ``b`` alone."""
+    from repro_torch.core.grid_eval import ObservationGrid
+    keep = np.flatnonzero(grid.bs == b)
+    return ObservationGrid([grid.modes[i] for i in keep], grid.t[keep],
+                           grid.p[keep], grid.bs[keep])
+
+
+def scaled_bs_grid(grid, how):
+    """``grid`` with its batch sizes times 4 (largest 256), times 5
+    (largest 320) or plus one half."""
+    from repro_torch.core.grid_eval import ObservationGrid
+    bs = {"x4": grid.bs * 4, "x5": grid.bs * 5, "half": grid.bs + 0.5}[how]
+    return ObservationGrid(list(grid.modes), grid.t, grid.p, bs)
+
+
+def _long_rows(grid, seed, T):
+    """``fused_window_case`` of 6 devices whose devices 1-3 are busy and
+    plannable with T, T - 1 and T - 2 arrivals and no carried prefix."""
+    args = list(fused_window_case(grid, seed, 6))
+    rng = np.random.default_rng(seed)
+    args[9] = list(args[9])
+    for d in (1, 2, 3):
+        args[9][d] = np.sort(6.0 + rng.uniform(0.0, 30.0, T + 1 - d))
+        args[10][d] = 0
+    args[5][1:4] = args[6][1:4] = 400.0
+    args[7] = args[5] > 0.0
+    args[2][1:4], args[3][1:4], args[4][1:4] = 45.0, 0.3, 0.3
+    args[13] = 0.3
+    return args
+
+
+@pytest.mark.parametrize("trims", [True, False])
+@pytest.mark.parametrize("bs", [1, 64])
+def test_cuda_fused_window_at_one_batch_size(hopper, bs, trims):
+    """A grid of one batch size: bs = 1 (every arrival is a batch, judged
+    on its own) and the grid's largest, with latency budgets of 0.6 s and
+    an admission budget of 0.3 s, so that devices plan at bs = 64 too."""
+    grid = grid_of_bs(_fused_grid(), bs)
+    args = list(fused_window_case(grid, 7, 48))
+    args[3] = args[4] = np.full(48, 0.6)
+    args[13] = 0.3
+    g = _fused_kernel_vs_plain(hopper, grid, args, trims)
+    s = g["solved"]
+    assert s.any() and (grid.bs[g["sel"][s]] == bs).all()
+    assert g["n_batches"][s].any() and g["n_rej"].any() == trims
+
+
+@pytest.mark.parametrize("how", ["x4", "x5", "half"])
+def test_cuda_fused_window_with_and_without_the_quotient_tables(hopper, how):
+    """The ladder reads (bs - 1) / est, bs / est and the same over hi from
+    per-block tables where bs is a whole number up to max_bs <= 256 (x4:
+    max_bs 256, the tables' last entry), and divides where it is not (x5:
+    max_bs 320; half: no whole bs); every rung decides some device."""
+    grid = scaled_bs_grid(_fused_grid(), how)
+    g = _fused_kernel_vs_plain(hopper, grid, fused_window_case(grid, 17, 48),
+                               True)
+    assert set(g["rung"].tolist()) == {0, 1, 2, 3, 4}
+    assert g["n_batches"].any()
+
+
+@pytest.mark.parametrize("bs", [None, 1])
+def test_cuda_fused_window_where_every_judged_batch_drops(hopper, bs):
+    """A zero admission budget: every member of every batch judged waits
+    past it (t_in > 1e-12), so only a trailing partial batch is admitted,
+    and at bs = 1 every arrival drops."""
+    grid = _fused_grid() if bs is None else grid_of_bs(_fused_grid(), bs)
+    args = list(fused_window_case(grid, 9, 32))
+    args[13] = 0.0
+    g = _fused_kernel_vs_plain(hopper, grid, args, True)
+    s = g["solved"]
+    n = np.array([len(v) for v in args[9]])
+    assert s.any() and not g["n_batches"][s].any()
+    assert (g["n_rej"][s] + g["n_adm"][s] == n[s]).all()
+    assert (g["n_adm"][s] < grid.bs[g["sel"][s]]).all()
+    if bs == 1:
+        assert not g["n_adm"].any() and g["n_rej"][s].sum() == n[s].sum()
+
+
+def test_cuda_fused_window_drops_reach_into_the_carried_prefix(hopper):
+    grid = _fused_grid()
+    args = fused_window_case(grid, 11, 64)
+    g = _fused_kernel_vs_plain(hopper, grid, args, True)
+    assert (g["n_carry_rej"] > 0).sum() > 1
+    assert (g["n_carry_rej"] <= np.minimum(args[10], g["n_rej"])).all()
+
+
+@pytest.mark.parametrize("trims", [True, False])
+def test_cuda_fused_window_with_no_arrivals(hopper, trims):
+    grid = _fused_grid()
+    args = list(fused_window_case(grid, 1, 8))
+    args[9] = [np.empty(0)] * 8
+    args[10] = np.zeros(8, np.int64)
+    g = _fused_kernel_vs_plain(hopper, grid, args, trims)
+    assert g["solved"].any() and g["latencies"].shape == (8, 0)
+    assert (g["clock_out"] == g["clock_in"]).all()
+
+
+@pytest.mark.parametrize("extra", [0, 1])
+def test_cuda_fused_window_at_the_staging_limit(hopper, extra):
+    """Rows of exactly ``STAGE_MAX_T`` arrivals (the last staged length)
+    and one more (the first on the global route), each launch on the
+    route ``route`` names."""
+    grid = _fused_grid()
+    T = KF.STAGE_MAX_T + extra
+    args = _long_rows(grid, 5 + extra, T)
+    before = dict(KF.fused_window.routes)
+    g = _fused_kernel_vs_plain(hopper, grid, args, True)
+    from repro_torch.core import fused_window as FW
+    way = KF.route(6, T, len(grid), FW._grid_max_bs(grid))
+    assert way == ("staged", "global")[extra]
+    assert {r: n - before[r] for r, n in KF.fused_window.routes.items()} \
+        == {r: int(r == way) for r in KF.ROUTES}
+    assert g["solved"][1:4].all() and g["n_rej"][1:4].any()
+    assert g["n_adm"][1:4].max() > KF.STAGE_MAX_T - 100
+
+
+@pytest.mark.parametrize("K", [1, 2000])
+def test_cuda_fused_window_from_one_device_to_more_than_stay_resident(
+        hopper, K):
+    """One device (the K = 8 case's device 5, which plans, drops and
+    commits), and 2,000: more blocks than the card holds at once."""
+    grid = _fused_grid()
+    args = fused_window_case(grid, 13, 8 if K == 1 else K)
+    if K == 1:
+        args = [a if np.isscalar(a) else a[5:6] for a in args]
+    g = _fused_kernel_vs_plain(hopper, grid, args, True)
+    assert g["solved"].any() and g["n_batches"].any() and g["n_rej"].any()
+
+
+def test_cuda_fused_window_launcher_takes_the_wrappers_route(hopper):
+    lib = build.load("fused_window", KF._SIGNATURES)
+    assert lib.fused_window_stage_max_t() == KF.STAGE_MAX_T
+    for T in (0, 1, KF.STAGE_MAX_T, KF.STAGE_MAX_T + 1, 1 << 30):
+        for K, N, mb in ((0, 1, 1), (1, 2205, 64), (2000, 1, KF.MAX_RING)):
+            assert KF.ROUTES[lib.fused_window_route(K, T, N, mb)] == \
+                KF.route(K, T, N, mb)
 
 
 def _attn_close(got, want, dtype, what):

@@ -204,6 +204,46 @@ def test_wrapper_refuses_what_the_kernel_does_not_take():
         call(*(x.to("meta") for x in (t, p, bsf, ids, rows)))
 
 
+@pytest.mark.parametrize("devices, T, N, max_bs, way", [
+    (0, 0, 1, 1, "staged"),
+    (512, 1, 2205, 64, "staged"),
+    (2000, K.STAGE_MAX_T, 1, K.MAX_RING, "staged"),
+    (1, K.STAGE_MAX_T + 1, 2205, 1, "global"),
+    (64, 1 << 30, 2205, 64, "global")])
+def test_route_is_a_rule_of_the_row_length(devices, T, N, max_bs, way):
+    """``route`` stages rows of up to ``STAGE_MAX_T`` arrivals in shared
+    memory and takes the global rows past it, whatever K, N and max_bs."""
+    assert K.route(devices, T, N, max_bs) == way
+    assert K.ROUTES == ("staged", "global")
+
+
+@pytest.mark.parametrize("devices, T, N, max_bs", [
+    (-1, 1, 1, 1), (1, -1, 1, 1), (1, 1, 0, 1), (1, 1, 1, 0),
+    (1, 1, 1, K.MAX_RING + 1)])
+def test_route_refuses_what_the_launcher_refuses(devices, T, N, max_bs):
+    with pytest.raises(ValueError):
+        K.route(devices, T, N, max_bs)
+
+
+def test_the_diagnostic_build_is_a_library_of_its_own(tmp_path,
+                                                       monkeypatch):
+    """``fused_window_stamps`` compiles ``csrc/fused_window.cu`` with
+    ``-DKF_STAMPS`` into a library of another name, which no wrapper
+    loads; an edit to the source names a new library for both."""
+    from repro_torch.kernels import build
+    for f in build.CSRC.iterdir():
+        (tmp_path / f.name).write_bytes(f.read_bytes())
+    monkeypatch.setattr(build, "CSRC", tmp_path)
+    names = ("fused_window", "fused_window_stamps")
+    before = [build.library_path(n) for n in names]
+    assert before[0] != before[1] and names[1] not in build.SOURCES
+    src = tmp_path / "fused_window.cu"
+    assert b"#ifdef KF_STAMPS" in src.read_bytes()
+    src.write_bytes(src.read_bytes() + b"\n// edited\n")
+    after = [build.library_path(n) for n in names]
+    assert all(a != b for a, b in zip(before, after))
+
+
 # ---------------------------------------------------------------------------
 # serve_fleet(fused=True): the reference's fused matrix
 # ---------------------------------------------------------------------------
